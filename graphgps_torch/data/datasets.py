@@ -1,0 +1,134 @@
+"""Dataset loading for the port's one path: PCQM4Mv2 and the synthetic
+zinc-like family it falls back to.
+
+Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like``,
+the same generator and the same random stream, so both packages see the same
+graphs for one seed), ``data/datasets/real.py`` (the PCQM4Mv2 → synthetic
+fallback) and ``data/datasets/base.py`` (``DatasetSplits``, ``load_dataset``
+with the PE precompute).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import List
+
+import numpy as np
+
+from ..pe.host import compute_posenc
+from .graph import Graph
+
+log = logging.getLogger("graphgps_torch")
+
+
+@dataclasses.dataclass
+class DatasetSplits:
+    train: List[Graph]
+    val: List[Graph]
+    test: List[Graph]
+
+    @property
+    def all_graphs(self) -> List[Graph]:
+        return self.train + self.val + self.test
+
+
+def _random_molecule(rng: np.random.Generator, n_min: int, n_max: int,
+                     num_node_types: int, num_edge_types: int) -> Graph:
+    n = int(rng.integers(n_min, n_max + 1))
+    # random spanning tree + a few extra cycle edges — molecule-like sparsity
+    senders, receivers = [], []
+    for v in range(1, n):
+        u = int(rng.integers(0, v))
+        senders += [u, v]
+        receivers += [v, u]
+    n_extra = int(rng.integers(0, max(1, n // 8) + 1))
+    for _ in range(n_extra):
+        u, v = rng.integers(0, n, size=2)
+        if u != v:
+            senders += [int(u), int(v)]
+            receivers += [int(v), int(u)]
+    ei = np.stack([np.array(senders, dtype=np.int64),
+                   np.array(receivers, dtype=np.int64)])
+    x = rng.integers(0, num_node_types, size=(n, 1)).astype(np.int64)
+    e = rng.integers(0, num_edge_types, size=(ei.shape[1], 1)).astype(np.int64)
+    return Graph(node_feat=x, edge_index=ei, edge_feat=e)
+
+
+def _graph_label(g: Graph, num_node_types: int, w: np.ndarray) -> float:
+    """Smooth structure+feature-dependent scalar target."""
+    n = g.num_nodes
+    deg = np.zeros(n)
+    np.add.at(deg, g.edge_index[1], 1)
+    type_hist = np.bincount(g.node_feat[:, 0], minlength=num_node_types) / max(n, 1)
+    feats = np.concatenate([[n / 40.0, g.num_edges / (2.0 * max(n, 1)),
+                             deg.mean() / 4.0, deg.std() / 2.0], type_hist])
+    return float(np.tanh(feats @ w[:feats.shape[0]]) * 2.0)
+
+
+def zinc_like(cfg) -> DatasetSplits:
+    """Graph regression on synthetic molecules (ZINC-like statistics)."""
+    d = cfg.dataset
+    if d.task_type != "regression":
+        raise NotImplementedError(
+            f"dataset.task_type={d.task_type!r}: the port supports graph "
+            "regression only (ROADMAP Queue 1 item 17)")
+    rng = np.random.default_rng(d.synth_seed)
+    n_types, e_types = d.node_encoder_num_types, d.edge_encoder_num_types
+    w = rng.normal(size=(4 + n_types,))
+    graphs = []
+    for _ in range(d.synth_num_graphs):
+        g = _random_molecule(rng, d.synth_min_nodes, d.synth_max_nodes,
+                             n_types, e_types)
+        tasks = max(1, d.synth_num_tasks)
+        y = np.array([_graph_label(g, n_types, np.roll(w, t))
+                      for t in range(tasks)], dtype=np.float32)
+        g.y = y if tasks > 1 else y[:1]
+        graphs.append(g)
+    frac = d.split if len(d.split) == 3 else (0.8, 0.1, 0.1)
+    n = len(graphs)
+    a = int(n * frac[0])
+    b = a + int(n * frac[1])
+    return DatasetSplits(train=graphs[:a], val=graphs[a:b], test=graphs[b:])
+
+
+def _pcqm4mv2(cfg) -> DatasetSplits:
+    """PCQM4Mv2: the real files are not in the repository, so the run takes
+    the same synthetic stand-in as the JAX loader's fallback."""
+    root = os.path.join(cfg.dataset.dir, "pcqm4m-v2")
+    if (os.path.exists(os.path.join(root, "processed.npz"))
+            or os.path.exists(os.path.join(root, "raw", "data.csv.gz"))):
+        raise NotImplementedError(
+            f"real PCQM4Mv2 files found under {root}: reading them is not "
+            "ported yet (ROADMAP Queue 1 item 19)")
+    if not cfg.dataset.get("synthetic_fallback", True):
+        raise FileNotFoundError(
+            f"dataset {cfg.dataset.format}/{cfg.dataset.name} not found under "
+            f"{cfg.dataset.dir} and synthetic_fallback is disabled")
+    log.warning("dataset %s/%s not cached under %s — substituting synthetic "
+                "zinc-like", cfg.dataset.format, cfg.dataset.name,
+                cfg.dataset.dir)
+    return zinc_like(cfg)
+
+
+def load_dataset(cfg) -> DatasetSplits:
+    fmt, name = cfg.dataset.format, cfg.dataset.name
+    if fmt.startswith("synthetic"):
+        if fmt not in ("synthetic", "synthetic-zinc-like"):
+            raise NotImplementedError(
+                f"dataset.format={fmt!r} is not ported (ROADMAP Queue 1 "
+                "item 14)")
+        splits = zinc_like(cfg)
+    elif ((fmt == "OGB" and name.startswith("PCQM4Mv2-"))
+            or fmt in ("OGB-LSC", "PCQM4Mv2")):
+        splits = _pcqm4mv2(cfg)
+    else:
+        raise NotImplementedError(
+            f"dataset {fmt}/{name} is not ported yet (ROADMAP Queue 1 "
+            "items 12-19)")
+    if cfg.dataset.split_mode != "standard":
+        raise NotImplementedError(
+            f"dataset.split_mode={cfg.dataset.split_mode!r} is not ported "
+            "(ROADMAP Queue 1 item 19)")
+    compute_posenc(splits.all_graphs, cfg)
+    return splits

@@ -1,0 +1,175 @@
+"""Batch assembly on the device: upload a split's arenas once, then send
+only the (B,) graph indices per step.
+
+Counterparts: ``graphgps_tpu/data/batching.py`` (``round_up`` :20,
+``choose_caps`` :47) and ``graphgps_tpu/data/device_loader.py``
+(``DeviceArenas`` :62, ``assemble_impl`` :162, ``DeviceLoader`` :234). The
+layout is the same, array for array:
+
+- node rows: ``arena[node_off[sel] + j]`` for ``j < max_nodes``, masked;
+- edges: per-graph blocks of ``Ecap`` slots holding graph-local endpoints
+  plus the graph's slot base, sorted by receiver at pack time; a padded edge
+  points at the last real node of its own graph;
+- a partial last batch is padded with graph index −1, which reads the last
+  graph's arrays (as numpy/JAX negative indexing does) under
+  ``graph_mask`` False, with NaN targets and zeroed features.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .graph import Graph, GraphBatch
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def choose_caps(graphs: Sequence[Graph], node_multiple: int = 8,
+                edge_multiple: int = 32) -> tuple:
+    """Static (max_nodes, max_edges-per-graph) caps for a dataset: the
+    dataset maxima rounded up, large node caps to a multiple of 128."""
+    max_n = max((g.num_nodes for g in graphs), default=1)
+    max_e = max((g.num_edges for g in graphs), default=1)
+    n_cap = round_up(max(max_n, 1), node_multiple)
+    if n_cap >= 256:
+        n_cap = round_up(n_cap, 128)
+    return n_cap, round_up(max(max_e, 1), edge_multiple)
+
+
+class DeviceArenas:
+    """One split's graphs packed into device-resident arrays, with each
+    graph's edges in a block of ``edge_cap`` slots."""
+
+    def __init__(self, graphs: Sequence[Graph], device,
+                 edge_cap: Optional[int] = None):
+        G = len(graphs)
+        g0 = graphs[0]
+        max_e = max((g.num_edges for g in graphs), default=1)
+        self.max_nodes_raw = max(g.num_nodes for g in graphs)
+        self.edge_cap = edge_cap or round_up(max(max_e, 1), 8)
+        if self.edge_cap < max_e:
+            raise ValueError(f"edge_cap {self.edge_cap} < max graph edges {max_e}")
+        Ecap = self.edge_cap
+
+        node_off = np.zeros(G + 1, np.int64)
+        for i, g in enumerate(graphs):
+            node_off[i + 1] = node_off[i] + g.num_nodes
+        senders = np.zeros((G, Ecap), np.int32)
+        receivers = np.zeros((G, Ecap), np.int32)
+        e_count = np.zeros((G,), np.int64)
+        edge_feat = None
+        if g0.edge_feat is not None:
+            edge_feat = np.zeros((G, Ecap, *g0.edge_feat.shape[1:]), np.int32)
+        for i, g in enumerate(graphs):
+            e = g.num_edges
+            order = np.argsort(g.edge_index[1], kind="stable")
+            senders[i, :e] = g.edge_index[0][order]
+            receivers[i, :e] = g.edge_index[1][order]
+            # padding edges sit on the graph's last node: sortedness holds
+            pad = g.num_nodes - 1 if g.num_nodes else 0
+            senders[i, e:] = pad
+            receivers[i, e:] = pad
+            e_count[i] = e
+            if edge_feat is not None:
+                edge_feat[i, :e] = g.edge_feat[order]
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        self.num_graphs_total = G
+        self.node_off = dev(node_off)
+        self.n_count = dev(node_off[1:] - node_off[:-1])
+        self.e_count = dev(e_count)
+        self.node_feat = dev(np.concatenate(
+            [g.node_feat for g in graphs], axis=0).astype(np.int32))
+        self.senders = dev(senders)
+        self.receivers = dev(receivers)
+        self.edge_feat = dev(edge_feat) if edge_feat is not None else None
+        self.pe = {k: dev(np.concatenate([g.pe[k] for g in graphs], axis=0)
+                          .astype(np.float32)) for k in g0.pe}
+        self.y = None
+        if g0.y is not None:
+            self.y = dev(np.stack([np.atleast_1d(np.asarray(g.y, np.float32))
+                                   for g in graphs]))
+
+    def assemble(self, sel: torch.Tensor, max_nodes: int) -> GraphBatch:
+        """(B,) int64 graph indices on the device (−1 = padding) → batch."""
+        B, Nmax, Ecap = sel.shape[0], max_nodes, self.edge_cap
+        dev = sel.device
+        off = self.node_off[sel]
+        ncnt = self.n_count[sel]
+        ecnt = self.e_count[sel]
+        gmask = sel >= 0
+
+        j = torch.arange(Nmax, device=dev)[None, :]
+        node_idx = off[:, None] + torch.minimum(
+            j, torch.clamp(ncnt[:, None] - 1, min=0))
+        # a padded graph starts past the arena end: clamp, it is masked
+        node_idx = node_idx.clamp(max=self.node_feat.shape[0] - 1).reshape(-1)
+        node_mask = ((j < ncnt[:, None]) & gmask[:, None]).reshape(-1)
+        nf = torch.where(node_mask[:, None], self.node_feat[node_idx], 0)
+
+        k = torch.arange(Ecap, device=dev)[None, :]
+        emask = ((k < ecnt[:, None]) & gmask[:, None]).reshape(-1)
+        base = (torch.arange(B, device=dev, dtype=torch.int32) * Nmax)[:, None]
+        snd = (self.senders[sel] + base).reshape(-1)
+        rcv = (self.receivers[sel] + base).reshape(-1)
+        ef = None
+        if self.edge_feat is not None:
+            ef = self.edge_feat[sel].reshape(B * Ecap, -1)
+            ef = torch.where(emask[:, None], ef, 0)
+        pe = {key: torch.where(node_mask[:, None], arena[node_idx], 0.0)
+              for key, arena in self.pe.items()}
+        y = None
+        if self.y is not None:
+            y = torch.where(gmask[:, None], self.y[sel], float("nan"))
+        return GraphBatch(
+            node_feat=nf, edge_feat=ef, senders=snd, receivers=rcv,
+            node_mask=node_mask, edge_mask=emask, graph_mask=gmask, y=y,
+            pe=pe, num_graphs=B, max_nodes=Nmax, edge_block=Ecap)
+
+
+class DeviceLoader:
+    """Epoch iterator yielding ``(real_graphs, GraphBatch)`` assembled on
+    ``device``; only the index vector crosses from the host per step."""
+
+    def __init__(self, graphs: Sequence[Graph], batch_size: int, device,
+                 max_nodes: Optional[int] = None,
+                 max_edges: Optional[int] = None, shuffle: bool = False,
+                 seed: int = 0):
+        edge_cap = (-(-max_edges // batch_size)) if max_edges else None
+        self.arenas = DeviceArenas(graphs, device, edge_cap=edge_cap)
+        self.device = torch.device(device)
+        self.batch_size = batch_size
+        if max_nodes:
+            self.max_nodes = max_nodes
+        else:
+            self.max_nodes = round_up(self.arenas.max_nodes_raw, 8)
+            if self.max_nodes >= 256:
+                self.max_nodes = round_up(self.max_nodes, 128)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return -(-self.arenas.num_graphs_total // self.batch_size)
+
+    def __iter__(self) -> Iterator:
+        n = self.arenas.num_graphs_total
+        idx = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            rng.shuffle(idx)
+        self.epoch += 1
+        B = self.batch_size
+        for s in range(0, n, B):
+            chunk = idx[s:s + B]
+            real = len(chunk)
+            if real < B:
+                chunk = np.concatenate([chunk, -np.ones(B - real, np.int64)])
+            sel = torch.as_tensor(chunk, dtype=torch.int64, device=self.device)
+            yield real, self.arenas.assemble(sel, self.max_nodes)

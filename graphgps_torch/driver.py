@@ -1,0 +1,154 @@
+"""Experiment driver: config → loaders → model → evaluation, looped over
+seeds (counterpart of ``graphgps_tpu/driver.py:31-289`` without the
+optimizer).
+
+The entry point runs on the GPU: ``--device`` defaults to ``cuda`` and a
+machine without one raises; ``--device cpu`` runs the kernels' plain
+versions (the tests use it).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import (CfgNode, dump_cfg, load_cfg, new_cfg, update_from_list,
+                     validate_cfg)
+from .data.datasets import DatasetSplits, load_dataset
+from .data.loader import DeviceLoader, choose_caps, round_up
+from .models.networks import build_model
+from .train.loop import TRAIN_MODES
+
+log = logging.getLogger("graphgps_torch")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="graphgps_torch experiment driver")
+    p.add_argument("--cfg", dest="cfg_file", type=str, required=True)
+    p.add_argument("--repeat", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER,
+                   help="dotted config overrides: key value [key value ...]")
+    return p.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: graphgps_torch runs on the GPU "
+                "(pass --device cpu to run the plain PyTorch versions)")
+    elif dev.type != "cpu":
+        raise ValueError(f"--device {name!r}: use cuda or cpu")
+    return dev
+
+
+def set_out_dir(cfg: CfgNode, cfg_file: str) -> None:
+    run_name = os.path.splitext(os.path.basename(cfg_file))[0]
+    if cfg.name_tag:
+        run_name += f"-{cfg.name_tag}"
+    cfg.out_dir = os.path.join(cfg.out_dir, run_name)
+
+
+def run_loop_settings(cfg: CfgNode, repeat: int) -> Tuple[List[int], List[int], List[int]]:
+    """(run_ids, seeds, split_indices): multi-seed XOR multi-split."""
+    if len(cfg.run_multiple_splits) == 0:
+        seeds = [cfg.seed + i for i in range(repeat)]
+        return seeds, seeds, [cfg.dataset.split_index] * repeat
+    if repeat != 1:
+        raise NotImplementedError(
+            "run_multiple_splits and repeat>1 are mutually exclusive")
+    split_indices = list(cfg.run_multiple_splits)
+    return split_indices, [cfg.seed] * len(split_indices), split_indices
+
+
+def infer_dims(cfg: CfgNode, splits: DatasetSplits) -> int:
+    """Output width from the targets (graph regression)."""
+    y0 = np.atleast_1d(splits.train[0].y)
+    cfg.share.dim_in = int(splits.train[0].node_feat.shape[-1])
+    cfg.share.dim_out = max(1, int(y0.reshape(-1).shape[0]))
+    return cfg.share.dim_out
+
+
+def create_loaders(cfg: CfgNode, splits: DatasetSplits,
+                   device) -> Dict[str, DeviceLoader]:
+    """Per-split loaders sharing one (max_nodes, edge block) cap."""
+    if cfg.dataset.task != "graph":
+        raise NotImplementedError(
+            f"dataset.task={cfg.dataset.task!r} is not ported (ROADMAP Queue "
+            "1 item 17)")
+    n_cap, e_cap = choose_caps(splits.all_graphs)
+    max_nodes = cfg.dataset.max_nodes or n_cap
+    bs = cfg.train.batch_size
+    max_edges = cfg.dataset.max_edges or round_up(bs * e_cap, 128)
+    out = {}
+    for name, graphs in (("train", splits.train), ("val", splits.val),
+                         ("test", splits.test)):
+        if graphs:
+            out[name] = DeviceLoader(graphs, bs, device, max_nodes=max_nodes,
+                                     max_edges=max_edges,
+                                     shuffle=(name == "train"), seed=cfg.seed)
+    cfg.share.num_splits = len(out)
+    return out
+
+
+def run_single(cfg: CfgNode, run_dir: str, device: torch.device,
+               prepare_model: Optional[Callable] = None) -> Dict:
+    """One (seed, split) run. ``prepare_model(model)``, when given, sees the
+    seeded model on its device before the evaluation."""
+    mode = cfg.train.mode
+    if mode not in TRAIN_MODES:
+        raise NotImplementedError(
+            f"train.mode={mode!r}: the port evaluates only "
+            f"({sorted(TRAIN_MODES)}); training is the next slice (ROADMAP "
+            "Queue 1 items 8-9)")
+    if cfg.pretrained.dir:
+        raise NotImplementedError(
+            "pretrained.dir: loading a checkpoint is not ported yet (ROADMAP "
+            "Queue 1 item 17)")
+    os.makedirs(run_dir, exist_ok=True)
+    splits = load_dataset(cfg)
+    dim_out = infer_dims(cfg, splits)
+    loaders = create_loaders(cfg, splits, device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg, dim_out)
+    model = model.to(device).eval()
+    cfg.share["params"] = sum(p.numel() for p in model.parameters())
+    log.info("model %s params %d on %s", cfg.model.type, cfg.share.params,
+             device)
+    if prepare_model is not None:
+        prepare_model(model)
+    return TRAIN_MODES[mode](cfg, loaders, model, run_dir)
+
+
+def main(argv=None, prepare_model: Optional[Callable] = None) -> Dict:
+    """Returns {run_id: history}."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = new_cfg()
+    load_cfg(cfg, args.cfg_file)
+    if args.opts:
+        update_from_list(cfg, args.opts)
+    validate_cfg(cfg)
+    set_out_dir(cfg, args.cfg_file)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    dump_cfg(cfg, os.path.join(cfg.out_dir, cfg.cfg_dest))
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    histories = {}
+    for run_id, seed, split_index in zip(*run_loop_settings(cfg, args.repeat)):
+        cfg.seed = seed
+        cfg.run_id = run_id
+        cfg.dataset.split_index = split_index
+        run_dir = os.path.join(cfg.out_dir, str(run_id))
+        log.info("=== run %s (seed %d, split %d) ===", run_id, seed,
+                 split_index)
+        histories[run_id] = run_single(cfg, run_dir, device, prepare_model)
+    return histories

@@ -1,0 +1,86 @@
+"""Regression metrics (the port's copy of the regression branch of
+``graphgps_tpu/metrics.py``: ``mae`` :24 … ``compute_task_metrics`` :219).
+NaN targets mark missing labels and are left out."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def mae(pred: np.ndarray, true: np.ndarray) -> float:
+    m = ~np.isnan(true)
+    return float(np.abs(pred[m] - true[m]).mean()) if m.any() else 0.0
+
+
+def mse(pred: np.ndarray, true: np.ndarray) -> float:
+    m = ~np.isnan(true)
+    return float(((pred[m] - true[m]) ** 2).mean()) if m.any() else 0.0
+
+
+def rmse(pred: np.ndarray, true: np.ndarray) -> float:
+    return float(np.sqrt(mse(pred, true)))
+
+
+def r2(pred: np.ndarray, true: np.ndarray) -> float:
+    """Coefficient of determination, uniform average over outputs."""
+    pred = np.atleast_2d(pred.reshape(pred.shape[0], -1))
+    true = np.atleast_2d(true.reshape(true.shape[0], -1))
+    scores = []
+    for c in range(true.shape[1]):
+        t, p = true[:, c], pred[:, c]
+        m = ~np.isnan(t)
+        t, p = t[m], p[m]
+        if t.size < 2:
+            continue
+        ss_res = ((t - p) ** 2).sum()
+        ss_tot = ((t - t.mean()) ** 2).sum()
+        scores.append(1.0 - ss_res / ss_tot if ss_tot > 0 else 0.0)
+    return float(np.mean(scores)) if scores else 0.0
+
+
+def _rankdata(x: np.ndarray) -> np.ndarray:
+    """Average ranks (ties averaged)."""
+    order = np.argsort(x, kind="mergesort")
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(x) + 1)
+    sx = x[order]
+    i = 0
+    while i < len(sx):
+        j = i
+        while j + 1 < len(sx) and sx[j + 1] == sx[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = ranks[order[i:j + 1]].mean()
+        i = j + 1
+    return ranks
+
+
+def pearsonr(pred: np.ndarray, true: np.ndarray) -> float:
+    m = ~np.isnan(true.ravel())
+    p, t = pred.ravel()[m], true.ravel()[m]
+    if p.size < 2:
+        return 0.0
+    p = p - p.mean()
+    t = t - t.mean()
+    denom = np.sqrt((p ** 2).sum() * (t ** 2).sum())
+    return float((p * t).sum() / denom) if denom > 0 else 0.0
+
+
+def spearmanr(pred: np.ndarray, true: np.ndarray) -> float:
+    m = ~np.isnan(true.ravel())
+    p, t = pred.ravel()[m], true.ravel()[m]
+    if p.size < 2:
+        return 0.0
+    return pearsonr(_rankdata(p), _rankdata(t))
+
+
+def compute_task_metrics(task_type: str, pred: np.ndarray,
+                         true: np.ndarray) -> Dict[str, float]:
+    if task_type != "regression":
+        raise NotImplementedError(
+            f"metrics for task_type={task_type!r} are not ported (ROADMAP "
+            "Queue 1 item 17)")
+    return dict(mae=mae(pred, true), mse=mse(pred, true),
+                rmse=rmse(pred, true), r2=r2(pred, true),
+                spearmanr=spearmanr(pred, true))

@@ -1,0 +1,51 @@
+"""Graph pooling and the san_graph head (counterpart of
+``graphgps_tpu/models/heads.py``: ``global_mean_pool`` :38,
+``SANGraphHead`` :67-89)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..data.graph import GraphBatch
+from .common import get_act
+
+
+def _masked_dense(x, batch: GraphBatch):
+    xd = batch.dense_view(x)
+    m = batch.dense_view(batch.node_mask)[..., None]
+    return torch.where(m, xd, 0.0), m
+
+
+def global_add_pool(x, batch: GraphBatch):
+    return _masked_dense(x, batch)[0].sum(dim=1)
+
+
+def global_mean_pool(x, batch: GraphBatch):
+    xd, m = _masked_dense(x, batch)
+    return xd.sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-6)
+
+
+POOLING = {"add": global_add_pool, "mean": global_mean_pool}
+
+
+class SANGraphHead(nn.Module):
+    """Pool → (layers − 1) halving Linears with activation → output Linear.
+    Like the JAX head it ignores ``gnn.layers_post_mp`` and uses relu."""
+
+    def __init__(self, dim_in: int, dim_out: int, pooling: str = "add",
+                 layers: int = 3, act: str = "relu"):
+        super().__init__()
+        if pooling not in POOLING:
+            raise NotImplementedError(f"graph_pooling {pooling!r} is not ported")
+        self.pool = POOLING[pooling]
+        self.act = get_act(act)
+        dims = [dim_in // 2 ** i for i in range(layers)]
+        self.hidden = nn.ModuleList(nn.Linear(a, b)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        self.out = nn.Linear(dims[-1], dim_out)
+
+    def forward(self, batch: GraphBatch, x):
+        g = self.pool(x, batch)
+        for lin in self.hidden:
+            g = self.act(lin(g))
+        return self.out(g), batch.y

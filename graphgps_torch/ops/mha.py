@@ -1,0 +1,32 @@
+"""Dense masked multi-head attention for padded graph batches
+(counterpart of ``graphgps_tpu/ops/mha.py:35-75``). The plain version of the
+layer front uses it."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def mha_core(q, k, v, key_mask, scale: Optional[float] = None):
+    """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool. Masked keys get
+    ``-1e30`` (not ``-inf``), so a graph with no real node still gives
+    finite, uniform weights. Softmax in f32. Returns (B, H, N, Dh)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhnd,bhmd->bhnm", q * scale, k)
+    logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
+    attn = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)
+
+
+def split_heads(x, num_heads: int):
+    B, N, D = x.shape
+    return x.reshape(B, N, num_heads, D // num_heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(x):
+    B, H, N, Dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, N, H * Dh)

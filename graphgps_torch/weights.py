@@ -1,0 +1,126 @@
+"""Carry a JAX GPSModel's flax variables over to the port's state dict.
+
+Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
+numpy arrays (``jax.device_get`` of the variables). A flax ``Dense`` kernel
+is (in, out): the GPS layers keep it so, since their kernels take that
+layout, and the encoder's and head's ``nn.Linear`` weights take it
+transposed (out, in); an ``Embed`` table stays as it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
+running ``mean``/``var`` (biased) become ``weight``/``bias`` and
+``running_mean``/``running_var``. The layer stack may be unrolled
+(``GPSLayer_<i>``, or ``CheckpointGPSLayer_<i>`` under remat) or stacked on
+axis 0 under ``nn.scan`` (``...GPSScanBody_0/GPSLayer_0``).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_UNROLLED = re.compile(r"^(?:Checkpoint)?GPSLayer_(\d+)$")
+
+
+def _linear(out: dict, prefix: str, dense: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(dense["kernel"]).T
+    out[f"{prefix}.bias"] = np.asarray(dense["bias"])
+
+
+def _bn(out: dict, prefix: str, params: dict, stats: dict) -> None:
+    out[f"{prefix}.weight"] = params["scale"]
+    out[f"{prefix}.bias"] = params["bias"]
+    out[f"{prefix}.running_mean"] = stats["mean"]
+    out[f"{prefix}.running_var"] = stats["var"]
+
+
+def _norm(out: dict, prefix: str, params: dict, stats: dict, name: str):
+    _bn(out, prefix, params[name]["MaskedBatchNorm_0"],
+        stats[name]["MaskedBatchNorm_0"])
+
+
+def gps_layer_state_dict(p: dict, s: dict, prefix: str = "") -> dict:
+    """One GPSLayer's flax params/batch_stats → the port's ``GPSLayer``
+    state dict (numpy values), keys prefixed with ``prefix``. The port keeps
+    flax's (in, out) layout here; the GatedGCN's Dense_0..4 are A..E, and
+    the front's joint weight is ``[A|D|E|B|Wq|Wk|Wv]``."""
+    out: dict = {}
+    g, gs = p["GatedGCNLayer_0"], s["GatedGCNLayer_0"]
+    dense = {lin: g[f"Dense_{i}"] for i, lin in enumerate("ABCDE")}
+    d = p["qkv_kernel"].shape[0]
+    out[f"{prefix}.w_front"] = np.concatenate(
+        [np.asarray(dense[k]["kernel"]) for k in "ADEB"]
+        + [np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)], axis=1)
+    out[f"{prefix}.b_front"] = np.concatenate(
+        [np.asarray(dense[k]["bias"]) for k in "ADEB"]
+        + [np.asarray(p["qkv_bias"]).reshape(3 * d)])
+    out[f"{prefix}.local.w_c"] = dense["C"]["kernel"]
+    out[f"{prefix}.local.b_c"] = dense["C"]["bias"]
+    _norm(out, f"{prefix}.local.norm_x", g, gs, "Norm_0")
+    _norm(out, f"{prefix}.local.norm_e", g, gs, "Norm_1")
+    out[f"{prefix}.w_out"] = p["out_kernel"]
+    out[f"{prefix}.b_out"] = p["out_bias"]
+    _norm(out, f"{prefix}.norm_attn", p, s, "Norm_0")
+    for i in (1, 2):
+        out[f"{prefix}.w_ffn{i}"] = p[f"Dense_{i - 1}"]["kernel"]
+        out[f"{prefix}.b_ffn{i}"] = p[f"Dense_{i - 1}"]["bias"]
+    _norm(out, f"{prefix}.norm_out", p, s, "Norm_1")
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _layer_trees(params: dict, stats: dict):
+    """[(params, batch_stats)] per layer, in order."""
+    scan = [k for k in params if k.endswith("GPSScanBody_0")]
+    if scan:
+        p, s = params[scan[0]]["GPSLayer_0"], stats[scan[0]]["GPSLayer_0"]
+        n = np.asarray(p["out_bias"]).shape[0]
+        return [(_index(p, i), _index(s, i)) for i in range(n)]
+    found = sorted((int(m.group(1)), k) for k in params
+                   if (m := _UNROLLED.match(k)))
+    return [(params[k], stats[k]) for _, k in found]
+
+
+def state_dict_from_flax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    out: dict = {}
+    fe, fs = params["FeatureEncoder_0"], batch_stats["FeatureEncoder_0"]
+    for enc, name in (("atom", "AtomEncoder_0"), ("bond", "BondEncoder_0")):
+        for k, v in fe[name].items():
+            i = int(k.split("_")[1])
+            out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
+    rw, rws = fe["RWSENodeEncoder_0"], fs["RWSENodeEncoder_0"]
+    if "MaskedBatchNorm_0" in rw:
+        _bn(out, "encoder.rwse.raw_norm", rw["MaskedBatchNorm_0"],
+            rws["MaskedBatchNorm_0"])
+    _linear(out, "encoder.rwse.proj", rw["Dense_0"])
+    for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
+        out.update(gps_layer_state_dict(p, s, f"layers.{i}"))
+    head = params["SANGraphHead_0"]
+    n = len(head)
+    for i in range(n - 1):
+        _linear(out, f"head.hidden.{i}", head[f"Dense_{i}"])
+    _linear(out, "head.out", head[f"Dense_{n - 1}"])
+    return to_torch(out)
+
+
+def to_torch(sd: dict) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def load_flax(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
+    """Load the flax variables into ``model``. Every flax leaf must land; the
+    only port tensors allowed to stay as initialized are embedding tables for
+    feature columns the JAX model never saw (it creates one per column of the
+    data)."""
+    sd = state_dict_from_flax(params, batch_stats)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    stray = [k for k in missing
+             if not re.match(r"encoder\.(atom|bond)\.embeddings\.\d+\.weight$", k)]
+    if unexpected or stray:
+        raise KeyError(f"flax → torch mismatch: unexpected {unexpected}, "
+                       f"missing {stray}")

@@ -1,0 +1,167 @@
+"""The port's three kernel functions on the CPU (their plain versions)
+against the JAX package's Pallas kernels in interpret mode, on the same
+numpy inputs: ``fused_gps_front`` (rate 0), ``fused_pre_tail`` and
+``fused_combine_ffn``. f32 throughout; tolerance rtol = atol = 1e-5 (the
+sums run in another order; gelu's erf is exact here and a rational
+approximation with |err| < 1.5e-7 inside the TPU kernels)."""
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+RTOL = ATOL = 1e-5
+
+
+def front_inputs(B=8, N=16, E=32, d=128, H=4, seed=0):
+    """Blocked-layout inputs of the layer front, numpy. Graph 0 is a padded
+    graph (no real node, no real edge: the partial-last-batch case); a
+    padded edge points at node 0 of its own graph."""
+    rng = np.random.default_rng(seed)
+    nreal = rng.integers(2, N + 1, size=B)
+    ereal = rng.integers(1, E + 1, size=B)
+    nreal[0] = ereal[0] = 0
+    s = np.zeros((B, E), np.int32)
+    r = np.zeros((B, E), np.int32)
+    em = np.zeros((B, E), np.float32)
+    nm = np.zeros((B, N), np.float32)
+    for g in range(B):
+        nm[g, :nreal[g]] = 1.0
+        k = ereal[g]
+        s[g, :k] = rng.integers(0, nreal[g], size=k)
+        r[g, :k] = rng.integers(0, nreal[g], size=k)
+        em[g, :k] = 1.0
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    w = lambda i, o: (rng.standard_normal((i, o)) / np.sqrt(i)).astype(np.float32)  # noqa
+    return dict(x=f(B, N, d), e=f(B, E, d), s_loc=s, r_loc=r, emask=em,
+                nmask=nm, cx=0.1 * f(d), cg=0.1 * f(d), ca=0.1 * f(d),
+                wnq=w(d, 7 * d), bnq=0.1 * f(7 * d), wc=w(d, d), bc=0.1 * f(d),
+                wo=w(d, d), bo=0.1 * f(d), H=H,
+                scale=1.0 / float(d // H) ** 0.5)
+
+
+_ORDER = ("x", "e", "s_loc", "r_loc", "emask", "nmask", "cx", "cg", "ca",
+          "wnq", "bnq", "wc", "bc", "wo", "bo")
+
+
+def test_gps_front_matches_jax():
+    import jax.numpy as jnp
+    from graphgps_tpu.ops.pallas.fused_layer import fused_gps_front as jfront
+    from graphgps_torch.ops.kernels import fused_gps_front
+
+    a = front_inputs()
+    want = jfront(*(jnp.asarray(a[k]) for k in _ORDER),
+                  jnp.zeros((), jnp.int32), a["H"], a["scale"], 0.0, 0.0)
+    got = fused_gps_front(*(torch.from_numpy(a[k]) for k in _ORDER), 0,
+                          a["H"], a["scale"], 0.0, 0.0)
+    names = ("x_new", "gate", "s_attn", "px", "pg", "pa")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == tuple(w.shape), name
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_pre_tail_matches_jax(act):
+    import jax.numpy as jnp
+    from graphgps_tpu.ops.pallas.fused_tail import fused_pre_tail as jtail
+    from graphgps_torch.ops.kernels import fused_pre_tail
+
+    rng = np.random.default_rng(1)
+    R, d = 256, 128
+    x, v = (rng.standard_normal((R, d)).astype(np.float32) for _ in range(2))
+    mu, gamma, beta = (rng.standard_normal(d).astype(np.float32)
+                       for _ in range(3))
+    inv = (0.5 + rng.random(d)).astype(np.float32)
+    args = (x, v, mu, inv, gamma, beta)
+    want = jtail(*map(jnp.asarray, args), jnp.zeros((), jnp.int32), 0.0, act)
+    got = fused_pre_tail(*map(torch.from_numpy, args), 0, 0.0, act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_combine_ffn_matches_jax(act):
+    import jax.numpy as jnp
+    from graphgps_tpu.ops.pallas.fused_combine import (fused_combine_ffn
+                                                       as jcomb)
+    from graphgps_torch.ops.kernels import fused_combine_ffn
+
+    rng = np.random.default_rng(2)
+    R, d, dh = 128, 128, 256
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    inv = lambda: (0.5 + rng.random(d)).astype(np.float32)  # noqa: E731
+    args = (f(R, d), f(R, d), f(d), inv(), f(d), f(d),
+            f(R, d), f(d), inv(), f(d), f(d),
+            (f(d, dh) / np.sqrt(d)).astype(np.float32), f(dh),
+            (f(dh, d) / np.sqrt(dh)).astype(np.float32), f(d))
+    want = jcomb(*map(jnp.asarray, args), jnp.zeros((), jnp.int32), 0.0, act)
+    got = fused_combine_ffn(*map(torch.from_numpy, args), 0, 0.0, act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_wrappers_refuse_dropout():
+    from graphgps_torch.ops.kernels import fused_gps_front, fused_pre_tail
+
+    a = front_inputs(B=2, N=8, E=8)
+    with pytest.raises(ValueError, match="dropout"):
+        fused_gps_front(*(torch.from_numpy(a[k]) for k in _ORDER), 0,
+                        a["H"], a["scale"], 0.1, 0.0)
+    t = torch.zeros(8, 4)
+    v = torch.zeros(4)
+    with pytest.raises(ValueError, match="dropout"):
+        fused_pre_tail(t, t, v, v, v, v, 0, 0.1, "relu")
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    """On the card: each kernel against its plain version on the same
+    tensors, and one launch counted per call (f32; rtol = atol = 1e-4 for
+    another summation order; the front's (1, 2d) moment sums, which cancel
+    towards 0 in their first half, within 1e-5 of their largest entry).
+
+    Runs on the card without JAX or this directory's conftest:
+    ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
+    tests/test_torch_kernels.py``."""
+    from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
+                                                         fused_combine_ffn)
+    from graphgps_torch.ops.kernels.gps_front import (fused_gps_front,
+                                                       gps_front_plain)
+    from graphgps_torch.ops.kernels.pre_tail import (fused_pre_tail,
+                                                      pre_tail_plain)
+
+    d = 256
+    a = front_inputs(B=16, N=40, E=96, d=d, H=8)
+    front = tuple(torch.from_numpy(a[k]).to(cuda_device) for k in _ORDER)
+    g = torch.Generator().manual_seed(3)
+    f = lambda *s: torch.randn(*s, generator=g).to(cuda_device)  # noqa: E731
+    inv = lambda: (0.5 + torch.rand(d, generator=g)).to(cuda_device)  # noqa
+    R = 16 * 40
+    tail = (f(R, d), f(R, d), f(d), inv(), f(d), f(d))
+    comb = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
+            f(d), f(d), f(d, 2 * d) / 16, f(2 * d), f(2 * d, d) / 23, f(d))
+    for fused, plain, xs, extra in (
+            (fused_gps_front, gps_front_plain, front,
+             (0, a["H"], a["scale"], 0.0, 0.0)),
+            (fused_pre_tail, pre_tail_plain, tail, (0, 0.0, "gelu")),
+            (fused_combine_ffn, combine_ffn_plain, comb, (0, 0.0, "gelu"))):
+        before = fused.launches
+        got, want = fused(*xs, *extra), plain(*xs, *extra)
+        assert fused.launches == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for gt, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(gt, w, rtol=1e-4, atol=1e-4)
+        for gt, w in zip(got[3:], want[3:]):
+            torch.testing.assert_close(gt, w, rtol=0.0,
+                                       atol=1e-5 * float(w.abs().max()))

@@ -1,0 +1,106 @@
+"""The port's entry point and its import hygiene.
+
+- ``python -m graphgps_torch.main --device cpu`` on the GPS-deep recipe cut
+  to test size evaluates every split and writes ``stats.json``;
+- without ``--device`` the entry point runs on the GPU, so a machine with
+  no CUDA device raises instead of carrying on on the CPU;
+- ``graphgps_torch`` and ``chip_smoke.py`` import nothing of JAX, flax or
+  ``graphgps_tpu``.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tests.test_torch_data import CFG, SMALL
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphgps_tpu")
+
+
+def test_main_cli_cpu_writes_stats(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-m", "graphgps_torch.main", "--device", "cpu",
+         "--cfg", CFG, *SMALL, "out_dir", str(tmp_path)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    run = tmp_path / "pcqm4m-GPSdeep+RWSE" / "0"
+    for split in ("train", "val", "test"):
+        stats = [json.loads(line) for line in
+                 (run / split / "stats.json").read_text().splitlines()]
+        assert len(stats) == 1 and stats[0]["epoch"] == 0
+        assert 0.0 < stats[0]["mae"] < 10.0
+        assert stats[0]["loss"] == pytest.approx(stats[0]["mae"], rel=1e-4)
+
+
+def test_pcqm4mv2_inference_mode(tmp_path):
+    """The OGB-LSC mode reports MAE on labelled splits (the synthetic
+    stand-in labels every split), agreeing with inference-only's stats."""
+    from graphgps_torch.driver import main
+
+    base = ["--device", "cpu", "--cfg", CFG, *SMALL]
+    lsc = main(base + ["train.mode", "PCQM4Mv2-inference",
+                       "out_dir", str(tmp_path / "a")])[0]
+    ref = main(base + ["out_dir", str(tmp_path / "b")])[0]
+    assert set(lsc) == {"train", "val", "test"}
+    for split, rows in lsc.items():
+        assert rows[0]["n"] > 0
+        assert rows[0]["mae"] == pytest.approx(ref[split][0]["mae"], abs=1e-5)
+
+
+def test_main_without_cuda_raises(tmp_path):
+    from graphgps_torch.driver import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--cfg", CFG, *SMALL, "out_dir", str(tmp_path)])
+
+
+def test_training_mode_raises(tmp_path):
+    from graphgps_torch.driver import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--device", "cpu", "--cfg", CFG, *SMALL, "train.mode", "custom",
+              "out_dir", str(tmp_path)])
+
+
+def _sources():
+    files = sorted((ROOT / "graphgps_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        "import graphgps_torch\n"
+        "for mod in pkgutil.walk_packages(graphgps_torch.__path__,"
+        " 'graphgps_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "import chip_smoke\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
