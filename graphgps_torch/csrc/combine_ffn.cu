@@ -1,20 +1,30 @@
-// GPS layer combine + FFN, forward:
+// GPS layer combine + FFN, forward and backward:
 //
-//   h   = x_in + act(gx * (v - mux) * ivx + bx) + (ga * (s - mua) * iva + ba)
-//   out = h + W2 act(W1 h + b1) + b2                       (R, d) rows
+//   h   = x_in + drop0(act(gx * (v - mux) * ivx + bx)) + (ga * (s - mua) * iva + ba)
+//   out = h + drop2(W2 drop1(act(W1 h + b1)) + b2)           (R, d) rows
 //
 // Replaces the TPU kernel graphgps_tpu/ops/pallas/fused_combine.py:183
-// fused_combine_ffn (forward at :204): the GatedGCN x-tail, the attention
-// branch's norm apply, the branch sum and the whole FFN block. On the main
-// path R = B*N.
+// fused_combine_ffn (forward pallas_call at :204, backward _cf_vjp_bwd :235
+// with its pallas_call at :245): the GatedGCN x-tail, the attention branch's
+// norm apply, the branch sum and the whole FFN block. On the main path
+// R = B*N. Dropout sites (common.cuh): 0 the local tail's (R, d) view, 1 the
+// FFN inner (R, dh) view, 2 the FFN outer (R, d) view.
 //
-// Bound on the H100: the FFN's two products (4*R*d*dh f32 operations), so
-// operations. Design, in launches on the caller's stream: an elementwise
-// prologue forms h; the shared GEMM (gemm.cuh) computes act(h W1 + b1) with the
-// activation in its epilogue, then z W2 + b2 + h with the residual in its
-// epilogue. The (R, dh) intermediate makes a round trip through device memory
-// (about 2*R*dh*4 bytes); keeping it on chip is later work. Dropout is not
-// here: the main path evaluates and the wrapper refuses rates above 0.
+// Bound on the H100: the FFN's products (forward 4*R*d*dh f32 operations,
+// backward twice that), so operations. Design, in launches on the caller's
+// stream. Forward: an elementwise prologue forms h; the shared GEMM (gemm.cuh)
+// computes z = drop1(act(h W1 + b1)) with activation and dropout in its
+// epilogue, then out = drop2(z W2 + b2) + h. When a backward will follow, the
+// forward keeps h, the pre-activation a1 = h W1 + b1 and z (saving them costs
+// 2*R*dh + R*d floats a layer; recomputing would cost a third product).
+// Backward: da2 = drop2(g) with its column sum (db2); du = da2 W2^T (NT GEMM);
+// da1 = drop1(du) * act'(a1) with its column sum (db1); dh = g + da1 W1^T (NT
+// GEMM, residual epilogue); dW1 = h^T da1 and dW2 = z^T da2 (TN GEMMs split
+// over rows); then one pass over dh gives ds_attn, dv_loc and per-chunk
+// partials of the eight norm-vector sums. Every column sum adds per-chunk
+// partials in a fixed order (no float atomics), so two runs give the same
+// bits. The (R, dh) intermediates make round trips through device memory;
+// keeping them on chip, as the TPU kernel does in VMEM, is later work.
 #include "gemm.cuh"
 
 namespace ggps {
@@ -27,15 +37,79 @@ __global__ void combine_prologue_kernel(
     const float* __restrict__ sa, const float* __restrict__ mua,
     const float* __restrict__ iva, const float* __restrict__ gaa,
     const float* __restrict__ bea, float* __restrict__ h, long long total, int d,
-    int act) {
+    int act, Drop drop0) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
     const int c = (int)(i % d);
-    const float a = apply_act((v[i] - mux[c]) * ivx[c] * gax[c] + bex[c], act);
+    const float a = drop_apply(
+        drop0, i, apply_act((v[i] - mux[c]) * ivx[c] * gax[c] + bex[c], act));
     const float ha = (sa[i] - mua[c]) * iva[c] * gaa[c] + bea[c];
     h[i] = x_in[i] + a + ha;
   }
+}
+
+// out = drop(in) * act'(aux) (aux optional), with per-chunk column partials
+// of out. out may alias in.
+__global__ void __launch_bounds__(COLS* ROW_WARPS)
+drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
+                 float* __restrict__ part, int R, int n, int act, Drop drop) {
+  const int c = blockIdx.x * COLS + threadIdx.x;
+  const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
+  float acc[1] = {0.0f};
+  if (c < n) {
+    for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS) {
+      const size_t i = (size_t)r * n + c;
+      float o = drop_apply(drop, i, in[i]);
+      if (aux != nullptr) o *= act_grad(aux[i], act);
+      out[i] = o;
+      acc[0] += o;
+    }
+  }
+  store_col_partials<1>(acc, part, gridDim.y, n, c);
+}
+
+// From dh: ds_attn, dv_loc and the eight norm-vector sums
+// [dmux, divx, dgax, dbex, dmua, diva, dgaa, dbea] as per-chunk partials.
+__global__ void __launch_bounds__(COLS* ROW_WARPS)
+combine_tail_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ v,
+                        const float* __restrict__ mux, const float* __restrict__ ivx,
+                        const float* __restrict__ gax, const float* __restrict__ bex,
+                        const float* __restrict__ sa, const float* __restrict__ mua,
+                        const float* __restrict__ iva, const float* __restrict__ gaa,
+                        float* __restrict__ dv, float* __restrict__ dsa,
+                        float* __restrict__ part, int R, int d, int act, Drop drop0) {
+  const int c = blockIdx.x * COLS + threadIdx.x;
+  const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (c < d) {
+    const float mx = mux[c], ix = ivx[c], gx = gax[c], bx = bex[c];
+    const float ma = mua[c], ia = iva[c], ga = gaa[c];
+    for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS) {
+      const size_t i = (size_t)r * d + c;
+      const float g = dh[i];
+      // attention branch: ha = (sa - mua) * iva * gaa + bea
+      const float sc = sa[i] - ma;
+      const float dsai = g * ia * ga;
+      dsa[i] = dsai;
+      acc[4] -= dsai;
+      acc[5] += g * ga * sc;
+      acc[6] += g * (sc * ia);
+      acc[7] += g;
+      // local branch: a = drop0(act((v - mux) * ivx * gax + bex))
+      const float vc = v[i] - mx;
+      const float z = vc * ix * gx + bx;
+      const float dz = drop_apply(drop0, i, g) * act_grad(z, act);
+      const float dyhat = dz * gx;
+      const float dvi = dyhat * ix;
+      dv[i] = dvi;
+      acc[0] -= dvi;
+      acc[1] += dyhat * vc;
+      acc[2] += dz * (vc * ix);
+      acc[3] += dz;
+    }
+  }
+  store_col_partials<8>(acc, part, gridDim.y, d, c);
 }
 
 }  // namespace
@@ -43,24 +117,85 @@ __global__ void combine_prologue_kernel(
 
 using namespace ggps;
 
-// Scratch the caller allocates: h (R, d), z (R, dh).
+// Scratch the caller allocates: h (R, d), z (R, dh). With keep != 0 the
+// forward also stores the pre-activation a1 (R, dh) for the backward.
 extern "C" int combine_ffn_forward(
     const float* x_in, const float* v, const float* mux, const float* ivx,
     const float* gax, const float* bex, const float* sa, const float* mua,
     const float* iva, const float* gaa, const float* bea, const float* w1,
     const float* b1, const float* w2, const float* b2, float* out, float* h, float* z,
-    int R, int d, int dh, int act, void* stream) {
+    float* a1, int R, int d, int dh, int act, unsigned int seed, int t, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long total = (long long)R * d;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 32 ? (want > 0 ? want : 1) : 132 * 32);
-  combine_prologue_kernel<<<blocks, threads, 0, st>>>(x_in, v, mux, ivx, gax, bex, sa,
-                                                      mua, iva, gaa, bea, h, total, d,
-                                                      act);
+  combine_prologue_kernel<<<elementwise_blocks(total, 256), 256, 0, st>>>(
+      x_in, v, mux, ivx, gax, bex, sa, mua, iva, gaa, bea, h, total, d, act,
+      make_drop(seed, 0, t, scale));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = gemm_bias_act(h, w1, b1, nullptr, z, R, dh, d, act, st)) != cudaSuccess)
+  Epi e1;
+  e1.bias = b1;
+  e1.pre = a1;
+  e1.act = act;
+  e1.drop = make_drop(seed, 1, t, scale);
+  if ((err = gemm_nn(h, w1, z, R, dh, d, e1, st)) != cudaSuccess) return err;
+  Epi e2;
+  e2.bias = b2;
+  e2.res = h;
+  e2.drop = make_drop(seed, 2, t, scale);
+  return gemm_nn(z, w2, out, R, d, dh, e2, st);
+}
+
+// floats of scratch combine_ffn_backward needs (reused by its passes in turn)
+extern "C" long long combine_ffn_backward_scratch(int R, int d, int dh) {
+  const long long chunks = row_chunks(R);
+  long long s = 8 * chunks * d;
+  s = s > chunks * dh ? s : chunks * dh;
+  s = s > (long long)tn_scratch(d, dh, R) ? s : (long long)tn_scratch(d, dh, R);
+  s = s > (long long)tn_scratch(dh, d, R) ? s : (long long)tn_scratch(dh, d, R);
+  return s;
+}
+
+// Inputs: the forward's operands, its saved h (R, d), a1 (R, dh), z (R, dh),
+// and the cotangent g (R, d). Outputs: dh (R, d) (= dx_in), dv (R, d),
+// dsa (R, d), dvec (8, d) = [dmux, divx, dgax, dbex, dmua, diva, dgaa, dbea],
+// dw1 (d, dh), db1 (dh,), dw2 (dh, d), db2 (d,). Work: da2 (R, d),
+// da1 (R, dh), scratch.
+extern "C" int combine_ffn_backward(
+    const float* v, const float* mux, const float* ivx, const float* gax,
+    const float* bex, const float* sa, const float* mua, const float* iva,
+    const float* gaa, const float* w1, const float* w2, const float* h,
+    const float* a1, const float* z, const float* g, float* dh, float* dv, float* dsa,
+    float* dvec, float* dw1, float* db1, float* dw2, float* db2, float* da2, float* da1,
+    float* scratch, int R, int d, int dhid, int act, unsigned int seed, int t,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int chunks = row_chunks(R);
+  const dim3 blk(COLS, ROW_WARPS);
+  // da2 = drop2(g), db2 = sum da2
+  drop_grad_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
+      g, nullptr, da2, scratch, R, d, act, make_drop(seed, 2, t, scale));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
+  // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
+  if ((err = gemm_nt(da2, w2, da1, R, dhid, d, Epi(), st)) != cudaSuccess) return err;
+  drop_grad_kernel<<<dim3(cdiv(dhid, COLS), chunks), blk, 0, st>>>(
+      da1, a1, da1, scratch, R, dhid, act, make_drop(seed, 1, t, scale));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = reduce_partials(scratch, db1, 1, chunks, dhid, st)) != cudaSuccess)
     return err;
-  return gemm_bias_act(z, w2, b2, h, out, R, d, dh, ACT_IDENTITY, st);
+  // dh = g + da1 W1^T
+  Epi eres;
+  eres.res = g;
+  if ((err = gemm_nt(da1, w1, dh, R, d, dhid, eres, st)) != cudaSuccess) return err;
+  // weight gradients over all R rows
+  if ((err = gemm_tn(h, da1, dw1, d, dhid, R, scratch, st)) != cudaSuccess) return err;
+  if ((err = gemm_tn(z, da2, dw2, dhid, d, R, scratch, st)) != cudaSuccess) return err;
+  // both branches' elementwise backward and the eight norm-vector sums
+  combine_tail_bwd_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
+      dh, v, mux, ivx, gax, bex, sa, mua, iva, gaa, dv, dsa, scratch, R, d, act,
+      make_drop(seed, 0, t, scale));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_partials(scratch, dvec, 8, chunks, d, st);
 }

@@ -89,6 +89,13 @@ class GraphBatch:
                 self.edge_mask.reshape(B, E).float(),
                 self.node_mask.reshape(B, N).float())
 
+    @functools.cached_property
+    def real_counts(self):
+        """``(real nodes, real edges)`` as f32 scalars, at least 1: the row
+        counts of the BatchNorm statistics."""
+        return (torch.clamp(self.node_mask.float().sum(), min=1.0),
+                torch.clamp(self.edge_mask.float().sum(), min=1.0))
+
     def to(self, device) -> "GraphBatch":
         def mv(t):
             return t.to(device) if t is not None else None

@@ -1,6 +1,5 @@
-"""Experiment driver: config → loaders → model → evaluation, looped over
-seeds (counterpart of ``graphgps_tpu/driver.py:31-289`` without the
-optimizer).
+"""Experiment driver: config → loaders → model → train or evaluate, looped
+over seeds (counterpart of ``graphgps_tpu/driver.py:31-289`` ``run_single``).
 
 The entry point runs on the GPU: ``--device`` defaults to ``cuda`` and a
 machine without one raises; ``--device cpu`` runs the kernels' plain
@@ -101,13 +100,14 @@ def create_loaders(cfg: CfgNode, splits: DatasetSplits,
 def run_single(cfg: CfgNode, run_dir: str, device: torch.device,
                prepare_model: Optional[Callable] = None) -> Dict:
     """One (seed, split) run. ``prepare_model(model)``, when given, sees the
-    seeded model on its device before the evaluation."""
+    seeded model on its device before the run. ``custom`` trains: the model
+    in training mode, and one host generator seeded from ``cfg.seed`` draws
+    every dropout seed."""
     mode = cfg.train.mode
     if mode not in TRAIN_MODES:
         raise NotImplementedError(
-            f"train.mode={mode!r}: the port evaluates only "
-            f"({sorted(TRAIN_MODES)}); training is the next slice (ROADMAP "
-            "Queue 1 items 8-9)")
+            f"train.mode={mode!r} is not ported ({sorted(TRAIN_MODES)}; "
+            "ROADMAP Queue 1 item 17)")
     if cfg.pretrained.dir:
         raise NotImplementedError(
             "pretrained.dir: loading a checkpoint is not ported yet (ROADMAP "
@@ -119,13 +119,14 @@ def run_single(cfg: CfgNode, run_dir: str, device: torch.device,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         model = build_model(cfg, dim_out)
-    model = model.to(device).eval()
+    model = model.to(device).train(mode == "custom")
     cfg.share["params"] = sum(p.numel() for p in model.parameters())
     log.info("model %s params %d on %s", cfg.model.type, cfg.share.params,
              device)
     if prepare_model is not None:
         prepare_model(model)
-    return TRAIN_MODES[mode](cfg, loaders, model, run_dir)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    return TRAIN_MODES[mode](cfg, loaders, model, run_dir, gen)
 
 
 def main(argv=None, prepare_model: Optional[Callable] = None) -> Dict:

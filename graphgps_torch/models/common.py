@@ -26,14 +26,25 @@ def dense_params(d_in: int, d_out: int):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the real rows of a padded tensor, evaluation only.
+    """BatchNorm over the real rows of a padded tensor (counterpart of
+    ``graphgps_tpu/models/common.py:80-153`` ``MaskedBatchNorm``).
 
     Holds ``weight``/``bias`` (flax ``scale``/``bias``) and the running
     ``running_mean``/``running_var`` (flax ``mean``/``var``; the var is the
-    biased one). In evaluation it normalizes with the running statistics;
-    with ``stats_only`` it returns ``(mean, var, weight, bias)`` for a fused
-    kernel to apply. Training-mode statistics come with the training slice.
+    biased one). In evaluation it uses the running statistics. In training
+    it uses the batch's: from given moment sums ``moments=(sy, syy, cnt, c)``
+    (Σm(v−c), Σm(v−c)², the row count, the shift c a kernel used), or from a
+    masked single-pass reduction shifted by the running mean (c stops the
+    gradient): ``mean = E[y] + c``, ``var = max(E[y²] − E[y]², 0)``,
+    ``cnt = max(Σ mask, 1)``; both differentiate through ``mean``/``var``.
+    Training then updates the running statistics as ``0.9·old + 0.1·batch``
+    (flax momentum 0.9, torch's 0.1) out of place: the buffers are replaced,
+    never written, so a kernel that took the old running mean as its moment
+    shift still holds it in its backward. With ``stats_only`` it returns
+    ``(mean, var, weight, bias)`` for a fused kernel to apply.
     """
+
+    momentum = 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5, stats_only: bool = False):
         super().__init__()
@@ -44,12 +55,33 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x=None):
+    def batch_stats(self, x=None, mask=None, moments=None):
+        """(mean, var) of the batch, differentiable."""
+        if moments is not None:
+            sy, syy, cnt, c = moments
+            ey = sy.reshape(-1) / cnt
+            ey2 = syy.reshape(-1) / cnt
+        else:
+            c = self.running_mean.detach()
+            y = x - c
+            m = mask.to(x.dtype)[:, None]
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mom = (torch.cat([y, y * y], dim=-1) * m).sum(0) / cnt
+            d = x.shape[-1]
+            ey, ey2 = mom[:d], mom[d:]
+        mean = ey + c
+        var = torch.maximum(ey2 - ey * ey, torch.zeros_like(ey))
+        return mean, var
+
+    def forward(self, x=None, mask=None, moments=None):
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm in training mode is not ported yet "
-                "(ROADMAP Queue 1 item 9)")
-        mean, var = self.running_mean, self.running_var
+            mean, var = self.batch_stats(x, mask, moments)
+            mo = self.momentum
+            with torch.no_grad():
+                self.running_mean = mo * self.running_mean + (1 - mo) * mean
+                self.running_var = mo * self.running_var + (1 - mo) * var
+        else:
+            mean, var = self.running_mean, self.running_var
         if self.stats_only:
             return mean, var, self.weight, self.bias
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

@@ -63,7 +63,7 @@ class RWSENodeEncoder(nn.Module):
     def forward(self, batch: GraphBatch, x):
         pos = batch.pe["pestat_RWSE"].float()
         if self.raw_norm is not None:
-            pos = self.raw_norm(pos)
+            pos = self.raw_norm(pos, batch.node_mask)
         pe = self.proj(pos)
         return torch.cat([x, pe], dim=-1) if x is not None else pe
 

@@ -1,8 +1,12 @@
 """GPSModel: FeatureEncoder → L × GPSLayer → san_graph head (counterpart
 of ``graphgps_tpu/models/networks.py:175-239`` ``GPSModel`` and :411
-``build_model``; a plain layer loop in place of ``nn.scan``)."""
+``build_model``; a plain layer loop in place of ``nn.scan``, and the
+activations stored for the backward in place of ``parallel.remat``)."""
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
@@ -46,19 +50,18 @@ class GPSModel(nn.Module):
         d = cfg.gt.dim_hidden
         self.encoder = FeatureEncoder(cfg, d)
         self.layers = nn.ModuleList(
-            GPSLayer(d, cfg.gt.n_heads, act=cfg.gnn.act)
+            GPSLayer(d, cfg.gt.n_heads, act=cfg.gnn.act,
+                     dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout)
             for _ in range(cfg.gt.layers))
         self.head = SANGraphHead(d, dim_out, pooling=cfg.model.graph_pooling)
 
-    def forward(self, batch: GraphBatch):
-        """Returns (pred (B, dim_out), true (B, T))."""
-        if self.training:
-            raise NotImplementedError(
-                "GPSModel training is not ported yet (ROADMAP Queue 1 "
-                "items 8-9)")
+    def forward(self, batch: GraphBatch,
+                gen: Optional[torch.Generator] = None):
+        """Returns (pred (B, dim_out), true (B, T)). In training, ``gen``
+        (a host generator) draws every layer's dropout seeds."""
         x, e = self.encoder(batch)
         for layer in self.layers:
-            x, e = layer(batch, x, e)
+            x, e = layer(batch, x, e, gen)
         return self.head(batch, x)
 
 

@@ -1,15 +1,19 @@
-"""The hand-written CUDA kernels of the main path, one wrapper each.
+"""The hand-written CUDA kernels of the main path, one wrapper each: three
+forward kernels and their three backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.
 """
-from .combine_ffn import fused_combine_ffn
-from .gps_front import fused_gps_front
-from .pre_tail import fused_pre_tail
+from .combine_ffn import combine_ffn_backward, fused_combine_ffn
+from .gps_front import fused_gps_front, gps_front_backward
+from .pre_tail import fused_pre_tail, pre_tail_backward
 
 WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
-            "combine_ffn": fused_combine_ffn}
+            "combine_ffn": fused_combine_ffn,
+            "gps_front_bwd": gps_front_backward,
+            "pre_tail_bwd": pre_tail_backward,
+            "combine_ffn_bwd": combine_ffn_backward}
 
 
 def reset_launch_counts() -> None:

@@ -99,6 +99,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_cfuncs: Dict[tuple, object] = {}
+
+
+def cfunc(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library with its
+    argument and result types set, once."""
+    fn = _cfuncs.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _cfuncs[(name, symbol)] = fn
+    return fn
+
+
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,6 +1,12 @@
-"""Helpers shared by the kernel wrappers and their plain versions."""
+"""Helpers shared by the kernel wrappers and their plain versions: the
+activations, the dropout rule (one counter hash, the same in
+``csrc/common.cuh``), and the f32 setting of the plain versions."""
 from __future__ import annotations
 
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -18,11 +24,9 @@ def act_fn(name: str):
 
 
 def check_rate(rate: float) -> None:
-    """The main path evaluates; dropout inside the kernels comes with the
-    training slice (ROADMAP Queue 1 item 9)."""
-    if rate > 0.0:
-        raise ValueError(f"dropout rate {rate} > 0 is not supported yet: the "
-                         "port runs evaluation only")
+    """A dropout rate the kernels take: 0 ≤ rate < 1."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
 
 
 def true_f32() -> None:
@@ -30,3 +34,88 @@ def true_f32() -> None:
     matrix products or convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# Dropout. The TPU's on-chip bits cannot be matched (its PRNG is stateful, and
+# even the interpret-mode hash depends on the grid step and the block shape),
+# so the port defines its own: a counter hash of (seed, site, row, column)
+# over a site's logical 2-D (rows, cols) view, independent of any tiling.
+# ``mix32`` is the finalizer of graphgps_tpu/ops/pallas/fused_tail.py
+# ``_bits``; the 64-bit counter ``idx = row * cols + col`` enters as
+# ``mix32(lo ^ mix32(hi ^ key))`` with ``key = mix32(seed + 0x9E3779B9 *
+# (site + 1))``. The keep rule is the TPU kernels' u8 grid
+# (fused_tail.py ``_keep``): t = clamp(round(rate * 256), 1, 255), keep when
+# (bits & 255) ≥ t, kept values scaled by 1 / (1 − t/256). Here it runs in
+# torch int64 ops (every value kept in [0, 2^32), products split in 16-bit
+# halves so nothing overflows); csrc/common.cuh runs it in uint32, so a kernel
+# and its plain version draw bit-identical masks.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """x * c mod 2^32 for ``x`` in [0, 2^32) (an int64 tensor or an int) and
+    a constant c."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def drop_key(seed: int, site: int) -> int:
+    return _mix32((int(seed) + 0x9E3779B9 * (site + 1)) & _M32)
+
+
+@functools.lru_cache(maxsize=None)
+def keep_rule(rate: float) -> Tuple[int, float]:
+    """(t, scale) of a rate: t = 0 (scale 1) means no dropout. ``scale`` is
+    the f32 value both versions multiply by."""
+    check_rate(rate)
+    if rate == 0.0:
+        return 0, 1.0
+    t = min(max(int(round(rate * 256)), 1), 255)
+    return t, float(np.float32(1.0 / (1.0 - t / 256.0)))
+
+
+def drop_bits(seed: int, site: int, rows: int, cols: int, device=None,
+              row0: int = 0):
+    """(rows, cols) int64 hash values in [0, 2^32) of view rows
+    ``row0 .. row0 + rows``."""
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    idx = r[:, None] * cols + torch.arange(cols, dtype=torch.int64,
+                                           device=device)[None, :]
+    hi = _mix32((idx >> 32) ^ drop_key(seed, site))
+    return _mix32((idx & _M32) ^ hi)
+
+
+def dropout_mask(seed: int, site: int, rows: int, cols: int, rate: float,
+                 device=None) -> Optional[torch.Tensor]:
+    """The f32 (rows, cols) multiplier of a site: 0 where dropped, the keep
+    scale where kept; None when rate is 0."""
+    t, scale = keep_rule(rate)
+    if t == 0:
+        return None
+    keep = (drop_bits(seed, site, rows, cols, device) & 255) >= t
+    return keep.to(torch.float32) * scale
+
+
+def apply_dropout(v, seed: int, site: int, rate: float):
+    """``v`` times its site's mask over the view (v.numel() / cols, cols),
+    cols = v.shape[-1] (``v`` itself at rate 0)."""
+    cols = v.shape[-1]
+    m = dropout_mask(seed, site, v.numel() // cols, cols, rate, v.device)
+    return v if m is None else v * m.reshape(v.shape)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate a call on ``tensors``: the
+    kernels' autograd Functions are used only then (evaluation launches the
+    forward kernel alone)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors if torch.is_tensor(t))

@@ -3,22 +3,32 @@
 layer front uses it."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 NEG_INF = -1e30
 
 
-def mha_core(q, k, v, key_mask, scale: Optional[float] = None):
+def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
+             drop: Optional[Callable] = None):
     """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool. Masked keys get
     ``-1e30`` (not ``-inf``), so a graph with no real node still gives
-    finite, uniform weights. Softmax in f32. Returns (B, H, N, Dh)."""
+    finite, uniform weights. Softmax in f32; ``drop`` (the attention
+    dropout) maps the (B, H, N, N) probabilities before they weight ``v``.
+    Returns (B, H, N, Dh)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhnd,bhmd->bhnm", q * scale, k)
-    logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
+    # masked keys take -1e30 in value, while the gradient reaches every
+    # logit, as in the TPU kernels' hand-written backward
+    # (fused_layer.py:199-204); it differs only for a graph with no real
+    # node, whose uniform weights then pass gradient to its q and k
+    masked = torch.where(key_mask[:, None, None, :], logits.detach(), NEG_INF)
+    logits = logits - logits.detach() + masked
     attn = torch.softmax(logits.float(), dim=-1)
+    if drop is not None:
+        attn = drop(attn)
     return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)
 
 

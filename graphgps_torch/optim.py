@@ -1,0 +1,72 @@
+"""Optimizer, gradient clipping and epoch-indexed learning-rate schedules
+(counterpart of ``graphgps_tpu/optim/optimizers.py``: ``adam``/``adamW``
+:27-38 on optax's defaults, ``linear_with_warmup`` :51-61 and ``none``
+:95-98, ``make_tx``'s ``clip_by_global_norm`` :229-286, ``set_lr``
+:289-306). As in the JAX package the schedule is a function of the epoch
+index and the loop sets the learning rate once per epoch."""
+from __future__ import annotations
+
+from typing import Callable, Iterable, List
+
+import torch
+
+# optax.adam / optax.adamw defaults
+BETAS = (0.9, 0.999)
+EPS = 1e-8
+
+
+def build_optimizer(cfg, params: Iterable[torch.nn.Parameter]):
+    """``adamW`` (decoupled weight decay ``cfg.optim.weight_decay``) or
+    ``adam``, on optax's defaults; the learning rate is set per epoch."""
+    name = cfg.optim.optimizer
+    params = list(params)
+    if name == "adamW":
+        return torch.optim.AdamW(params, lr=cfg.optim.base_lr, betas=BETAS,
+                                 eps=EPS, weight_decay=cfg.optim.weight_decay)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=cfg.optim.base_lr, betas=BETAS,
+                                eps=EPS)
+    raise NotImplementedError(
+        f"optim.optimizer={name!r} is not ported (adamW, adam; ROADMAP Queue "
+        "1 item 17)")
+
+
+def build_schedule(cfg) -> Callable[[int], float]:
+    """The learning rate of an epoch: ``linear_with_warmup`` (the
+    HF-transformers formula; lr 0 in epoch 0 when there is warm-up) or
+    ``none`` (constant)."""
+    name = cfg.optim.scheduler
+    base = cfg.optim.base_lr
+    if name == "none":
+        return lambda epoch: base
+    if name == "linear_with_warmup":
+        warm, total = cfg.optim.num_warmup_epochs, cfg.optim.max_epoch
+
+        def f(epoch: int) -> float:
+            if epoch < warm:
+                return base * epoch / max(1, warm)
+            return base * max(0.0, (total - epoch) / max(1, total - warm))
+
+        return f
+    raise NotImplementedError(
+        f"optim.scheduler={name!r} is not ported (linear_with_warmup, none; "
+        "ROADMAP Queue 1 item 17)")
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+    """optax's rule in place: with ``n = sqrt(Σ‖g‖²)`` over all gradients,
+    every ``g`` becomes ``(g / n) * max_norm`` when ``n ≥ max_norm`` and stays
+    otherwise (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Runs
+    on the device with no host synchronisation. Returns ``n``."""
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return norm

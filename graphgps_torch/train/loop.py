@@ -1,17 +1,20 @@
-"""Evaluation modes (counterpart of ``graphgps_tpu/train/loop.py``:
-``eval_epoch`` :812, ``inference_only`` :1060, ``ogblsc_inference`` :1075;
-the L1 loss of ``graphgps_tpu/models/losses.py``)."""
+"""Train and evaluation modes (counterpart of ``graphgps_tpu/train/loop.py``:
+``train_step`` :146-153, ``train_epoch`` :732-768, ``eval_epoch`` :812,
+``custom_train`` :884-1057, ``inference_only`` :1060, ``ogblsc_inference``
+:1075; the L1 loss of ``graphgps_tpu/models/losses.py``)."""
 from __future__ import annotations
 
 import logging
 import os
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..logging_utils import SplitLogger
+from ..optim import build_optimizer, build_schedule, clip_by_global_norm, set_lr
+from . import checkpoint
 
 log = logging.getLogger("graphgps_torch")
 
@@ -49,23 +52,177 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _drain(results, logger: SplitLogger, lr: float, per_batch: float):
+    """Per-batch (loss, pred, true, mask, real) results to the host and into
+    ``logger``, after the epoch's work."""
+    for loss, pred, true, mask, real in results:
+        m = mask.cpu().numpy()
+        logger.update_stats(pred.cpu().numpy()[m], true.cpu().numpy()[m],
+                            float(loss), lr, per_batch, real)
+
+
 def eval_epoch(cfg, model, loader, logger: SplitLogger) -> None:
-    """Evaluate one split; results stay on the device until the epoch ends,
-    then come to the host in one go."""
+    """Evaluate one split in evaluation mode; results stay on the device
+    until the epoch ends, then come to the host in one go."""
+    was_training = model.training
+    model.eval()
     results = []
     t_epoch = time.perf_counter()
     for real, batch in loader:
         results.append((*eval_step(cfg, model, batch), real))
     _sync(loader.device)
-    per_batch = (time.perf_counter() - t_epoch) / max(len(results), 1)
-    for loss, pred, true, mask, real in results:
-        m = mask.cpu().numpy()
-        logger.update_stats(pred.cpu().numpy()[m], true.cpu().numpy()[m],
-                            float(loss), 0.0, per_batch, real)
+    _drain(results, logger, 0.0,
+           (time.perf_counter() - t_epoch) / max(len(results), 1))
+    model.train(was_training)
 
 
-def inference_only(cfg, loaders, model, run_dir: str) -> Dict:
-    """Evaluate every split; one stats line each."""
+def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
+    """One optimizer step: forward in training mode (dropout seeds from
+    ``gen``), L1 loss over the real graphs, backward, optax-rule gradient
+    clipping, update. Returns (loss, pred, true, mask), detached."""
+    opt.zero_grad(set_to_none=True)
+    pred, true = model(batch, gen)
+    pred = pred.float()
+    mask = batch.graph_mask
+    loss = compute_loss(cfg, pred, true, mask)
+    loss.backward()
+    # a parameter the loss does not reach (the last layer's edge-tail norm)
+    # gets a zero gradient, as in JAX: adamW then decays it and its moments
+    # as optax does, where torch would skip it
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if cfg.optim.clip_grad_norm:
+        clip_by_global_norm([p.grad for p in model.parameters()],
+                            cfg.optim.clip_grad_norm_value)
+    opt.step()
+    return loss.detach(), pred.detach(), true, mask
+
+
+def train_epoch(cfg, model, opt, loader, logger: SplitLogger, lr: float,
+                gen: Optional[torch.Generator]) -> None:
+    """One pass over the train split, one step per batch; the epoch's wall
+    time is spread evenly over its steps, as the JAX loop reports it."""
+    model.train()
+    results = []
+    t_epoch = time.perf_counter()
+    for real, batch in loader:
+        results.append((*train_step(cfg, model, opt, batch, gen), real))
+    _sync(loader.device)
+    _drain(results, logger, lr,
+           (time.perf_counter() - t_epoch) / max(len(results), 1))
+
+
+def check_train_supported(cfg) -> None:
+    """The training options this slice runs; others name their ROADMAP
+    item."""
+    if max(1, cfg.optim.batch_accumulation) > 1:
+        raise NotImplementedError(
+            "optim.batch_accumulation > 1 is not ported (ROADMAP Queue 1 "
+            "item 17)")
+    if cfg.train.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "train.steps_per_dispatch > 1 (K steps per dispatch, the CUDA "
+            "graphs item) is not ported (ROADMAP Queue 1 item 12)")
+    if cfg.train.profiler or cfg.train.finetune or cfg.wandb.use:
+        raise NotImplementedError(
+            "train.profiler, train.finetune and wandb are not ported "
+            "(ROADMAP Queue 1 item 17)")
+
+
+def _metric_cmp(agg: str):
+    return (lambda a, b: a < b) if agg == "argmin" else (lambda a, b: a > b)
+
+
+def resolve_metric_best(cfg) -> str:
+    """'auto' → the task's default (``graphgps_tpu/config/config.py:452``
+    ``resolve_metric_best``)."""
+    if cfg.metric_best != "auto":
+        return "auc" if cfg.metric_best == "auroc" else cfg.metric_best
+    tt = cfg.dataset.task_type
+    if "classification_multilabel" in tt:
+        return "ap"
+    return "accuracy" if "classification" in tt else "mae"
+
+
+def is_eval_epoch(cfg, epoch: int) -> bool:
+    return ((epoch + 1) % max(1, cfg.train.eval_period) == 0
+            or epoch == cfg.optim.max_epoch - 1 or epoch == 0)
+
+
+def is_ckpt_epoch(cfg, epoch: int) -> bool:
+    return ((epoch + 1) % max(1, cfg.train.ckpt_period) == 0
+            or epoch == cfg.optim.max_epoch - 1)
+
+
+def custom_train(cfg, loaders, model, run_dir: str,
+                 gen: Optional[torch.Generator] = None) -> Dict:
+    """The epoch loop: the learning rate set per epoch from the schedule, one
+    train epoch, evaluation of val and test every ``eval_period``, the best
+    epoch by ``metric_best`` (falling back to the loss, argmin, when the
+    metric is missing), and checkpoints of the best epoch or every
+    ``ckpt_period``. ``gen`` draws the dropout seeds."""
+    check_train_supported(cfg)
+    if cfg.train.preempt_save:
+        log.warning("train.preempt_save: preemption handling is not ported "
+                    "(ROADMAP Queue 1 item 17); a stopped run resumes from "
+                    "its last checkpoint with train.auto_resume")
+    opt = build_optimizer(cfg, model.parameters())
+    schedule = build_schedule(cfg)
+    metric = resolve_metric_best(cfg)
+    agg = cfg.metric_agg
+    if cfg.metric_best == "auto" and metric in ("mae", "mse", "rmse", "loss"):
+        agg = "argmin"
+    better = _metric_cmp(agg)
+    loggers = {s: SplitLogger(s, run_dir, cfg.dataset.task_type)
+               for s in loaders}
+    for lg in loggers.values():
+        lg.params = cfg.share.get("params", 0)
+    start_epoch = 0
+    if cfg.train.auto_resume:
+        start_epoch = checkpoint.load_ckpt(run_dir, model, opt,
+                                           cfg.train.epoch_resume, gen)
+    ckpt = cfg.train.enable_ckpt
+    history: Dict[str, List[Dict]] = {s: [] for s in loaders}
+    best_val, best_epoch = None, -1
+    for epoch in range(start_epoch, cfg.optim.max_epoch):
+        lr = schedule(epoch)
+        set_lr(opt, lr)
+        t0 = time.perf_counter()
+        train_epoch(cfg, model, opt, loaders["train"], loggers["train"], lr,
+                    gen)
+        epoch_s = time.perf_counter() - t0
+        history["train"].append(loggers["train"].write_epoch(epoch))
+        if is_eval_epoch(cfg, epoch):
+            for split in ("val", "test"):
+                if split in loaders:
+                    eval_epoch(cfg, model, loaders[split], loggers[split])
+                    history[split].append(loggers[split].write_epoch(epoch))
+            val_hist = history.get("val") or history["train"]
+            if metric not in val_hist[-1] and best_epoch < 0:
+                log.warning("selection metric %r missing from the stats "
+                            "(keys: %s): selecting on loss (argmin)", metric,
+                            sorted(val_hist[-1]))
+                metric, agg = "loss", "argmin"
+                better = _metric_cmp(agg)
+            cur = val_hist[-1].get(metric, val_hist[-1]["loss"])
+            if best_val is None or better(cur, best_val):
+                best_val, best_epoch = cur, epoch
+                if ckpt and cfg.train.ckpt_best:
+                    checkpoint.save_ckpt(run_dir, model, opt, epoch, gen)
+                    if cfg.train.ckpt_clean:
+                        checkpoint.clean_ckpt(run_dir, epoch)
+            log.info("epoch %d lr %.2e %s=%.5f (best %.5f @ %d) epoch_time "
+                     "%.2fs", epoch, lr, metric, cur, best_val, best_epoch,
+                     epoch_s)
+        if ckpt and not cfg.train.ckpt_best and is_ckpt_epoch(cfg, epoch):
+            checkpoint.save_ckpt(run_dir, model, opt, epoch, gen)
+    log.info("best %s=%s @ epoch %d", metric, best_val, best_epoch)
+    return history
+
+
+def inference_only(cfg, loaders, model, run_dir: str, gen=None) -> Dict:
+    """Evaluate every split; one stats line each (``gen`` unused)."""
     history = {}
     for split, loader in loaders.items():
         lg = SplitLogger(split, run_dir, cfg.dataset.task_type)
@@ -74,9 +231,10 @@ def inference_only(cfg, loaders, model, run_dir: str) -> Dict:
     return history
 
 
-def ogblsc_inference(cfg, loaders, model, run_dir: str) -> Dict:
+def ogblsc_inference(cfg, loaders, model, run_dir: str, gen=None) -> Dict:
     """OGB-LSC submission writer: MAE on labelled splits; a
-    ``y_pred_pcqm4m-v2_<split>.npz`` for splits whose targets are all NaN."""
+    ``y_pred_pcqm4m-v2_<split>.npz`` for splits whose targets are all NaN
+    (``gen`` unused)."""
     history = {}
     for split, loader in loaders.items():
         preds, trues = [], []
@@ -100,5 +258,5 @@ def ogblsc_inference(cfg, loaders, model, run_dir: str) -> Dict:
     return history
 
 
-TRAIN_MODES = {"inference-only": inference_only,
+TRAIN_MODES = {"custom": custom_train, "inference-only": inference_only,
                "PCQM4Mv2-inference": ogblsc_inference}

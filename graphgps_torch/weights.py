@@ -1,7 +1,10 @@
 """Carry a JAX GPSModel's flax variables over to the port's state dict.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
-numpy arrays (``jax.device_get`` of the variables). A flax ``Dense`` kernel
+numpy arrays (``jax.device_get`` of the variables). The same mapping names a
+params-shaped tree of gradients (``batch_stats=None``) by the port's
+parameter names, so tests compare gradients, updated parameters and updated
+running statistics key by key. A flax ``Dense`` kernel
 is (in, out): the GPS layers keep it so, since their kernels take that
 layout, and the encoder's and head's ``nn.Linear`` weights take it
 transposed (out, in); an ``Embed`` table stays as it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
@@ -26,25 +29,28 @@ def _linear(out: dict, prefix: str, dense: dict) -> None:
     out[f"{prefix}.bias"] = np.asarray(dense["bias"])
 
 
-def _bn(out: dict, prefix: str, params: dict, stats: dict) -> None:
+def _bn(out: dict, prefix: str, params: dict, stats) -> None:
     out[f"{prefix}.weight"] = params["scale"]
     out[f"{prefix}.bias"] = params["bias"]
-    out[f"{prefix}.running_mean"] = stats["mean"]
-    out[f"{prefix}.running_var"] = stats["var"]
+    if stats is not None:
+        out[f"{prefix}.running_mean"] = stats["mean"]
+        out[f"{prefix}.running_var"] = stats["var"]
 
 
-def _norm(out: dict, prefix: str, params: dict, stats: dict, name: str):
+def _norm(out: dict, prefix: str, params: dict, stats, name: str):
     _bn(out, prefix, params[name]["MaskedBatchNorm_0"],
-        stats[name]["MaskedBatchNorm_0"])
+        None if stats is None else stats[name]["MaskedBatchNorm_0"])
 
 
-def gps_layer_state_dict(p: dict, s: dict, prefix: str = "") -> dict:
+def gps_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
     """One GPSLayer's flax params/batch_stats → the port's ``GPSLayer``
     state dict (numpy values), keys prefixed with ``prefix``. The port keeps
     flax's (in, out) layout here; the GatedGCN's Dense_0..4 are A..E, and
-    the front's joint weight is ``[A|D|E|B|Wq|Wk|Wv]``."""
+    the front's joint weight is ``[A|D|E|B|Wq|Wk|Wv]``. ``s=None`` maps the
+    parameters only."""
     out: dict = {}
-    g, gs = p["GatedGCNLayer_0"], s["GatedGCNLayer_0"]
+    g = p["GatedGCNLayer_0"]
+    gs = None if s is None else s["GatedGCNLayer_0"]
     dense = {lin: g[f"Dense_{i}"] for i, lin in enumerate("ABCDE")}
     d = p["qkv_kernel"].shape[0]
     out[f"{prefix}.w_front"] = np.concatenate(
@@ -73,29 +79,36 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
-def _layer_trees(params: dict, stats: dict):
-    """[(params, batch_stats)] per layer, in order."""
+def _layer_trees(params: dict, stats):
+    """[(params, batch_stats or None)] per layer, in order."""
     scan = [k for k in params if k.endswith("GPSScanBody_0")]
     if scan:
-        p, s = params[scan[0]]["GPSLayer_0"], stats[scan[0]]["GPSLayer_0"]
+        p = params[scan[0]]["GPSLayer_0"]
+        s = None if stats is None else stats[scan[0]]["GPSLayer_0"]
         n = np.asarray(p["out_bias"]).shape[0]
-        return [(_index(p, i), _index(s, i)) for i in range(n)]
+        return [(_index(p, i), None if s is None else _index(s, i))
+                for i in range(n)]
     found = sorted((int(m.group(1)), k) for k in params
                    if (m := _UNROLLED.match(k)))
-    return [(params[k], stats[k]) for _, k in found]
+    return [(params[k], None if stats is None else stats[k])
+            for _, k in found]
 
 
-def state_dict_from_flax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: dict, batch_stats=None) -> Dict[str, torch.Tensor]:
+    """The port's state dict from flax ``params`` and ``batch_stats``; with
+    ``batch_stats=None`` the parameters only (a gradient tree, say)."""
     out: dict = {}
-    fe, fs = params["FeatureEncoder_0"], batch_stats["FeatureEncoder_0"]
+    fe = params["FeatureEncoder_0"]
+    fs = None if batch_stats is None else batch_stats["FeatureEncoder_0"]
     for enc, name in (("atom", "AtomEncoder_0"), ("bond", "BondEncoder_0")):
         for k, v in fe[name].items():
             i = int(k.split("_")[1])
             out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
-    rw, rws = fe["RWSENodeEncoder_0"], fs["RWSENodeEncoder_0"]
+    rw = fe["RWSENodeEncoder_0"]
     if "MaskedBatchNorm_0" in rw:
         _bn(out, "encoder.rwse.raw_norm", rw["MaskedBatchNorm_0"],
-            rws["MaskedBatchNorm_0"])
+            None if fs is None
+            else fs["RWSENodeEncoder_0"]["MaskedBatchNorm_0"])
     _linear(out, "encoder.rwse.proj", rw["Dense_0"])
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
         out.update(gps_layer_state_dict(p, s, f"layers.{i}"))

@@ -103,16 +103,20 @@ def test_combine_ffn_matches_jax(act):
 
 
 def test_wrappers_refuse_dropout():
+    """Dropout runs inside the kernels now; a rate of 1 or more, or below
+    0, is refused."""
     from graphgps_torch.ops.kernels import fused_gps_front, fused_pre_tail
 
     a = front_inputs(B=2, N=8, E=8)
-    with pytest.raises(ValueError, match="dropout"):
-        fused_gps_front(*(torch.from_numpy(a[k]) for k in _ORDER), 0,
-                        a["H"], a["scale"], 0.1, 0.0)
+    for attn, drop in ((1.0, 0.0), (0.1, 1.5)):
+        with pytest.raises(ValueError, match="dropout"):
+            fused_gps_front(*(torch.from_numpy(a[k]) for k in _ORDER), 0,
+                            a["H"], a["scale"], attn, drop)
     t = torch.zeros(8, 4)
     v = torch.zeros(4)
-    with pytest.raises(ValueError, match="dropout"):
-        fused_pre_tail(t, t, v, v, v, v, 0, 0.1, "relu")
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout"):
+            fused_pre_tail(t, t, v, v, v, v, 0, rate, "relu")
 
 
 @pytest.fixture
@@ -125,14 +129,21 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
-    """On the card: each kernel against its plain version on the same
-    tensors, and one launch counted per call (f32; rtol = atol = 1e-4 for
-    another summation order; the front's (1, 2d) moment sums, which cancel
-    towards 0 in their first half, within 1e-5 of their largest entry).
+    """On the card: each forward kernel, and with dropout 0.1 each backward
+    kernel, against its plain version on the same tensors (the backward's is
+    autograd through the plain forward with the same masks), and one launch
+    counted per call. f32; rtol = atol = 1e-4 for another summation order,
+    a gradient's atol scaled by its tensor's largest entry (its entries are
+    sums over rows); the front's (1, 2d) moment sums, which cancel towards
+    0 in their first half, within 1e-5 of their largest entry. Two runs of
+    a backward kernel give the same bits.
 
     Runs on the card without JAX or this directory's conftest:
     ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
     tests/test_torch_kernels.py``."""
+    from graphgps_torch.ops.kernels import (combine_ffn_backward,
+                                            gps_front_backward,
+                                            pre_tail_backward)
     from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
                                                          fused_combine_ffn)
     from graphgps_torch.ops.kernels.gps_front import (fused_gps_front,
@@ -150,11 +161,16 @@ def test_cuda_kernels_match_plain(cuda_device):
     tail = (f(R, d), f(R, d), f(d), inv(), f(d), f(d))
     comb = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
             f(d), f(d), f(d, 2 * d) / 16, f(2 * d), f(2 * d, d) / 23, f(d))
-    for fused, plain, xs, extra in (
-            (fused_gps_front, gps_front_plain, front,
-             (0, a["H"], a["scale"], 0.0, 0.0)),
-            (fused_pre_tail, pre_tail_plain, tail, (0, 0.0, "gelu")),
-            (fused_combine_ffn, combine_ffn_plain, comb, (0, 0.0, "gelu"))):
+    cases = ((fused_gps_front, gps_front_plain, gps_front_backward, front,
+              (7, a["H"], a["scale"])),
+             (fused_pre_tail, pre_tail_plain, pre_tail_backward, tail,
+              (7,)),
+             (fused_combine_ffn, combine_ffn_plain, combine_ffn_backward,
+              comb, (7,)))
+    for fused, plain, bwd, xs, head in cases:
+        rates = (0.0, 0.0) if fused is fused_gps_front else (0.0,)
+        extra = (*head, *rates) + (("gelu",) if fused is not fused_gps_front
+                                   else ())
         before = fused.launches
         got, want = fused(*xs, *extra), plain(*xs, *extra)
         assert fused.launches == before + 1
@@ -165,3 +181,32 @@ def test_cuda_kernels_match_plain(cuda_device):
         for gt, w in zip(got[3:], want[3:]):
             torch.testing.assert_close(gt, w, rtol=0.0,
                                        atol=1e-5 * float(w.abs().max()))
+
+        # backward with dropout 0.1 on every site
+        rates = (0.1, 0.1) if fused is fused_gps_front else (0.1,)
+        extra = (*head, *rates) + (("gelu",) if fused is not fused_gps_front
+                                   else ())
+        diff = [i for i, t in enumerate(xs) if t.dtype == torch.float32
+                and (fused is not fused_gps_front
+                     or i in (0, 1, 9, 10, 11, 12, 13, 14))]
+        ins = [t.clone().requires_grad_() if i in diff else t
+               for i, t in enumerate(xs)]
+        outs = fused(*ins, *extra)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [torch.randn(o.shape, generator=g).to(cuda_device)
+                for o in outs]
+        before = bwd.launches
+        got = torch.autograd.grad(outs, [ins[i] for i in diff], cots)
+        assert bwd.launches == before + 1
+        again = torch.autograd.grad(
+            fused(*ins, *extra), [ins[i] for i in diff],
+            cots if len(cots) > 1 else cots[0])
+        with torch.enable_grad():
+            pins = [t.detach().clone().requires_grad_() if i in diff else t
+                    for i, t in enumerate(xs)]
+            pouts = plain(*pins, *extra)
+            want = torch.autograd.grad(pouts, [pins[i] for i in diff], cots)
+        for gt, ag, w in zip(got, again, want):
+            assert torch.equal(gt, ag)
+            torch.testing.assert_close(gt, w, rtol=1e-4,
+                                       atol=1e-4 * max(1.0, float(w.abs().max())))

@@ -1,9 +1,13 @@
-"""One GPSLayer (CustomGatedGCN+Transformer, BatchNorm, evaluation) of the
-port against the JAX layer with the same weights and non-trivial BatchNorm
-statistics, on the same blocked batch. The JAX side runs both of its paths:
-the merged front (``GGPS_FUSED_FRONT=1``) and the unmerged pipeline
-(``=0``). f32; tolerance rtol = atol = 1e-4 (a layer chains three kernels,
-two BatchNorm applies and the final norm; sums run in another order)."""
+"""One GPSLayer (CustomGatedGCN+Transformer, BatchNorm) of the port against
+the JAX layer with the same weights and non-trivial BatchNorm statistics, on
+the same blocked batch, in evaluation and in a training step (dropout 0:
+the JAX layer draws its dropout seeds from flax's RNG, which the port cannot
+reproduce; ``test_torch_grad.py`` holds the kernels with dropout on). The
+JAX side runs both of its paths: the merged front (``GGPS_FUSED_FRONT=1``)
+and the unmerged pipeline (``=0``). f32; tolerance rtol = atol = 1e-4 (a
+layer chains three kernels, two BatchNorm applies and the final norm; sums
+run in another order), the atol of a gradient scaled by its tensor's
+largest entry (its entries are sums over rows that cancel)."""
 import jax
 import numpy as np
 import pytest
@@ -113,9 +117,77 @@ def test_front_args_share_batch_index_and_weights():
         nm.numpy(), np.asarray(batch.node_mask, np.float32).reshape(B, N))
 
 
+@pytest.mark.parametrize("front", ["1", "0"])
+def test_gps_layer_train_step_matches_jax(monkeypatch, front):
+    """Training mode: outputs, the updated running statistics of all four
+    norms, and the gradients of every parameter and of x and e under random
+    cotangents."""
+    from graphgps_tpu.models.gps_layer import GPSLayer as JaxGPSLayer
+    from graphgps_torch.models.gps_layer import GPSLayer
+    from graphgps_torch.weights import gps_layer_state_dict, to_torch
+
+    monkeypatch.setenv("GGPS_FUSED_FRONT", front)
+    batch, x, e, *_ = _blocked_batch(8, 16, 32, 128, seed=5)
+    jl = JaxGPSLayer(dim_h=128, local_gnn_type="CustomGatedGCN",
+                     global_model_type="Transformer", num_heads=4,
+                     batch_norm=True, act="gelu")
+    var = jl.init(jax.random.PRNGKey(3), batch, x, e, False)
+    params, stats = randomize_norms(var["params"], var["batch_stats"], seed=4)
+    rng = np.random.default_rng(11)
+    cots = [rng.standard_normal(np.shape(a)).astype(np.float32)
+            for a in (x, e)]
+
+    def f(p, x, e):
+        out, mut = jl.apply({"params": p, "batch_stats": stats}, batch, x, e,
+                            True, mutable=["batch_stats"])
+        return out, mut["batch_stats"]
+
+    (jxo, jeo), vjp, jstats = jax.vjp(f, params, x, e, has_aux=True)
+    jgp, jgx, jge = vjp(tuple(cots))
+
+    layer = GPSLayer(128, 4, act="gelu").train()
+    layer.load_state_dict(to_torch(gps_layer_state_dict(params, stats)))
+    tx, te = (torch.from_numpy(np.array(a)).requires_grad_() for a in (x, e))
+    txo, teo = layer(torch_batch(batch), tx, te)
+    names = [n for n, _ in layer.named_parameters()]
+    grads = torch.autograd.grad(
+        (txo, teo), [tx, te, *layer.parameters()],
+        [torch.from_numpy(c) for c in cots])
+
+    def close(got, want, msg, scaled=False):
+        want = np.asarray(want)
+        atol = ATOL * (max(1.0, float(np.abs(want).max())) if scaled else 1)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                                   atol=atol, err_msg=msg)
+
+    close(txo, jxo, "x")
+    close(teo, jeo, "e")
+    close(grads[0], jgx, "dx", True)
+    close(grads[1], jge, "de", True)
+    want_g = gps_layer_state_dict(jax.device_get(jgp), None)
+    assert set(want_g) == set(names)
+    for name, g in zip(names, grads[2:]):
+        close(g, want_g[name], f"d{name}", True)
+    want_s = gps_layer_state_dict(params, jax.device_get(jstats))
+    got_s = layer.state_dict()
+    running = [k for k in want_s if k.endswith(("running_mean", "running_var"))]
+    assert len(running) == 8
+    for k in running:
+        close(got_s[k], want_s[k], k)
+        assert not np.allclose(want_s[k], gps_layer_state_dict(params, stats)[k])
+
+
 def test_gps_layer_refuses_training():
+    """What still refuses in training: a layer with dropout and no dropout
+    generator, and a dropout rate of 1 or more."""
     from graphgps_torch.models.gps_layer import GPSLayer
 
-    layer = GPSLayer(128, 4).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer(None, None, None)
+    batch, x, e, *_ = _blocked_batch(2, 8, 8, 128, seed=2)
+    tb = torch_batch(batch)
+    xt, et = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(e))
+    layer = GPSLayer(128, 4, dropout=0.1, attn_dropout=0.1).train()
+    with pytest.raises(ValueError, match="generator"):
+        layer(tb, xt, et)
+    layer = GPSLayer(128, 4, dropout=1.0).train()
+    with pytest.raises(ValueError, match="outside"):
+        layer(tb, xt, et, torch.Generator().manual_seed(0))
