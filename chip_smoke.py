@@ -8,39 +8,46 @@ one. Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from ``graphgps_torch/csrc`` (one
    ``nvcc`` per source, all at once);
-3. hold each forward kernel against its plain PyTorch version on the card,
-   on the inputs layer 0 of the main path gives it (PCQM4Mv2 GPS-deep: batch
-   256, d=256, 8 heads, seeded weights, non-trivial BatchNorm statistics),
-   and time both with CUDA events;
+3. hold each forward kernel of the merged layer path against its plain
+   PyTorch version on the card, on the inputs layer 0 of the first main path
+   gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
+   non-trivial BatchNorm statistics), and time both;
 3b. with dropout 0.1 on every site, run each of the three functions forward
    and backward through the kernels and through autograd of the plain
    versions on the same inputs; hold each backward kernel against the plain
    gradients, check that two runs give the same bits and that every site
    keeps 230/256 of its units, and time both;
-4. run the port's entry point ``graphgps_torch.driver.main`` (``train.mode
-   inference-only`` on ``configs/GPS/pcqm4m-GPSdeep+RWSE.yaml``, 16 layers)
-   with every launch count set to 0 just before, and check that each forward
-   kernel ran 16 times per batch;
-4b. train through the entry point (``train.mode custom``, 16 layers, 3
-   epochs, warm-up 1) with the counts set to 0 just before: one stats line
-   per epoch and split with finite losses, each kernel once per layer and
-   training step (the forward ones also per evaluated batch; the edge
-   tail's backward in the 15 layers whose edge output reaches the loss),
-   and the best epoch's checkpoint reloads into a fresh model with the same
-   predictions;
-4c. one training step on the card and on the CPU (the plain path) from the
-   same weights, batch and dropout seeds: loss, every gradient, the updated
-   running statistics and the updated parameters;
-5. check one batch's predictions against the same model on the CPU (the
-   plain path); measure the inference rate in graphs/s over full batches,
-   then profile the same loop once more for the device time by CUDA kernel
-   and the device's idle share;
-5b. the same for training steps (forward, backward, clipping, adamW): the
-   rate in graphs/s over full batches, the profile, and the peak device
-   memory.
+3c. the kernels of the unmerged layer path (``gatedgcn``, ``drop_add``, and
+   ``pre_tail`` and ``combine_ffn`` at their second widths), forward and
+   backward as in 3 and 3b with dropout 0.05, on layer 0's inputs of the
+   second main path (ogbg-molhiv GPS: batch 32, d=64, 4 heads) and at batch
+   256, d=304, 4 heads (``pcqm4m-GPS+RWSE.yaml``); the attention dropout's
+   mask keeps 128/256 at rate 0.5;
+4. per main path (GPS-deep 16x256 at batch 256, then ogbg-molhiv 10x64 at
+   batch 32), each with every launch count set to 0 just before a run and
+   read just after:
+   a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
+      inference-only``: the launches per batch the path implies;
+   b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1): one
+      stats line per epoch and split with finite losses (``auc`` on
+      ogbg-molhiv), the launches per layer and training step (forward ones
+      also per evaluated batch where evaluation runs them; the edge tail's
+      backward in all layers but the last, whose edge output does not reach
+      the loss), and the best epoch's checkpoint reloads into a fresh model
+      with the same selection metric;
+   c. one training step on the card and on the CPU (the plain path) from the
+      same weights, batch and dropout seeds: loss, every gradient, the
+      updated running statistics and the updated parameters;
+   d. one batch's predictions (logits) against the same model on the CPU
+      with calibrated BatchNorm statistics; the inference rate in graphs/s
+      over full batches, then a profile of the same loop for the device time
+      by CUDA kernel and the device's idle share;
+   e. the same for training steps (forward, backward, clipping, adamW),
+      with the peak device memory.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}`` (the six kernels of the
+merged path at GPS-deep's shapes, the four new ones at ogbg-molhiv's); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -53,8 +60,23 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 CFG = "configs/GPS/pcqm4m-GPSdeep+RWSE.yaml"
+MOLHIV_CFG = "configs/GPS/ogbg-molhiv-GPS+RWSE.yaml"
+PCQM_GPS_CFG = "configs/GPS/pcqm4m-GPS+RWSE.yaml"
 SEED = 0
+# launches per layer of each kernel: (per training step, per evaluated
+# batch). GPS-deep takes the merged path in training and evaluation; at
+# d = 64 ogbg-molhiv takes the unmerged path, whose evaluation runs the
+# GatedGCN core alone (plain tails and FFN)
+GPSDEEP_LAUNCHES = {
+    "gps_front": (1, 1), "pre_tail": (1, 1), "combine_ffn": (1, 1),
+    "gps_front_bwd": (1, 0), "pre_tail_bwd": (1, 0), "combine_ffn_bwd": (1, 0)}
+MOLHIV_LAUNCHES = {
+    "gatedgcn": (1, 1), "gatedgcn_bwd": (1, 0), "drop_add": (1, 0),
+    "drop_add_bwd": (1, 0), "pre_tail": (1, 0), "pre_tail_bwd": (1, 0),
+    "combine_ffn": (1, 0), "combine_ffn_bwd": (1, 0)}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (the kernels run f32 on CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -70,22 +92,23 @@ MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
 # the front's moment sums run over ~6e3 rows: error relative to the sum of
 # the terms' magnitudes (f32 sequential sums stay well inside n*eps ≈ 6e-4)
 MOMENT_RTOL = 1e-5
-# the inference rate: full batches per timed pass, and timed passes
-# (~1 s per pass at ~23 ms per batch)
+# the rates: full batches per timed pass, and timed passes
 RATE_BATCHES = 40
 RATE_PASSES = 3
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
 DROP_SEED = 20260
-KEEP_FRACTION = 230 / 256
 KEEP_REL_TOL = 0.005
+# phase 3c: ogbg-molhiv's rates (residual branches, attention probabilities)
+UNMERGED_DROP_RATE = 0.05
+UNMERGED_ATTN_RATE = 0.5
 # a backward kernel vs autograd of its plain version: another summation
 # order, and a gradient entry is a sum over rows (or 7d products) that
 # cancel, so its f32 rounding follows the tensor's largest entries
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
 # phase 4b: epochs of the training run through the entry point
 TRAIN_EPOCHS = 3
-# phase 4c: one training step, card vs CPU. Gradients: 16 layers of f32
+# phase 4c: one training step, card vs CPU. Gradients: 10 or 16 layers of f32
 # forward and backward in two summation orders (tiled GEMM and fixed-order
 # column sums on the card, MKL on the CPU); the atol is relative to each
 # tensor's own largest entry (gradients are small, so no floor of 1; see
@@ -170,6 +193,17 @@ def front_args(layer, batch, x, e):
     return layer.local.front_args(batch, x, e, layer.front_pack())
 
 
+def branch_outputs(layer, batch, x, e):
+    """(xo, gate, s_attn): the pre-norm outputs of a layer's two branches in
+    evaluation, on either path."""
+    from graphgps_torch.ops.kernels import fused_gatedgcn, fused_gps_front
+
+    if layer.merged:
+        return fused_gps_front(*front_args(layer, batch, x, e))[:3]
+    xo, gate = fused_gatedgcn(*layer.local.core_args(batch, x, e))[:2]
+    return xo, gate, x + layer.attention(batch, x)
+
+
 def calibrated_model(torch, cfg, splits, batch):
     """The entry point's seeded model (same seed, same weights) with seeded
     BatchNorm scale/bias, and running statistics set, layer by layer, to the
@@ -180,11 +214,10 @@ def calibrated_model(torch, cfg, splits, batch):
     from graphgps_torch.driver import infer_dims
     from graphgps_torch.models.common import MaskedBatchNorm
     from graphgps_torch.models.networks import build_model
-    from graphgps_torch.ops.kernels import fused_gps_front
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits))
+        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
     g = torch.Generator().manual_seed(cfg.seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -204,7 +237,7 @@ def calibrated_model(torch, cfg, splits, batch):
         fit(model.encoder.rwse.raw_norm, batch.pe["pestat_RWSE"], nm)
         x, e = model.encoder(batch)
         for layer in model.layers:
-            xo, gate, sa = fused_gps_front(*front_args(layer, batch, x, e))[:3]
+            xo, gate, sa = branch_outputs(layer, batch, x, e)
             fit(layer.local.norm_x, xo, nm)
             fit(layer.local.norm_e, gate, em)
             fit(layer.norm_attn, sa, nm)
@@ -222,9 +255,75 @@ def calibrated_model(torch, cfg, splits, batch):
     return model
 
 
+def tensors(args):
+    return [a for a in args if hasattr(a, "element_size")]
+
+
+def as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def timings(torch, fn, plain) -> dict:
+    """Device and host-clock ms per call of a kernel wrapper and of its
+    plain version, in turns."""
+    return dict(ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
+                wall_ms=time_ms(torch, fn), plain_wall_ms=time_ms(torch, plain))
+
+
+def bound(n_bytes: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the CUDA cores' peak, whichever is larger."""
+    byte_s, flop_s = n_bytes / PEAK_BYTES, flops / PEAK_F32
+    return dict(bound_ms=max(byte_s, flop_s) * 1e3,
+                bound_by="bytes" if byte_s >= flop_s else "operations")
+
+
+def forward_case(torch, c, shapes: dict) -> dict:
+    """One forward kernel against its plain version on the same tensors:
+    prints and returns its row; fails when they disagree. ``c``: name, fn,
+    plain, args, flops (on the real rows), source, replaces, and for a
+    function whose last outputs are (1, 2d) moment sums the
+    ``moment_scales`` of those."""
+    with torch.no_grad():
+        got = as_tuple(c["fn"](*c["args"]))
+        ref = as_tuple(c["plain"](*c["args"]))
+        torch.cuda.synchronize()
+        for g_ in got:
+            if not torch.isfinite(g_).all():
+                fail(f"{c['name']}: non-finite output")
+        # tensors: elementwise; (1, 2d) moment sums: against the sum of
+        # their terms' magnitudes, since sum m(v-c) cancels to ~0 when c is
+        # the mean
+        scales = c.get("moment_scales", [])
+        n_t = len(got) - len(scales)
+        err = max(float((g_ - r_).abs().max())
+                  for g_, r_ in zip(got[:n_t], ref[:n_t]))
+        ok = all(torch.allclose(g_, r_, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+                 for g_, r_ in zip(got[:n_t], ref[:n_t]))
+        extra = {}
+        if scales:
+            rel = max(float(((g_ - r_).abs() / scale).max())
+                      for g_, r_, scale in zip(got[n_t:], ref[n_t:], scales))
+            ok &= rel <= MOMENT_RTOL
+            extra = dict(moments_max_rel_err=rel, moments_rtol=MOMENT_RTOL)
+        row = dict(name=c["name"], route="cuda", source=c["source"],
+                   replaces=c["replaces"], max_abs_err=err,
+                   rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                   **timings(torch, lambda: c["fn"](*c["args"]),
+                             lambda: c["plain"](*c["args"])),
+                   **bound(nbytes(*tensors(c["args"]), *got), c["flops"]),
+                   library_ms=None, shapes=shapes, **extra)
+    print(json.dumps(row), flush=True)
+    if not ok:
+        fail(f"{c['name']}: kernel disagrees with its plain version "
+             f"(max abs err {err}, rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+    return row
+
+
 def check_kernels(torch, cfg, splits, device):
-    """Phase 3: each kernel vs its plain version on layer 0's inputs.
-    Returns the rows and the calibrated model's state dict."""
+    """Phase 3: each kernel of the merged path vs its plain version on
+    layer 0's inputs. Returns the rows, the calibrated model's state dict
+    and layer 0's inputs."""
     from graphgps_torch.driver import create_loaders
     from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
                                                          fused_combine_ffn)
@@ -256,7 +355,6 @@ def check_kernels(torch, cfg, splits, device):
         dict(name="gps_front", fn=fused_gps_front, plain=gps_front_plain,
              args=front_in, source="graphgps_torch/csrc/gps_front.cu",
              replaces="graphgps_tpu/ops/pallas/fused_layer.py:270",
-             inputs=[a for a in front_in if torch.is_tensor(a)],
              moment_scales=[moment_scale(torch, v, m, sh) for v, m, sh in (
                  (xo, batch.node_mask, gg.norm_x.running_mean),
                  (gate, batch.edge_mask, gg.norm_e.running_mean),
@@ -268,70 +366,26 @@ def check_kernels(torch, cfg, splits, device):
         dict(name="pre_tail", fn=fused_pre_tail, plain=pre_tail_plain,
              args=tail_args, source="graphgps_torch/csrc/pre_tail.cu",
              replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
-             inputs=[a for a in tail_args if torch.is_tensor(a)],
-             # sub, 2 mul, add, gelu (~8), residual add per real element
-             flops=13 * e_real * d),
+             flops=tail_flops(gg.act) * e_real * d),
         dict(name="combine_ffn", fn=fused_combine_ffn, plain=combine_ffn_plain,
              args=comb_args, source="graphgps_torch/csrc/combine_ffn.cu",
              replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
-             inputs=[a for a in comb_args if torch.is_tensor(a)],
              flops=4 * n_real * d * dh),
     ]
-    results = []
-    with torch.no_grad():
-        for c in cases:
-            got = c["fn"](*c["args"])
-            ref = c["plain"](*c["args"])
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            for g_ in got:
-                if not torch.isfinite(g_).all():
-                    fail(f"{c['name']}: non-finite output")
-            # tensors: elementwise; the front's (1, 2d) moment sums: against
-            # the sum of their terms' magnitudes, since Σm(v−c) cancels to
-            # ~0 when c is the mean
-            n_t = min(3, len(got))
-            err = max(float((g_ - r_).abs().max())
-                      for g_, r_ in zip(got[:n_t], ref[:n_t]))
-            ok = all(torch.allclose(g_, r_, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-                     for g_, r_ in zip(got[:n_t], ref[:n_t]))
-            extra = {}
-            if len(got) > n_t:
-                rel = max(float(((g_ - r_).abs() / scale).max())
-                          for g_, r_, scale in zip(got[n_t:], ref[n_t:],
-                                                   c["moment_scales"]))
-                ok &= rel <= MOMENT_RTOL
-                extra = dict(moments_max_rel_err=rel, moments_rtol=MOMENT_RTOL)
-            out_bytes = nbytes(*got)
-            byte_s = (nbytes(*c["inputs"]) + out_bytes) / PEAK_BYTES
-            flop_s = c["flops"] / PEAK_F32
-            row = dict(name=c["name"], route="cuda", source=c["source"],
-                       replaces=c["replaces"], max_abs_err=err,
-                       rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-                       ms=device_ms(torch, lambda: c["fn"](*c["args"])),
-                       plain_ms=device_ms(torch,
-                                          lambda: c["plain"](*c["args"])),
-                       wall_ms=time_ms(torch, lambda: c["fn"](*c["args"])),
-                       plain_wall_ms=time_ms(
-                           torch, lambda: c["plain"](*c["args"])),
-                       bound_ms=max(byte_s, flop_s) * 1e3,
-                       bound_by="bytes" if byte_s >= flop_s else "operations",
-                       library_ms=None,
-                       shapes=dict(B=B, N=N, E=E, d=d, H=H,
-                                   real_nodes=n_real, real_edges=e_real),
-                       **extra)
-            print(json.dumps(row), flush=True)
-            if not ok:
-                fail(f"{c['name']}: kernel disagrees with its plain version "
-                     f"(max abs err {err}, rtol {KERNEL_RTOL}, atol "
-                     f"{KERNEL_ATOL})")
-            results.append(row)
+    shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
+                  real_edges=e_real)
+    results = [forward_case(torch, c, shapes) for c in cases]
     layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
                   n_real=n_real, e_real=e_real, attn_pairs=attn_pairs,
                   B=B, N=N, E=E, d=d, H=H, dh=dh)
     return results, {k: v.clone() for k, v in model.state_dict().items()}, \
         layer0
+
+
+def tail_flops(act: str) -> int:
+    """Operations per element of ``x + act(bn(v))``: sub, 2 mul, add, the
+    activation (gelu ~8, relu 1) and the residual add."""
+    return 5 + (8 if act == "gelu" else 1)
 
 
 def grads_close(torch, got, want, rtol, atol, floor: float = 1.0):
@@ -347,26 +401,113 @@ def grads_close(torch, got, want, rtol, atol, floor: float = 1.0):
     return ok, err, rel
 
 
+def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
+    """One backward kernel, after its forward kernel with dropout ``rate``
+    on every site, against autograd of the plain version on the same
+    inputs and cotangents: prints and returns its row; fails on a gradient
+    outside tolerance, a kept fraction outside the u8 grid's ± 0.5%, or two
+    runs that differ in any bit. ``c``: name, run (cots or None → (cots,
+    the backward call)), plain (cots → gradients), inputs (the tensors the
+    backward reads beside the cotangents), sites [(name, rows, cols)],
+    flops, source, replaces."""
+    from graphgps_torch.ops.kernels.common import dropout_mask, keep_rule
+
+    cots, bwd = c["run"]()
+    got = bwd()
+    _, bwd2 = c["run"](cots)
+    again = bwd2()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = c["plain"](cots)
+    ok, err, rel = grads_close(torch, got, want, GRAD_RTOL, GRAD_ATOL)
+    device = cots[0].device
+    kept = {name: float((dropout_mask(seed, i, r_, c_, rate, device) > 0)
+                        .float().mean())
+            for i, (name, r_, c_) in enumerate(c["sites"])}
+    row = dict(name=c["name"], route="cuda", source=c["source"],
+               replaces=c["replaces"], max_abs_err=err,
+               max_err_over_tensor_max=rel, rtol=GRAD_RTOL,
+               atol=f"{GRAD_ATOL} x max(1, max|grad|)",
+               bit_identical_reruns=same,
+               **timings(torch, bwd, lambda: c["plain"](cots)),
+               **bound(nbytes(*c["inputs"], *cots, *got), c["flops"]),
+               library_ms=None, rate=rate, kept_fraction=kept, shapes=shapes)
+    print(json.dumps(row), flush=True)
+    if not same:
+        fail(f"{c['name']}: two runs on the same inputs differ")
+    if not ok:
+        fail(f"{c['name']}: disagrees with autograd of its plain version "
+             f"(max abs err {err}, {rel} of the tensor's largest entry)")
+    keep = 1.0 - keep_rule(rate)[0] / 256
+    for name, frac in kept.items():
+        if abs(frac - keep) > KEEP_REL_TOL * keep:
+            fail(f"{c['name']}: site {name!r} keeps {frac}, expected {keep}")
+    return row
+
+
+def cotangents(torch, seed: int, device):
+    """A maker of seeded random cotangents shaped like given outputs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return lambda outs: [torch.randn(o.shape, generator=g, device=o.device)
+                         for o in outs]
+
+
+def tail_backward_case(torch, tin, tconf, cots_for, rows: int, d: int,
+                       e_real: int) -> dict:
+    from graphgps_torch.ops.kernels import pre_tail
+
+    def run(cots=None):
+        out = pre_tail._launch_forward(*tin, *tconf)
+        cots = cots or cots_for([out])
+        return cots, lambda: pre_tail.pre_tail_backward(
+            *tin[1:], cots[0], *tconf)
+
+    return dict(name="pre_tail_bwd", run=run,
+                plain=lambda c: pre_tail.pre_tail_backward_plain(
+                    *tin[1:], c[0], *tconf),
+                inputs=tin[1:], source="graphgps_torch/csrc/pre_tail.cu",
+                replaces="graphgps_tpu/ops/pallas/fused_tail.py:220",
+                sites=[("edge tail", rows, d)],
+                # act' (~10), mask, four products and four sums per element
+                flops=20 * e_real * d)
+
+
+def combine_backward_case(torch, cin, cconf, cots_for, R: int, d: int,
+                          dh: int, n_real: int) -> dict:
+    from graphgps_torch.ops.kernels import combine_ffn
+
+    def run(cots=None):
+        out, h, z, a1 = combine_ffn._launch_forward(cin, *cconf, True)
+        cots = cots or cots_for([out])
+        return cots, lambda: combine_ffn.combine_ffn_backward(
+            *cin, cots[0], *cconf, kept=(h, a1, z))
+
+    return dict(name="combine_ffn_bwd", run=run,
+                plain=lambda c: combine_ffn.combine_ffn_backward_plain(
+                    *cin, c[0], *cconf),
+                inputs=cin, source="graphgps_torch/csrc/combine_ffn.cu",
+                replaces="graphgps_tpu/ops/pallas/fused_combine.py:235",
+                sites=[("local tail", R, d), ("FFN inner", R, dh),
+                       ("FFN outer", R, d)],
+                # dU = dA2 W2^T, dH = dA1 W1^T, dW1 = H^T dA1, dW2 = Z^T dA2
+                flops=8 * n_real * d * dh)
+
+
 def check_backward(torch, layer0):
-    """Phase 3b: the three functions with dropout DROP_RATE on every site,
-    forward and backward, through the kernels (autograd Functions) and
+    """Phase 3b: the three functions of the merged path with dropout
+    DROP_RATE on every site, forward and backward, through the kernels and
     through autograd of their plain versions, on layer 0's inputs at the
-    main path's shapes. One JSON line per backward kernel; fails on a
-    gradient outside tolerance, a kept fraction outside 230/256 ± 0.5%, or
-    two runs of a backward kernel that differ in any bit."""
-    from graphgps_torch.ops.kernels import combine_ffn, gps_front, pre_tail
+    main path's shapes. One JSON line per backward kernel."""
+    from graphgps_torch.ops.kernels import gps_front, pre_tail
     from graphgps_torch.ops.kernels.common import dropout_mask
 
     L = layer0
+    device = L["front"][0].device
     B, N, E, d, H, dh = (L[k] for k in ("B", "N", "E", "d", "H", "dh"))
     n, e_, pairs = L["n_real"], L["e_real"], L["attn_pairs"]
     R = B * N
     rate, seed = DROP_RATE, DROP_SEED
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-
-    def cots_for(outs):
-        return [torch.randn(o.shape, generator=g, device=o.device)
-                for o in outs]
+    cots_for = cotangents(torch, SEED + 5, device)
 
     fin = tuple(L["front"][:15])
     fconf = (seed, H, L["front"][17], rate, rate)
@@ -382,234 +523,233 @@ def check_backward(torch, layer0):
         return cots, lambda: gps_front.gps_front_backward(
             *fin, *fconf, *cots, kept=kept)
 
-    def run_tail(cots=None):
-        out = pre_tail._launch_forward(*tin, *tconf)
-        cots = cots or cots_for([out])
-        return cots, lambda: pre_tail.pre_tail_backward(
-            *tin[1:], cots[0], *tconf)
-
-    def run_comb(cots=None):
-        out, h, z, a1 = combine_ffn._launch_forward(cin, *cconf, True)
-        cots = cots or cots_for([out])
-        return cots, lambda: combine_ffn.combine_ffn_backward(
-            *cin, cots[0], *cconf, kept=(h, a1, z))
-
     cases = [
         dict(name="gps_front_bwd", run=run_front,
              plain=lambda c: gps_front.gps_front_backward_plain(
                  *fin, *fconf, *c),
-             source="graphgps_torch/csrc/gps_front.cu",
+             inputs=fin, source="graphgps_torch/csrc/gps_front.cu",
              replaces="graphgps_tpu/ops/pallas/fused_layer.py:352",
              sites=[("attention P", B * H * N, N), ("out-projection", R, d)],
              # dx, dWnq (7d wide), de, dWc, dO, dWo, and per head dv, dP,
              # dq, dk over the real pairs
              flops=4 * n * 7 * d * d + 4 * e_ * d * d + 4 * n * d * d
              + 8 * pairs * d),
-        dict(name="pre_tail_bwd", run=run_tail,
-             plain=lambda c: pre_tail.pre_tail_backward_plain(
-                 *tin[1:], c[0], *tconf),
-             source="graphgps_torch/csrc/pre_tail.cu",
-             replaces="graphgps_tpu/ops/pallas/fused_tail.py:220",
-             sites=[("edge tail", B * E, d)],
-             # act' (~10), mask, four products and four sums per element
-             flops=20 * e_ * d),
-        dict(name="combine_ffn_bwd", run=run_comb,
-             plain=lambda c: combine_ffn.combine_ffn_backward_plain(
-                 *cin, c[0], *cconf),
-             source="graphgps_torch/csrc/combine_ffn.cu",
-             replaces="graphgps_tpu/ops/pallas/fused_combine.py:235",
-             sites=[("local tail", R, d), ("FFN inner", R, dh),
-                    ("FFN outer", R, d)],
-             # dU = dA2 W2^T, dH = dA1 W1^T, dW1 = H^T dA1, dW2 = Z^T dA2
-             flops=8 * n * d * dh),
+        tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_),
+        combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n),
     ]
 
     # the pre_tail forward kernel's own mask, read back: x_in = 0 and
     # act(bn(v)) = 1 leave exactly the site-0 multiplier
-    zeros = torch.zeros((B * E, d), device="cuda")
-    one, zero = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    zeros = torch.zeros((B * E, d), device=device)
+    one, zero = torch.ones(d, device=device), torch.zeros(d, device=device)
     drawn = pre_tail._launch_forward(zeros, zeros, zero, one, zero, one, seed,
                                      rate, "identity")
-    if not torch.equal(drawn, dropout_mask(seed, 0, B * E, d, rate, "cuda")):
+    if not torch.equal(drawn, dropout_mask(seed, 0, B * E, d, rate, device)):
         fail("pre_tail: the kernel's mask differs from the port's hash")
 
-    rows = []
-    for c in cases:
-        cots, bwd = c["run"]()
-        got = bwd()
-        _, bwd2 = c["run"](cots)
-        again = bwd2()
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        want = c["plain"](cots)
-        ok, err, rel = grads_close(torch, got, want, GRAD_RTOL, GRAD_ATOL)
-        kept = {name: float((dropout_mask(seed, i, r_, c_, rate, "cuda") > 0)
-                            .float().mean())
-                for i, (name, r_, c_) in enumerate(c["sites"])}
-        inputs = [t for t in (fin if c["name"] == "gps_front_bwd" else
-                              tin[1:] if c["name"] == "pre_tail_bwd" else cin)]
-        byte_s = (nbytes(*inputs, *cots) + nbytes(*got)) / PEAK_BYTES
-        flop_s = c["flops"] / PEAK_F32
-        row = dict(name=c["name"], route="cuda", source=c["source"],
-                   replaces=c["replaces"], max_abs_err=err,
-                   max_err_over_tensor_max=rel, rtol=GRAD_RTOL,
-                   atol=f"{GRAD_ATOL} x max(1, max|grad|)",
-                   bit_identical_reruns=same,
-                   ms=device_ms(torch, bwd),
-                   plain_ms=device_ms(torch, lambda: c["plain"](cots)),
-                   wall_ms=time_ms(torch, bwd),
-                   plain_wall_ms=time_ms(torch, lambda: c["plain"](cots)),
-                   bound_ms=max(byte_s, flop_s) * 1e3,
-                   bound_by="bytes" if byte_s >= flop_s else "operations",
-                   library_ms=None, rate=rate, kept_fraction=kept)
-        print(json.dumps(row), flush=True)
-        if not same:
-            fail(f"{c['name']}: two runs on the same inputs differ")
-        if not ok:
-            fail(f"{c['name']}: disagrees with autograd of its plain version "
-                 f"(max abs err {err}, {rel} of the tensor's largest entry)")
-        for name, frac in kept.items():
-            if abs(frac - KEEP_FRACTION) > KEEP_REL_TOL * KEEP_FRACTION:
-                fail(f"{c['name']}: site {name!r} keeps {frac}, expected "
-                     f"{KEEP_FRACTION}")
-        rows.append(row)
-    return rows
+    shapes = dict(B=B, N=N, E=E, d=d, H=H)
+    return [backward_case(torch, c, seed, rate, shapes) for c in cases]
 
 
-def rate_loader(cfg, splits, loader, device):
-    """RATE_BATCHES full batches of the train split's graphs, repeated in
-    order, at the main path's shapes (the same N and edge block): the
-    stand-in's splits are small enough that partial batches, which do a
-    full batch's work, would otherwise weigh on the rate."""
-    from graphgps_torch.data.loader import DeviceLoader
+def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
+    """Phase 3c: the four functions of the unmerged layer path (GatedGCN
+    core, edge tail, drop-add, combine+FFN), forward and backward with
+    dropout UNMERGED_DROP_RATE, kernels against plain versions, on layer
+    0's inputs of the recipe ``cfg_path`` (``opts`` on top) at its batch
+    size and width. Returns (cfg, splits, rows, the calibrated model's
+    state dict); every row carries ``shape=tag``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+    from graphgps_torch.ops.kernels import (combine_ffn, drop_add, gatedgcn,
+                                            pre_tail)
+    from graphgps_torch.ops.kernels.common import dropout_mask
 
-    bs = cfg.train.batch_size
-    n = RATE_BATCHES * bs
-    graphs = (splits.train * -(-n // len(splits.train)))[:n]
-    return DeviceLoader(graphs, bs, device, max_nodes=loader.max_nodes,
-                        max_edges=bs * loader.arenas.edge_cap)
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = calibrated_model(torch, cfg, splits, batch)
+    layer = model.layers[0]
+    if layer.merged:
+        fail(f"{tag}: expected the unmerged layer path at d={layer.dim_h}")
+    gg = layer.local
+    B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
+    d, H, dh = layer.dim_h, layer.num_heads, layer.w_ffn1.shape[1]
+    R = B * N
+    rate, seed = UNMERGED_DROP_RATE, DROP_SEED
+    with torch.no_grad():
+        x, e = model.encoder(batch)
+        gin = gg.core_args(batch, x, e)
+        xo, gate = (t.reshape(-1, d) for t in
+                    gatedgcn.fused_gatedgcn(*gin)[:2])
+        h_attn = layer.attention(batch, x)
+        tin = tuple(gg.edge_tail_args(e, gate)[:6])
+        cin = tuple(layer.combine_args(gg.x_tail_args(x, xo),
+                                       x + h_attn)[:15])
+    tconf = cconf = (seed, rate, gg.act)
+    n_real = int(batch.node_mask.sum())
+    e_real = int(batch.edge_mask.sum())
+    shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
+                  real_edges=e_real)
+    # the core per real edge and column: two gathers' adds, the sigmoid
+    # (~6), the message product, two accumulations, two moment terms; per
+    # real node the division, the add and two moment terms
+    core = 14 * e_real * d + 6 * n_real * d
+    ggcn_src = "graphgps_torch/csrc/gatedgcn.cu"
+    da_src = "graphgps_torch/csrc/drop_add.cu"
+    fwd = [
+        dict(name="gatedgcn", fn=gatedgcn.fused_gatedgcn,
+             plain=gatedgcn.gatedgcn_plain, args=gin, source=ggcn_src,
+             replaces="graphgps_tpu/ops/pallas/fused_gatedgcn.py:279",
+             moment_scales=[
+                 moment_scale(torch, xo, batch.node_mask,
+                              gg.norm_x.running_mean),
+                 moment_scale(torch, gate, batch.edge_mask,
+                              gg.norm_e.running_mean)],
+             flops=2 * n_real * d * 4 * d + 2 * e_real * d * d + core),
+        dict(name="pre_tail", fn=pre_tail.fused_pre_tail,
+             plain=pre_tail.pre_tail_plain, args=(*tin, *tconf),
+             source="graphgps_torch/csrc/pre_tail.cu",
+             replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
+             flops=tail_flops(gg.act) * e_real * d),
+        dict(name="drop_add", fn=drop_add.fused_drop_add,
+             plain=drop_add.drop_add_plain, args=(x, h_attn, seed, rate),
+             source=da_src,
+             replaces="graphgps_tpu/ops/pallas/fused_tail.py:270",
+             # a product with the mask and the add per element
+             flops=2 * R * d),
+        dict(name="combine_ffn", fn=combine_ffn.fused_combine_ffn,
+             plain=combine_ffn.combine_ffn_plain, args=(*cin, *cconf),
+             source="graphgps_torch/csrc/combine_ffn.cu",
+             replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
+             flops=4 * n_real * d * dh),
+    ]
+    rows = [forward_case(torch, c, shapes) for c in fwd]
+
+    cots_for = cotangents(torch, SEED + 6, device)
+
+    def run_core(cots=None):
+        outs, proj = gatedgcn._launch_forward(gin)
+        cots = cots or cots_for(outs)
+        return cots, lambda: gatedgcn.gatedgcn_backward(
+            *gin, *cots, kept=(outs[0], outs[1], proj))
+
+    def run_drop_add(cots=None):
+        out = drop_add._launch_forward(x, h_attn, seed, rate)
+        cots = cots or cots_for([out])
+        return cots, lambda: (drop_add.drop_add_backward(cots[0], seed, rate),)
+
+    bwd = [
+        dict(name="gatedgcn_bwd", run=run_core,
+             plain=lambda c: gatedgcn.gatedgcn_backward_plain(*gin, *c),
+             inputs=tensors(gin), source=ggcn_src,
+             replaces="graphgps_tpu/ops/pallas/fused_gatedgcn.py:349",
+             sites=[],
+             # dx, dWn (4d wide), de, dWc, and about twice the forward's
+             # core (sigma and the quotient recomputed, five scatters)
+             flops=4 * n_real * d * 4 * d + 4 * e_real * d * d + 2 * core),
+        tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_real),
+        dict(name="drop_add_bwd", run=run_drop_add,
+             plain=lambda c: (drop_add.drop_add_backward_plain(
+                 c[0], seed, rate),),
+             inputs=[], source=da_src,
+             replaces="graphgps_tpu/ops/pallas/fused_tail.py:298",
+             sites=[("attention branch", R, d)], flops=R * d),
+        combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n_real),
+    ]
+    rows += [backward_case(torch, c, seed, rate, shapes) for c in bwd]
+
+    # the attention dropout (PyTorch ops over the port's hash): the kept
+    # fraction of the (B*H*N, N) mask at the recipe's rate
+    m = dropout_mask(seed, 0, B * H * N, N, UNMERGED_ATTN_RATE, device)
+    frac = float((m > 0).float().mean())
+    print(json.dumps(dict(shape=tag, attention_mask_kept=frac,
+                          rate=UNMERGED_ATTN_RATE)), flush=True)
+    if abs(frac - 0.5) > KEEP_REL_TOL:
+        fail(f"{tag}: the attention mask keeps {frac} at rate 0.5")
+    for r in rows:
+        r["shape"] = tag
+    return cfg, splits, rows, \
+        {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def measure_rate(torch, cfg, model, loader) -> dict:
-    """The entry point's evaluation step over full batches: graphs/s on the
-    host clock over RATE_PASSES passes after one warm-up pass; then one more
-    pass under ``torch.profiler`` for the device time by CUDA kernel and the
-    device's idle share in that pass's own window. Prints one JSON line per
-    kernel name (the largest first)."""
-    from graphgps_torch.train.loop import eval_step
-
-    def one_pass():
-        for _real, b in loader:
-            eval_step(cfg, model, b)
-
-    one_pass()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(RATE_PASSES):
-        one_pass()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n_batches = RATE_PASSES * len(loader)
-
-    rows, busy_ms, prof_ms = profile_pass(torch, one_pass, len(loader), 15,
-                                          "batch")
-    batch_ms = 1e3 * wall / n_batches
-    return dict(inference_graphs_per_s=n_batches * loader.batch_size / wall,
-                full_batches=n_batches, timed_s=wall, batch_ms=batch_ms,
-                profiled_batch_ms=prof_ms, device_busy_ms=busy_ms,
-                profiled_idle_share=1.0 - busy_ms / prof_ms,
-                # busy time of the profiled pass over the same loop's time
-                # without the profiler: an estimate across two windows
-                idle_share_estimate=1.0 - busy_ms / batch_ms)
+def expected_launches(table, layers: int, steps: int, evals: int, names):
+    """Launches of every kernel in ``names`` over ``steps`` training steps
+    and ``evals`` evaluated batches of a model of ``layers`` layers whose
+    path launches per layer what ``table`` says. The last layer's edge
+    output does not reach the loss, so autograd runs the edge tail's
+    backward in the other layers only."""
+    out = {}
+    for name in names:
+        per_step, per_eval = table.get(name, (0, 0))
+        n_layers = layers - (name == "pre_tail_bwd")
+        out[name] = n_layers * (per_step * steps + per_eval * evals)
+    return out
 
 
-def profile_pass(torch, one_pass, n: int, top: int, unit: str):
-    """One pass of ``one_pass`` (``n`` batches) under ``torch.profiler``:
-    prints the ``top`` CUDA kernels by device time, one JSON line each, and
-    returns (rows, device busy ms per batch, profiled wall ms per batch)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        one_pass()
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    rows = device_rows(torch, prof)
-    busy_us = sum(r[1] for r in rows)
-    if busy_us <= 0:
-        fail("the profiler recorded no device time")
-    for name, us, cnt in rows[:top]:
-        print(json.dumps({"device_kernel": name[:90],
-                          f"ms_per_{unit}": us / n / 1e3,
-                          "share": us / busy_us,
-                          f"calls_per_{unit}": cnt / n}), flush=True)
-    return rows, busy_us / n / 1e3, 1e3 * prof_wall / n
+def check_launches(what: str, counts: dict, expect: dict, **info) -> None:
+    print(json.dumps(dict(path=what, **info, launches=counts,
+                          expected=expect)), flush=True)
+    for name, want in expect.items():
+        if counts[name] != want:
+            fail(f"{what}: {name} was launched {counts[name]} times, "
+                 f"expected {want}")
 
 
-def check_training_run(torch, cfg, splits, run_dir, device, counts):
-    """Phase 4b's checks on the entry point's training run: stats lines,
-    launch counts, the best epoch's checkpoint."""
+def check_training_run(torch, cfg, splits, run_dir, device, metric: str):
+    """Phase 4b's checks on the entry point's training run: stats lines
+    and the best epoch's checkpoint (first best by the val ``metric``:
+    ``mae`` the smallest, any other the largest), which reloads into a fresh
+    model and gives that epoch's val metric again."""
     from graphgps_torch.driver import create_loaders, infer_dims
+    from graphgps_torch.metrics import compute_task_metrics
     from graphgps_torch.models.networks import build_model
     from graphgps_torch.train import checkpoint
 
-    bs = cfg.train.batch_size
-    steps = TRAIN_EPOCHS * math.ceil(len(splits.train) / bs)
-    evals = TRAIN_EPOCHS * sum(math.ceil(len(s) / bs)
-                               for s in (splits.val, splits.test))
-    # per layer and step, and per layer and evaluated batch for the forward
-    # ones; the last layer's edge output does not reach the loss, so autograd
-    # runs the edge tail's backward in the other layers only
-    expect = {}
-    for name in counts:
-        per = steps + (0 if name.endswith("_bwd") else evals)
-        layers = cfg.gt.layers - (name == "pre_tail_bwd")
-        expect[name] = layers * per
-    print(json.dumps(dict(train_steps=steps, eval_batches=evals,
-                          launches=counts, expected=expect)), flush=True)
-    for name, want in expect.items():
-        if counts[name] != want:
-            fail(f"{name}: {counts[name]} launches in training, expected "
-                 f"{want}")
     for split in ("train", "val", "test"):
         path = os.path.join(run_dir, split, "stats.json")
         rows = [json.loads(line) for line in open(path).read().splitlines()]
         if [r["epoch"] for r in rows] != list(range(TRAIN_EPOCHS)):
             fail(f"{split}: stats.json epochs {[r['epoch'] for r in rows]}")
-        if not all(math.isfinite(r["loss"]) for r in rows):
-            fail(f"{split}: non-finite loss in {rows}")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r[metric])
+                   for r in rows):
+            fail(f"{split}: non-finite loss or no {metric} in {rows}")
         if split == "val":
             val = rows
-    best = min(range(TRAIN_EPOCHS), key=lambda i: val[i]["mae"])
+    sign = 1.0 if metric == "mae" else -1.0
+    best = min(range(TRAIN_EPOCHS), key=lambda i: sign * val[i][metric])
     saved = checkpoint.saved_epochs(run_dir)
     if saved != [best]:
         fail(f"checkpoints {saved}, expected the best epoch {best}")
+    loader = create_loaders(cfg, splits, device)["val"]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed + 7)
-        model = build_model(cfg, infer_dims(cfg, splits))
+        model = build_model(cfg, infer_dims(cfg, splits), loader.max_nodes)
     model = model.to(device).eval()
     checkpoint.load_ckpt(run_dir, model)
-    preds = []
+    preds, trues = [], []
     with torch.no_grad():
-        for _real, batch in create_loaders(cfg, splits, device)["val"]:
-            pred, _ = model(batch)
-            preds.append(pred[batch.graph_mask].reshape(-1).cpu())
-    pred = torch.cat(preds)
-    true = torch.tensor([float(g.y.reshape(-1)[0]) for g in splits.val])
-    mae = float((pred - true).abs().mean())
-    print(json.dumps(dict(best_epoch=best, reloaded_val_mae=mae,
-                          logged_val_mae=val[best]["mae"])), flush=True)
+        for _real, batch in loader:
+            pred, true = model(batch)
+            preds.append(pred[batch.graph_mask].cpu().numpy())
+            trues.append(true[batch.graph_mask].cpu().numpy())
+    got = compute_task_metrics(cfg.dataset.task_type, np.concatenate(preds),
+                               np.concatenate(trues))[metric]
+    print(json.dumps({"best_epoch": best, f"reloaded_val_{metric}": got,
+                      f"logged_val_{metric}": val[best][metric]}), flush=True)
     # the stats round to 5 decimals
-    if not abs(mae - val[best]["mae"]) <= 1e-5:
-        fail(f"the reloaded best checkpoint gives val MAE {mae}, the run "
-             f"logged {val[best]['mae']}")
+    if not abs(got - val[best][metric]) <= 1e-5:
+        fail(f"the reloaded best checkpoint gives val {metric} {got}, the "
+             f"run logged {val[best][metric]}")
 
 
 def check_train_step(torch, cfg, splits, batch, device):
-    """Phase 4c: one training step (forward, L1 loss, backward, clipping,
-    adamW at the base learning rate) of the seeded model on the card and,
-    from a copy, on the CPU, with dropout seeds from generators seeded
-    alike, so both draw the same masks.
+    """Phase 4c: one training step (forward, the task's loss, backward,
+    clipping, adamW at the base learning rate) of the seeded model on the
+    card and, from a copy, on the CPU, with dropout seeds from generators
+    seeded alike, so both draw the same masks.
 
     Updated parameters: adamW's first step moves each entry by about
     lr·sign(g), so an entry whose gradient is within the gradients' error
@@ -623,7 +763,7 @@ def check_train_step(torch, cfg, splits, batch, device):
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits))
+        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
     lr = cfg.optim.base_lr
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     out = []
@@ -691,23 +831,53 @@ def check_train_step(torch, cfg, splits, batch, device):
         fail("training step, card vs CPU: " + "; ".join(problems))
 
 
-def measure_train_rate(torch, cfg, model, loader) -> dict:
-    """Training steps (``train.loop.train_step``: forward, loss, backward,
-    clipping, adamW) over full batches: graphs/s on the host clock over
-    RATE_PASSES passes after one warm-up pass, the peak device memory over
-    them, then one more pass under ``torch.profiler`` for the device time by
-    CUDA kernel and the idle share. Prints one JSON line per kernel name."""
-    from graphgps_torch.optim import build_optimizer, set_lr
-    from graphgps_torch.train.loop import train_step
+def rate_loader(cfg, splits, loader, device):
+    """RATE_BATCHES full batches of the train split's graphs, repeated in
+    order, at the main path's shapes (the same N and edge block): the
+    stand-in's splits are small enough that partial batches, which do a
+    full batch's work, would otherwise weigh on the rate."""
+    from graphgps_torch.data.loader import DeviceLoader
 
-    model.train()
-    opt = build_optimizer(cfg, model.parameters())
-    set_lr(opt, cfg.optim.base_lr)
-    gen = torch.Generator().manual_seed(DROP_SEED + 1)
+    bs = cfg.train.batch_size
+    n = RATE_BATCHES * bs
+    graphs = (splits.train * -(-n // len(splits.train)))[:n]
+    return DeviceLoader(graphs, bs, device, max_nodes=loader.max_nodes,
+                        max_edges=bs * loader.arenas.edge_cap)
 
+
+def profile_pass(torch, one_pass, n: int, top: int, unit: str):
+    """One pass of ``one_pass`` (``n`` batches) under ``torch.profiler``:
+    prints the ``top`` CUDA kernels by device time, one JSON line each, and
+    returns (device busy ms per batch, profiled wall ms per batch, CUDA
+    kernel launches per batch)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = device_rows(torch, prof)
+    busy_us = sum(r[1] for r in rows)
+    if busy_us <= 0:
+        fail("the profiler recorded no device time")
+    for name, us, cnt in rows[:top]:
+        print(json.dumps({"device_kernel": name[:90],
+                          f"ms_per_{unit}": us / n / 1e3,
+                          "share": us / busy_us,
+                          f"calls_per_{unit}": cnt / n}), flush=True)
+    return busy_us / n / 1e3, 1e3 * prof_wall / n, sum(r[2] for r in rows) / n
+
+
+def measure(torch, step, loader, unit: str, top: int) -> dict:
+    """``step(batch)`` over the loader's full batches: graphs/s on the host
+    clock over RATE_PASSES passes after one warm-up pass, the peak device
+    memory over them, then one more pass under ``torch.profiler`` for the
+    device time by CUDA kernel and the device's idle share in that pass's
+    own window. Prints one JSON line per kernel name (the largest first)."""
     def one_pass():
         for _real, b in loader:
-            train_step(cfg, model, opt, b, gen)
+            step(b)
 
     one_pass()
     torch.cuda.synchronize()
@@ -718,16 +888,140 @@ def measure_train_rate(torch, cfg, model, loader) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    n_steps = RATE_PASSES * len(loader)
-    rows, busy_ms, prof_ms = profile_pass(torch, one_pass, len(loader), 30,
-                                          "step")
-    step_ms = 1e3 * wall / n_steps
-    return dict(train_graphs_per_s=n_steps * loader.batch_size / wall,
-                full_batches=n_steps, timed_s=wall, step_ms=step_ms,
-                profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
-                profiled_idle_share=1.0 - busy_ms / prof_ms,
-                idle_share_estimate=1.0 - busy_ms / step_ms,
-                peak_memory_allocated_gb=peak / 1e9)
+    n = RATE_PASSES * len(loader)
+    busy_ms, prof_ms, launches = profile_pass(torch, one_pass, len(loader),
+                                              top, unit)
+    ms = 1e3 * wall / n
+    return {"graphs_per_s": n * loader.batch_size / wall, "full_batches": n,
+            "timed_s": wall, f"{unit}_ms": ms,
+            f"profiled_{unit}_ms": prof_ms, "device_busy_ms": busy_ms,
+            f"device_launches_per_{unit}": launches,
+            "profiled_idle_share": 1.0 - busy_ms / prof_ms,
+            # busy time of the profiled pass over the same loop's time
+            # without the profiler: an estimate across two windows
+            "idle_share_estimate": 1.0 - busy_ms / ms,
+            "peak_memory_allocated_gb": peak / 1e9}
+
+
+def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
+                 state: dict, device, card: str):
+    """Phase 4 for one main path: the entry point in evaluation and in
+    training with the launch counts read around each run, one training step
+    card vs CPU, predictions card vs CPU, and both rates. ``state`` is the
+    calibrated state dict the evaluation runs take. Returns the training
+    run's launch counts."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, main as port_main
+    from graphgps_torch.ops import kernels
+    from graphgps_torch.optim import build_optimizer, set_lr
+    from graphgps_torch.train.loop import eval_step, train_step
+
+    def cfg_of(opts):
+        cfg = new_cfg()
+        load_cfg(cfg, cfg_path)
+        update_from_list(cfg, opts)
+        return cfg
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        # a. the evaluation path through the entry point
+        opts = ["train.mode", "inference-only", "seed", str(SEED),
+                "out_dir", out_dir]
+        cfg = cfg_of(opts)
+        splits = load_dataset(cfg)
+        bs, layers = cfg.train.batch_size, cfg.gt.layers
+        held = {}
+
+        def prepare(model):
+            model.load_state_dict(state)
+            held["model"] = model
+
+        batches = sum(math.ceil(len(s) / bs)
+                      for s in (splits.train, splits.val, splits.test) if s)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = port_main(["--cfg", cfg_path, *opts], prepare_model=prepare)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check_launches(f"{name} evaluation", counts,
+                       expected_launches(table, layers, 0, batches, counts),
+                       main_path_s=main_s, batches=batches)
+        for split, h in hist[SEED].items():
+            if metric not in h[0] or not all(
+                    math.isfinite(v) for v in h[0].values()
+                    if isinstance(v, float)):
+                fail(f"{name} {split}: non-finite stats or no {metric}: "
+                     f"{h[0]}")
+
+        # b. the training path through the entry point
+        train_opts = ["train.mode", "custom", "seed", str(SEED),
+                      "optim.max_epoch", str(TRAIN_EPOCHS),
+                      "optim.num_warmup_epochs", "1", "train.ckpt_best",
+                      "True", "out_dir", os.path.join(out_dir, "train")]
+        tcfg = cfg_of(train_opts)
+        trained = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        port_main(["--cfg", cfg_path, *train_opts],
+                  prepare_model=lambda m: trained.setdefault("model", m))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = kernels.launch_counts()
+        steps = TRAIN_EPOCHS * math.ceil(len(splits.train) / bs)
+        evals = TRAIN_EPOCHS * sum(math.ceil(len(s) / bs)
+                                   for s in (splits.val, splits.test))
+        check_launches(f"{name} training", train_counts,
+                       expected_launches(table, layers, steps, evals,
+                                         train_counts),
+                       train_path_s=train_s, train_steps=steps,
+                       eval_batches=evals)
+        run_dir = os.path.join(out_dir, "train",
+                               os.path.splitext(os.path.basename(cfg_path))[0],
+                               str(SEED))
+        check_training_run(torch, tcfg, splits, run_dir, device, metric)
+
+        # c. one training step, card vs CPU
+        loaders = create_loaders(cfg, splits, device)
+        _real, train_batch = next(iter(loaders["train"]))
+        check_train_step(torch, tcfg, splits, train_batch, device)
+
+        # d. the evaluation model on the CPU, and the inference rate
+        model = held["model"]
+        real, batch = next(iter(loaders["val"]))
+        with torch.no_grad():
+            pred_gpu, _ = model(batch)
+            cpu_model = copy.deepcopy(model).cpu()
+            pred_cpu, _ = cpu_model(batch.to("cpu"))
+        m = batch.graph_mask.cpu()
+        pg, pc = pred_gpu.cpu()[m], pred_cpu[m]
+        err = float((pg - pc).abs().max())
+        print(json.dumps(dict(path=name, cpu_vs_gpu_max_abs_err=err,
+                              rtol=MODEL_RTOL, atol=MODEL_ATOL,
+                              graphs=int(m.sum()),
+                              pred_shape=list(pred_gpu.shape))), flush=True)
+        if pred_gpu.shape != (batch.num_graphs, 1) or not torch.isfinite(pg).all():
+            fail(f"{name}: bad predictions: shape {tuple(pred_gpu.shape)}")
+        if not torch.allclose(pg, pc, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"{name}: GPU vs CPU predictions differ (max abs err {err})")
+
+        full = rate_loader(cfg, splits, loaders["train"], device)
+        rate = measure(torch, lambda b: eval_step(cfg, model, b), full,
+                       "batch", 15)
+        print(json.dumps(dict(path=name, mode="evaluation", **rate,
+                              card=card)), flush=True)
+
+        # e. the training rate, profile and peak memory
+        tmodel = trained["model"].train()
+        opt = build_optimizer(tcfg, tmodel.parameters())
+        set_lr(opt, tcfg.optim.base_lr)
+        gen = torch.Generator().manual_seed(DROP_SEED + 1)
+        rate = measure(torch,
+                       lambda b: train_step(tcfg, tmodel, opt, b, gen), full,
+                       "step", 30)
+        print(json.dumps(dict(path=name, mode="training", **rate,
+                              card=card)), flush=True)
+    return train_counts
 
 
 def main() -> None:
@@ -742,14 +1036,13 @@ def main() -> None:
     try:
         from graphgps_torch.config import load_cfg, new_cfg, update_from_list
         from graphgps_torch.data.datasets import load_dataset
-        from graphgps_torch.driver import create_loaders, main as port_main
-        from graphgps_torch.ops import kernels
         from graphgps_torch.ops.kernels import build
     except ImportError as e:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
-    if not os.path.exists(CFG):
-        fail(f"{CFG} not found: run from the repository root")
+    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG):
+        if not os.path.exists(path):
+            fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
 
     # 1. the card
@@ -768,108 +1061,40 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    # 3. kernels vs plain versions at the main path's shapes
-    with tempfile.TemporaryDirectory() as out_dir:
-        opts = ["train.mode", "inference-only", "seed", str(SEED),
-                "out_dir", out_dir]
-        cfg = new_cfg()
-        load_cfg(cfg, CFG)
-        update_from_list(cfg, opts)
-        splits = load_dataset(cfg)
-        rows, state, layer0 = check_kernels(torch, cfg, splits, device)
+    # 3, 3b. the merged path's kernels at GPS-deep's shapes
+    cfg = new_cfg()
+    load_cfg(cfg, CFG)
+    update_from_list(cfg, ["seed", str(SEED)])
+    rows, state, layer0 = check_kernels(torch, cfg, load_dataset(cfg), device)
+    rows += check_backward(torch, layer0)
+    del layer0
 
-        # 3b. backward kernels with dropout on
-        rows += check_backward(torch, layer0)
+    # 3c. the unmerged path's kernels at ogbg-molhiv's shapes and at the
+    # pcqm4m-GPS+RWSE width (layer 0 is all that shape needs)
+    _, _, mol_rows, mol_state = check_unmerged(
+        torch, "ogbg-molhiv", MOLHIV_CFG, ["seed", str(SEED)], device)
+    check_unmerged(torch, "pcqm4m-GPS", PCQM_GPS_CFG,
+                   ["seed", str(SEED), "gt.layers", "1"], device)
+    new = ("gatedgcn", "gatedgcn_bwd", "drop_add", "drop_add_bwd")
+    rows += [r for r in mol_rows if r["name"] in new]
 
-        # 4. the evaluation path through the entry point
-        held = {}
-
-        def prepare(model):
-            model.load_state_dict(state)
-            held["model"] = model
-
-        batches = sum(math.ceil(len(s) / cfg.train.batch_size)
-                      for s in (splits.train, splits.val, splits.test) if s)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        hist = port_main(["--cfg", CFG, *opts], prepare_model=prepare)
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        expect = {n: 0 if n.endswith("_bwd") else cfg.gt.layers * batches
-                  for n in counts}
-        print(json.dumps(dict(main_path_s=main_s, batches=batches,
-                              launches=counts, expected=expect)), flush=True)
-        for name, n in counts.items():
-            if n != expect[name]:
-                fail(f"{name}: {n} launches on the evaluation path, expected "
-                     f"{expect[name]} ({cfg.gt.layers} per batch)")
-        for split, h in hist[SEED].items():
-            if not all(math.isfinite(v) for v in h[0].values()
-                       if isinstance(v, float)):
-                fail(f"{split}: non-finite stats {h[0]}")
-
-        # 4b. the training path through the entry point
-        train_opts = ["train.mode", "custom", "seed", str(SEED),
-                      "optim.max_epoch", str(TRAIN_EPOCHS),
-                      "optim.num_warmup_epochs", "1",
-                      "out_dir", os.path.join(out_dir, "train")]
-        tcfg = new_cfg()
-        load_cfg(tcfg, CFG)
-        update_from_list(tcfg, train_opts)
-        trained = {}
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        port_main(["--cfg", CFG, *train_opts],
-                  prepare_model=lambda m: trained.setdefault("model", m))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        train_counts = kernels.launch_counts()
-        print(json.dumps(dict(train_path_s=train_s)), flush=True)
-        run_dir = os.path.join(out_dir, "train",
-                               os.path.splitext(os.path.basename(CFG))[0],
-                               str(SEED))
-        check_training_run(torch, tcfg, splits, run_dir, device,
-                           train_counts)
-        for r in rows:
-            r["launches"] = train_counts[r["name"]]
-
-        # 4c. one training step, card vs CPU
-        loaders = create_loaders(cfg, splits, device)
-        _real, train_batch = next(iter(loaders["train"]))
-        check_train_step(torch, tcfg, splits, train_batch, device)
-
-        # 5. the evaluation model on the CPU, and the inference rate
-        model = held["model"]
-        real, batch = next(iter(loaders["val"]))
-        with torch.no_grad():
-            pred_gpu, _ = model(batch)
-            cpu_model = copy.deepcopy(model).cpu()
-            pred_cpu, _ = cpu_model(batch.to("cpu"))
-        m = batch.graph_mask.cpu()
-        pg, pc = pred_gpu.cpu()[m], pred_cpu[m]
-        err = float((pg - pc).abs().max())
-        print(json.dumps(dict(cpu_vs_gpu_max_abs_err=err, rtol=MODEL_RTOL,
-                              atol=MODEL_ATOL, graphs=int(m.sum()),
-                              pred_shape=list(pred_gpu.shape))), flush=True)
-        if pred_gpu.shape != (batch.num_graphs, 1) or not torch.isfinite(pg).all():
-            fail(f"bad predictions: shape {tuple(pred_gpu.shape)}")
-        if not torch.allclose(pg, pc, rtol=MODEL_RTOL, atol=MODEL_ATOL):
-            fail(f"GPU vs CPU predictions differ (max abs err {err})")
-
-        full = rate_loader(cfg, splits, loaders["train"], device)
-        rate = measure_rate(torch, cfg, model, full)
-        print(json.dumps(dict(**rate, card=card)), flush=True)
-
-        # 5b. the training rate, profile and peak memory
-        train_rate = measure_train_rate(torch, tcfg, trained["model"], full)
-        print(json.dumps(dict(**train_rate, card=card)), flush=True)
+    # 4. the two main paths
+    deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
+                               "mae", state, device, card)
+    mol_counts = drive_recipe(torch, "ogbg-molhiv", MOLHIV_CFG,
+                              MOLHIV_LAUNCHES, "auc", mol_state, device, card)
+    for r in rows:
+        on_molhiv = r["name"] in new
+        r["launches"] = (mol_counts if on_molhiv else deep_counts)[r["name"]]
+        r["main_path"] = "ogbg-molhiv" if on_molhiv else "pcqm4m-GPSdeep"
+        r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")} for r in rows])),
+                           "bound_by", "library_ms", "main_path",
+                           "launches_ogbg_molhiv")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
-"""Dataset loading for the port's one path: PCQM4Mv2 and the synthetic
-zinc-like family it falls back to.
+"""Dataset loading for the port's paths: PCQM4Mv2, the OGB molecule sets
+(``ogbg-mol*``) and the synthetic zinc-like family they fall back to.
 
 Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like``,
 the same generator and the same random stream, so both packages see the same
-graphs for one seed), ``data/datasets/real.py`` (the PCQM4Mv2 → synthetic
-fallback) and ``data/datasets/base.py`` (``DatasetSplits``, ``load_dataset``
+graphs for one seed), ``data/datasets/real.py`` (the PCQM4Mv2 and
+``ogbg-*`` → synthetic fallbacks, :106-112 and :189-209) and ``data/datasets/base.py`` (``DatasetSplits``, ``load_dataset``
 with the PE precompute).
 """
 from __future__ import annotations
@@ -67,12 +67,16 @@ def _graph_label(g: Graph, num_node_types: int, w: np.ndarray) -> float:
 
 
 def zinc_like(cfg) -> DatasetSplits:
-    """Graph regression on synthetic molecules (ZINC-like statistics)."""
+    """Synthetic molecules (ZINC-like statistics) with graph-level targets:
+    regression scalars, or for a classification task one integer class per
+    graph (``max(2, synth_num_tasks)`` classes)."""
     d = cfg.dataset
-    if d.task_type != "regression":
+    if d.task_type not in ("regression", "classification",
+                           "classification_binary"):
         raise NotImplementedError(
             f"dataset.task_type={d.task_type!r}: the port supports graph "
-            "regression only (ROADMAP Queue 1 item 17)")
+            "regression and single-label classification (ROADMAP Queue 1 "
+            "item 17)")
     rng = np.random.default_rng(d.synth_seed)
     n_types, e_types = d.node_encoder_num_types, d.edge_encoder_num_types
     w = rng.normal(size=(4 + n_types,))
@@ -80,10 +84,15 @@ def zinc_like(cfg) -> DatasetSplits:
     for _ in range(d.synth_num_graphs):
         g = _random_molecule(rng, d.synth_min_nodes, d.synth_max_nodes,
                              n_types, e_types)
-        tasks = max(1, d.synth_num_tasks)
-        y = np.array([_graph_label(g, n_types, np.roll(w, t))
-                      for t in range(tasks)], dtype=np.float32)
-        g.y = y if tasks > 1 else y[:1]
+        if d.task_type == "regression":
+            tasks = max(1, d.synth_num_tasks)
+            y = np.array([_graph_label(g, n_types, np.roll(w, t))
+                          for t in range(tasks)], dtype=np.float32)
+            g.y = y if tasks > 1 else y[:1]
+        else:
+            score = _graph_label(g, n_types, w)
+            n_classes = max(2, d.synth_num_tasks)
+            g.y = np.array([int(abs(score * 7)) % n_classes], dtype=np.int64)
         graphs.append(g)
     frac = d.split if len(d.split) == 3 else (0.8, 0.1, 0.1)
     n = len(graphs)
@@ -92,14 +101,13 @@ def zinc_like(cfg) -> DatasetSplits:
     return DatasetSplits(train=graphs[:a], val=graphs[a:b], test=graphs[b:])
 
 
-def _pcqm4mv2(cfg) -> DatasetSplits:
-    """PCQM4Mv2: the real files are not in the repository, so the run takes
-    the same synthetic stand-in as the JAX loader's fallback."""
-    root = os.path.join(cfg.dataset.dir, "pcqm4m-v2")
-    if (os.path.exists(os.path.join(root, "processed.npz"))
-            or os.path.exists(os.path.join(root, "raw", "data.csv.gz"))):
+def _fallback(cfg, root: str, present: bool) -> DatasetSplits:
+    """The real files are not in the repository, so the run takes the same
+    synthetic stand-in as the JAX loader's fallback; real files under
+    ``root`` raise, since reading them is not ported."""
+    if present:
         raise NotImplementedError(
-            f"real PCQM4Mv2 files found under {root}: reading them is not "
+            f"real dataset files found under {root}: reading them is not "
             "ported yet (ROADMAP Queue 1 item 19)")
     if not cfg.dataset.get("synthetic_fallback", True):
         raise FileNotFoundError(
@@ -109,6 +117,19 @@ def _pcqm4mv2(cfg) -> DatasetSplits:
                 "zinc-like", cfg.dataset.format, cfg.dataset.name,
                 cfg.dataset.dir)
     return zinc_like(cfg)
+
+
+def _pcqm4mv2(cfg) -> DatasetSplits:
+    root = os.path.join(cfg.dataset.dir, "pcqm4m-v2")
+    return _fallback(cfg, root, (
+        os.path.exists(os.path.join(root, "processed.npz"))
+        or os.path.exists(os.path.join(root, "raw", "data.csv.gz"))))
+
+
+def _ogb_graph(cfg, name: str) -> DatasetSplits:
+    """``ogbg-mol*`` (``real.py:106`` ``_load_ogb_graph``)."""
+    root = os.path.join(cfg.dataset.dir, name.replace("-", "_"))
+    return _fallback(cfg, root, os.path.isdir(os.path.join(root, "raw")))
 
 
 def load_dataset(cfg) -> DatasetSplits:
@@ -122,6 +143,8 @@ def load_dataset(cfg) -> DatasetSplits:
     elif ((fmt == "OGB" and name.startswith("PCQM4Mv2-"))
             or fmt in ("OGB-LSC", "PCQM4Mv2")):
         splits = _pcqm4mv2(cfg)
+    elif fmt == "OGB" and name.replace("_", "-").startswith("ogbg-mol"):
+        splits = _ogb_graph(cfg, name.replace("_", "-"))
     else:
         raise NotImplementedError(
             f"dataset {fmt}/{name} is not ported yet (ROADMAP Queue 1 "

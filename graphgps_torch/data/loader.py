@@ -12,7 +12,9 @@ layout is the same, array for array:
   points at the last real node of its own graph;
 - a partial last batch is padded with graph index −1, which reads the last
   graph's arrays (as numpy/JAX negative indexing does) under
-  ``graph_mask`` False, with NaN targets and zeroed features.
+  ``graph_mask`` False, with NaN targets and zeroed features; integer class
+  labels stay integers (int32), and a padded graph then keeps the label it
+  read, as in the JAX loader (``device_loader.py`` :206-209).
 """
 from __future__ import annotations
 
@@ -93,8 +95,9 @@ class DeviceArenas:
                           .astype(np.float32)) for k in g0.pe}
         self.y = None
         if g0.y is not None:
-            self.y = dev(np.stack([np.atleast_1d(np.asarray(g.y, np.float32))
-                                   for g in graphs]))
+            y = np.stack([np.atleast_1d(np.asarray(g.y)) for g in graphs])
+            integer = np.issubdtype(y.dtype, np.integer)
+            self.y = dev(y.astype(np.int32 if integer else np.float32))
 
     def assemble(self, sel: torch.Tensor, max_nodes: int) -> GraphBatch:
         """(B,) int64 graph indices on the device (−1 = padding) → batch."""
@@ -126,7 +129,9 @@ class DeviceArenas:
               for key, arena in self.pe.items()}
         y = None
         if self.y is not None:
-            y = torch.where(gmask[:, None], self.y[sel], float("nan"))
+            y = self.y[sel]
+            if y.is_floating_point():
+                y = torch.where(gmask[:, None], y, float("nan"))
         return GraphBatch(
             node_feat=nf, edge_feat=ef, senders=snd, receivers=rcv,
             node_mask=node_mask, edge_mask=emask, graph_mask=gmask, y=y,

@@ -68,10 +68,24 @@ def run_loop_settings(cfg: CfgNode, repeat: int) -> Tuple[List[int], List[int], 
 
 
 def infer_dims(cfg: CfgNode, splits: DatasetSplits) -> int:
-    """Output width from the targets (graph regression)."""
+    """Output width from the targets (``graphgps_tpu/driver.py:66``): the
+    number of regression targets, or the largest class label of any split
+    plus one, a binary task taking one logit."""
     y0 = np.atleast_1d(splits.train[0].y)
     cfg.share.dim_in = int(splits.train[0].node_feat.shape[-1])
-    cfg.share.dim_out = max(1, int(y0.reshape(-1).shape[0]))
+    tt = cfg.dataset.task_type
+    if tt == "regression":
+        dim_out = int(y0.reshape(-1).shape[0])
+    elif tt in ("classification", "classification_binary"):
+        dim_out = 1 + max(int(np.nanmax(np.atleast_1d(g.y).astype(np.float64)))
+                          for g in splits.all_graphs)
+        if dim_out == 2 and tt == "classification_binary":
+            dim_out = 1
+    else:
+        raise NotImplementedError(
+            f"dataset.task_type={tt!r} is not ported (ROADMAP Queue 1 "
+            "item 17)")
+    cfg.share.dim_out = max(1, dim_out)
     return cfg.share.dim_out
 
 
@@ -118,7 +132,7 @@ def run_single(cfg: CfgNode, run_dir: str, device: torch.device,
     loaders = create_loaders(cfg, splits, device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, dim_out)
+        model = build_model(cfg, dim_out, loaders["train"].max_nodes)
     model = model.to(device).train(mode == "custom")
     cfg.share["params"] = sum(p.numel() for p in model.parameters())
     log.info("model %s params %d on %s", cfg.model.type, cfg.share.params,

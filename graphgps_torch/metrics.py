@@ -1,6 +1,7 @@
-"""Regression metrics (the port's copy of the regression branch of
-``graphgps_tpu/metrics.py``: ``mae`` :24 … ``compute_task_metrics`` :219).
-NaN targets mark missing labels and are left out."""
+"""Task metrics (the port's copy of the regression and binary
+classification branches of ``graphgps_tpu/metrics.py``: ``mae`` :24 …
+``auroc`` :120, ``compute_task_metrics`` :219-237). NaN targets mark missing
+labels and are left out."""
 from __future__ import annotations
 
 from typing import Dict
@@ -75,12 +76,57 @@ def spearmanr(pred: np.ndarray, true: np.ndarray) -> float:
     return pearsonr(_rankdata(p), _rankdata(t))
 
 
-def compute_task_metrics(task_type: str, pred: np.ndarray,
-                         true: np.ndarray) -> Dict[str, float]:
-    if task_type != "regression":
-        raise NotImplementedError(
-            f"metrics for task_type={task_type!r} are not ported (ROADMAP "
-            "Queue 1 item 17)")
-    return dict(mae=mae(pred, true), mse=mse(pred, true),
-                rmse=rmse(pred, true), r2=r2(pred, true),
-                spearmanr=spearmanr(pred, true))
+def accuracy(pred_label: np.ndarray, true: np.ndarray) -> float:
+    return float((pred_label == true).mean()) if true.size else 0.0
+
+
+def accuracy_sbm(pred_label: np.ndarray, true: np.ndarray) -> float:
+    """Accuracy averaged over the classes present."""
+    accs = [float((pred_label[true == c] == c).mean())
+            for c in np.unique(true)]
+    return float(np.mean(accs)) if accs else 0.0
+
+
+def precision_recall_f1(pred_label: np.ndarray,
+                        true: np.ndarray) -> Dict[str, float]:
+    tp = float(((pred_label == 1) & (true == 1)).sum())
+    fp = float(((pred_label == 1) & (true == 0)).sum())
+    fn = float(((pred_label == 0) & (true == 1)).sum())
+    prec = tp / (tp + fp) if tp + fp > 0 else 0.0
+    rec = tp / (tp + fn) if tp + fn > 0 else 0.0
+    f1 = 2 * prec * rec / (prec + rec) if prec + rec > 0 else 0.0
+    return dict(precision=prec, recall=rec, f1=f1)
+
+
+def auroc(score: np.ndarray, true: np.ndarray) -> float:
+    """Binary ROC-AUC by the rank statistic (ties take average ranks); 0
+    when one class is absent."""
+    m = ~np.isnan(true)
+    score, true = score[m], true[m]
+    pos = true == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.0
+    ranks = _rankdata(score)
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def compute_task_metrics(task_type: str, pred: np.ndarray, true: np.ndarray,
+                         thresh: float = 0.5) -> Dict[str, float]:
+    if task_type == "regression":
+        return dict(mae=mae(pred, true), mse=mse(pred, true),
+                    rmse=rmse(pred, true), r2=r2(pred, true),
+                    spearmanr=spearmanr(pred, true))
+    if task_type == "classification_binary":
+        score, t = pred.ravel(), true.ravel()
+        if score.min() < 0 or score.max() > 1:   # logits → probabilities
+            score = 1.0 / (1.0 + np.exp(-score))
+        label = (score > thresh).astype(np.int64)
+        out = {"accuracy": accuracy(label, t),
+               "accuracy-SBM": accuracy_sbm(label, t)}
+        out.update(precision_recall_f1(label, t))
+        out["auc"] = auroc(score, t)
+        return out
+    raise NotImplementedError(
+        f"metrics for task_type={task_type!r} are not ported (ROADMAP "
+        "Queue 1 item 17)")

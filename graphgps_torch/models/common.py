@@ -41,7 +41,9 @@ class MaskedBatchNorm(nn.Module):
     (flax momentum 0.9, torch's 0.1) out of place: the buffers are replaced,
     never written, so a kernel that took the old running mean as its moment
     shift still holds it in its backward. With ``stats_only`` it returns
-    ``(mean, var, weight, bias)`` for a fused kernel to apply.
+    ``(mean, var, weight, bias)`` for a fused kernel to apply;
+    :meth:`normalize` applies such a norm all the same (the plain tails of
+    the unmerged layer).
     """
 
     momentum = 0.9
@@ -73,7 +75,9 @@ class MaskedBatchNorm(nn.Module):
         var = torch.maximum(ey2 - ey * ey, torch.zeros_like(ey))
         return mean, var
 
-    def forward(self, x=None, mask=None, moments=None):
+    def stats(self, x=None, mask=None, moments=None):
+        """(mean, var, weight, bias) in force; training updates the running
+        statistics."""
         if self.training:
             mean, var = self.batch_stats(x, mask, moments)
             mo = self.momentum
@@ -82,6 +86,14 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var = mo * self.running_var + (1 - mo) * var
         else:
             mean, var = self.running_mean, self.running_var
+        return mean, var, self.weight, self.bias
+
+    def normalize(self, x, mask=None, moments=None):
+        """The norm applied to ``x``, whatever ``stats_only`` says."""
+        mean, var, weight, bias = self.stats(x, mask, moments)
+        return (x - mean) * torch.rsqrt(var + self.eps) * weight + bias
+
+    def forward(self, x=None, mask=None, moments=None):
         if self.stats_only:
-            return mean, var, self.weight, self.bias
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            return self.stats(x, mask, moments)
+        return self.normalize(x, mask, moments)

@@ -1,18 +1,36 @@
-"""The GPS layer on the main path: CustomGatedGCN local ∥ Transformer
-global, BatchNorm (counterpart of ``graphgps_tpu/models/gps_layer.py``
-``GPSLayer`` :37-531 on its merged path, :173-215 and :471-495).
+"""The GPS layer: CustomGatedGCN local ∥ Transformer global, BatchNorm
+(counterpart of ``graphgps_tpu/models/gps_layer.py`` ``GPSLayer`` :37-531).
 
-Per layer, three kernels: the front (GatedGCN core + attention + dropout and
-residual), the edge tail, and the combine+FFN; then the final BatchNorm and
-the padded node slots zeroed. In training each of the three draws its
-dropout from a seed of its own, and the attention branch's norm takes its
-statistics from the front's moment partials. Weights are held in the
-kernels' (in, out) layout, with their flax counterparts:
-``w_front``/``b_front`` the joint ``[A|D|E|B|Wq|Wk|Wv]``
-(``GatedGCNLayer_0/Dense_{0,3,4,1}`` and ``qkv_kernel``/``qkv_bias``),
-``local`` (``GatedGCNLayer_0``), ``w_out``/``b_out``
-(``out_kernel``/``out_bias``), ``norm_attn`` (``Norm_0``), ``w_ffn1``..
-``b_ffn2`` (``Dense_0``/``Dense_1``), ``norm_out`` (``Norm_1``).
+Two paths, chosen by width and settings as the JAX package chooses them
+(its VMEM caps are the TPU's and are not kept):
+
+- **merged** (``dim_h % 128 == 0`` and at most 128 node slots per graph;
+  JAX :173-215 and :471-495). Three kernels per layer: the front (GatedGCN
+  core + attention + dropout and residual), the edge tail, and the
+  combine+FFN; three dropout seeds. The attention branch's norm takes its
+  statistics from the front's moment partials.
+- **unmerged** (any other width from 64 up; JAX :138-148, :250-268,
+  :357-392, :449-518). The standalone GatedGCN core kernel, then the
+  Transformer branch in PyTorch ops (QKV product, dense masked attention
+  with hashed dropout on the probabilities, out-projection), as the JAX
+  package leaves it to XLA. When the tails are deferred -- in training with
+  dropout on, or at a lane width -- the edge tail runs through
+  ``fused_pre_tail``, the attention branch's residual through
+  ``fused_drop_add`` (a plain add at rate 0), and the x-tail, the attention
+  norm's apply, the branch sum and the FFN through ``fused_combine_ffn``:
+  four dropout seeds (edge tail, attention, drop-add, combine). Otherwise
+  (evaluation, or training without dropout, at a width that is no multiple
+  of 128) the tails, the branch sum and the FFN are plain PyTorch.
+
+Both end in the final BatchNorm with the padded node slots zeroed. Weights
+are held in the kernels' (in, out) layout, with their flax counterparts:
+merged ``w_front``/``b_front`` the joint ``[A|D|E|B|Wq|Wk|Wv]``
+(``GatedGCNLayer_0/Dense_{0,3,4,1}`` and ``qkv_kernel``/``qkv_bias``);
+unmerged ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
+``w_qkv``/``b_qkv``, each contiguous as the kernels need them; ``local``
+(``GatedGCNLayer_0``), ``w_out``/``b_out`` (``out_kernel``/``out_bias``),
+``norm_attn`` (``Norm_0``), ``w_ffn1``..``b_ffn2`` (``Dense_0``/``Dense_1``),
+``norm_out`` (``Norm_1``).
 """
 from __future__ import annotations
 
@@ -22,12 +40,27 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import fused_combine_ffn
-from .common import MaskedBatchNorm, dense_params
+from ..ops.kernels import fused_combine_ffn, fused_drop_add
+from ..ops.kernels.common import apply_dropout
+from ..ops.mha import merge_heads, mha, split_heads
+from .common import MaskedBatchNorm, dense_params, get_act
 from .local_gnn import FrontPack, GatedGCNLayer
 
-# dropout seeds per layer and step: front, edge tail, combine+FFN
+# dropout seeds per layer and step. Merged: front, edge tail, combine+FFN;
+# unmerged: edge tail, attention, drop-add, combine+FFN
 SEEDS_PER_LAYER = 3
+SEEDS_PER_LAYER_UNMERGED = 4
+# the merged front holds a graph's N x N scores in shared memory
+MERGED_MAX_NODES = 128
+# below this width the JAX package runs no fused kernel (fused_gatedgcn.py
+# :498, fused_tail.py :495)
+MIN_DIM = 64
+
+
+def merged_width(dim_h: int) -> bool:
+    """The path a width takes by default: the merged front at a multiple of
+    128 (``fused_front_eligible``, ``fused_layer.py`` :461)."""
+    return dim_h % 128 == 0
 
 
 def draw_seeds(gen: Optional[torch.Generator], n: int):
@@ -40,22 +73,35 @@ def draw_seeds(gen: Optional[torch.Generator], n: int):
 class GPSLayer(nn.Module):
     def __init__(self, dim_h: int, num_heads: int, act: str = "relu",
                  eps: float = 1e-5, dropout: float = 0.0,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, merged: Optional[bool] = None):
+        """``merged`` chooses the weight layout and the path; by default the
+        merged front at a multiple of 128."""
         super().__init__()
         if dim_h % num_heads:
             raise ValueError(f"dim_h={dim_h} is not divisible by "
                              f"num_heads={num_heads}")
+        if dim_h < MIN_DIM:
+            raise NotImplementedError(
+                f"dim_h={dim_h} < {MIN_DIM}: the layer's path without fused "
+                "kernels is not ported (ROADMAP Queue 1 item 5)")
         self.dim_h = dim_h
         self.num_heads = num_heads
         self.act = act
         self.eps = eps
         self.dropout = dropout
         self.attn_dropout = attn_dropout
-        # A, D, E, B, Wq, Wk, Wv side by side, each drawn as a (d, d) Dense
-        ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(7)))
-        self.w_front = nn.Parameter(torch.cat(ws, dim=1).detach())
-        self.b_front = nn.Parameter(torch.cat(bs).detach())
-        self.local = GatedGCNLayer(dim_h, act, eps)
+        self.merged = merged_width(dim_h) if merged is None else merged
+        if self.merged:
+            # A, D, E, B, Wq, Wk, Wv side by side, each drawn as a (d, d) Dense
+            ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(7)))
+            self.w_front = nn.Parameter(torch.cat(ws, dim=1).detach())
+            self.b_front = nn.Parameter(torch.cat(bs).detach())
+        else:
+            ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(3)))
+            self.w_qkv = nn.Parameter(torch.cat(ws, dim=1).detach())
+            self.b_qkv = nn.Parameter(torch.cat(bs).detach())
+        self.local = GatedGCNLayer(dim_h, act, eps,
+                                   own_node_proj=not self.merged)
         self.w_out, self.b_out = dense_params(dim_h, dim_h)
         self.norm_attn = MaskedBatchNorm(dim_h, eps, stats_only=True)
         self.w_ffn1, self.b_ffn1 = dense_params(dim_h, 2 * dim_h)
@@ -69,6 +115,13 @@ class GPSLayer(nn.Module):
             return 0.0, 0.0
         return self.dropout, self.attn_dropout
 
+    @property
+    def defer(self) -> bool:
+        """Whether the unmerged path defers its tails into the combine+FFN
+        kernel (``want_defer``, JAX :144-148, and ``use_ft``,
+        ``local_gnn.py`` :262-270)."""
+        return self.dim_h % 128 == 0 or self.rates[0] > 0.0
+
     def front_pack(self, seed: int = 0) -> FrontPack:
         drop, attn = self.rates
         return FrontPack(w_front=self.w_front, b_front=self.b_front,
@@ -78,17 +131,32 @@ class GPSLayer(nn.Module):
                          seed=seed, attn_rate=attn, drop_rate=drop)
 
     def combine_args(self, x_tail: tuple, s_attn, seed: int = 0,
-                     moments=None) -> tuple:
+                     moments=None, mask=None) -> tuple:
         """The arguments of :func:`fused_combine_ffn`, from the local
-        layer's x-tail arguments and the front's ``s_attn``."""
-        mu_a, var_a, ga_a, be_a = self.norm_attn(moments=moments)
+        layer's x-tail arguments and the attention branch's ``s_attn``; the
+        attention norm's statistics from the front's ``moments`` or, with
+        ``mask``, from ``s_attn`` itself."""
+        mu_a, var_a, ga_a, be_a = self.norm_attn(s_attn, mask, moments)
         return (*x_tail, s_attn, mu_a, torch.rsqrt(var_a + self.eps), ga_a,
                 be_a, self.w_ffn1, self.b_ffn1, self.w_ffn2, self.b_ffn2, seed,
                 self.rates[0], self.act)
 
-    def forward(self, batch: GraphBatch, x, e,
-                gen: Optional[torch.Generator] = None):
-        """``gen`` draws the layer's dropout seeds in training."""
+    def attention(self, batch: GraphBatch, x, seed: int = 0):
+        """The unmerged Transformer branch up to the out-projection, in
+        PyTorch ops: (B*N, d)."""
+        d, H = self.dim_h, self.num_heads
+        xd = batch.dense_view(x)
+        qkv = xd @ self.w_qkv + self.b_qkv
+        q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H)
+                   for i in range(3))
+        rate = self.rates[1]
+        drop = None
+        if rate > 0.0:
+            drop = lambda p: apply_dropout(p, seed, 0, rate)  # noqa: E731
+        o = mha(q, k, v, batch.dense_view(batch.node_mask), drop)
+        return merge_heads(o).reshape(-1, d) @ self.w_out + self.b_out
+
+    def forward_merged(self, batch: GraphBatch, x, e, gen):
         seeds = [0] * SEEDS_PER_LAYER
         if any(self.rates):
             seeds = draw_seeds(gen, SEEDS_PER_LAYER)
@@ -98,8 +166,41 @@ class GPSLayer(nn.Module):
         if self.training:
             d = self.dim_h
             mom_a = (pa[0, :d], pa[0, d:], batch.real_counts[0], front.ca)
-        h = fused_combine_ffn(*self.combine_args(x_tail, s_attn, seeds[2],
-                                                 mom_a))
+        return fused_combine_ffn(*self.combine_args(x_tail, s_attn, seeds[2],
+                                                    mom_a)), e
+
+    def forward_unmerged(self, batch: GraphBatch, x, e, gen):
+        # seeds: edge tail, attention, drop-add, combine+FFN
+        seeds = [0] * SEEDS_PER_LAYER_UNMERGED
+        if any(self.rates):
+            seeds = draw_seeds(gen, SEEDS_PER_LAYER_UNMERGED)
+        rate = self.rates[0]
+        defer = self.defer
+        local, e = self.local.unmerged(batch, x, e, defer, seeds[0], rate)
+        h_attn = self.attention(batch, x, seeds[1])
+        if rate > 0.0:
+            s_attn = fused_drop_add(x, h_attn, seeds[2], rate)
+        else:
+            s_attn = x + h_attn
+        if defer:
+            return fused_combine_ffn(*self.combine_args(
+                local, s_attn, seeds[3], mask=batch.node_mask)), e
+        h = local + self.norm_attn.normalize(s_attn, batch.node_mask)
+        h2 = get_act(self.act)(h @ self.w_ffn1 + self.b_ffn1)
+        return h + (h2 @ self.w_ffn2 + self.b_ffn2), e
+
+    def forward(self, batch: GraphBatch, x, e,
+                gen: Optional[torch.Generator] = None):
+        """``gen`` draws the layer's dropout seeds in training."""
+        if self.merged:
+            if batch.max_nodes > MERGED_MAX_NODES:
+                raise ValueError(
+                    f"{batch.max_nodes} node slots per graph exceed the "
+                    f"merged front's {MERGED_MAX_NODES}: build the layer with "
+                    "merged=False (build_model does, given max_nodes)")
+            h, e = self.forward_merged(batch, x, e, gen)
+        else:
+            h, e = self.forward_unmerged(batch, x, e, gen)
         h = self.norm_out(h, batch.node_mask)
         # zero padded slots so they never leak into aggregations
         h = torch.where(batch.node_mask[:, None], h, 0.0)

@@ -1,8 +1,9 @@
-"""GatedGCN local layer on the merged layer front (counterpart of
-``graphgps_tpu/models/local_gnn.py`` ``GatedGCNLayer`` :74-329: the merged
-dispatch :106-149 and the fused edge tail :258-308).
+"""GatedGCN local layer (counterpart of ``graphgps_tpu/models/local_gnn.py``
+``GatedGCNLayer`` :74-329: the merged dispatch :106-149, the standalone
+fused core :150-184, the fused tails :258-316 and the plain tails :318-329).
 
-The front kernel takes the node projections A, D, E, B (flax ``Dense_0``,
+Two paths. On the merged path (:meth:`GatedGCNLayer.forward`) the front
+kernel takes the node projections A, D, E, B (flax ``Dense_0``,
 ``Dense_3``, ``Dense_4``, ``Dense_1``) as the columns ``[A|D|E|B]`` of one
 ``(d, 7d)`` matrix, followed by the GPS layer's ``[Wq|Wk|Wv]``; the GPS
 layer holds that joint weight (``w_front``) and hands it over in a
@@ -12,6 +13,15 @@ layer holds that joint weight (``w_front``) and hands it over in a
 the front's moment partials, with the running means the front used as
 shifts. The x-tail is handed back unapplied for the combine+FFN kernel, and
 the edge tail is applied here.
+
+On the unmerged path (:meth:`GatedGCNLayer.unmerged`; widths that are no
+multiple of 128) the layer holds ``[A|D|E|B]`` itself (``w_node``/``b_node``)
+and runs the standalone core kernel ``fused_gatedgcn``. With ``defer`` the
+tails are the merged path's (norm statistics from the kernel's moment
+partials, the edge tail through ``fused_pre_tail``, the x-tail handed back);
+without it both tails are plain PyTorch: ``x + act(bn(x_new))`` with the
+norms' own masked statistics in training and no dropout (the JAX layer takes
+its fused tails whenever dropout is on).
 """
 from __future__ import annotations
 
@@ -21,8 +31,8 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import fused_gps_front, fused_pre_tail
-from .common import MaskedBatchNorm, dense_params
+from ..ops.kernels import fused_gatedgcn, fused_gps_front, fused_pre_tail
+from .common import MaskedBatchNorm, dense_params, get_act
 
 
 class FrontPack(NamedTuple):
@@ -44,11 +54,17 @@ class GatedGCNLayer(nn.Module):
     """Residual gated graph convnet with BatchNorm, updating node and edge
     features."""
 
-    def __init__(self, dim: int, act: str = "relu", eps: float = 1e-5):
+    def __init__(self, dim: int, act: str = "relu", eps: float = 1e-5,
+                 own_node_proj: bool = False):
         super().__init__()
         self.dim = dim
         self.act = act
         self.eps = eps
+        if own_node_proj:
+            # A, D, E, B side by side, each drawn as a (d, d) Dense
+            ws, bs = zip(*(dense_params(dim, dim) for _ in range(4)))
+            self.w_node = nn.Parameter(torch.cat(ws, dim=1).detach())
+            self.b_node = nn.Parameter(torch.cat(bs).detach())
         self.w_c, self.b_c = dense_params(dim, dim)
         self.norm_x = MaskedBatchNorm(dim, eps, stats_only=True)
         self.norm_e = MaskedBatchNorm(dim, eps, stats_only=True)
@@ -98,3 +114,38 @@ class GatedGCNLayer(nn.Module):
             e, gate.reshape(-1, d), seed_e, front.drop_rate, mom_e))
         return (self.x_tail_args(x, xo.reshape(-1, d), mom_x),
                 sa.reshape(-1, d), e_new, pa)
+
+    def core_args(self, batch: GraphBatch, x, e) -> tuple:
+        """The arguments of :func:`fused_gatedgcn` for this layer (built
+        with ``own_node_proj``)."""
+        B, N, E, d = (batch.num_graphs, batch.max_nodes, batch.edge_block,
+                      self.dim)
+        s_loc, r_loc, emask, nmask = batch.front_index
+        return (x.reshape(B, N, d), e.reshape(B, E, d), s_loc, r_loc, emask,
+                nmask, self.norm_x.running_mean, self.norm_e.running_mean,
+                self.w_node, self.b_node, self.w_c, self.b_c)
+
+    def unmerged(self, batch: GraphBatch, x, e, defer: bool,
+                 seed_e: int = 0, rate: float = 0.0):
+        """The standalone core and the tails. With ``defer`` returns
+        (x-tail arguments, e_new); otherwise (x_new, e_new), both tails
+        applied in plain PyTorch (``rate`` must be 0 then)."""
+        args = self.core_args(batch, x, e)
+        cx, cg = args[6], args[7]
+        xo, gate, px, pg = fused_gatedgcn(*args)
+        d = self.dim
+        xo, gate = xo.reshape(-1, d), gate.reshape(-1, d)
+        if not defer:
+            if rate > 0.0:
+                raise ValueError("the plain tails carry no dropout")
+            act = get_act(self.act)
+            return (x + act(self.norm_x.normalize(xo, batch.node_mask)),
+                    e + act(self.norm_e.normalize(gate, batch.edge_mask)))
+        mom_x = mom_e = None
+        if self.training:
+            cnt_n, cnt_e = batch.real_counts
+            mom_x = (px[0, :d], px[0, d:], cnt_n, cx)
+            mom_e = (pg[0, :d], pg[0, d:], cnt_e, cg)
+        e_new = fused_pre_tail(*self.edge_tail_args(e, gate, seed_e, rate,
+                                                    mom_e))
+        return self.x_tail_args(x, xo, mom_x), e_new

@@ -11,13 +11,14 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
-from .gps_layer import GPSLayer
+from .gps_layer import MERGED_MAX_NODES, MIN_DIM, GPSLayer, merged_width
 from .heads import SANGraphHead
 
 
 def check_supported(cfg) -> None:
-    """The one configuration this slice runs; anything else names the
-    ROADMAP item that brings it."""
+    """The configurations the port runs (GPSModel, CustomGatedGCN ∥
+    Transformer, BatchNorm, san_graph head, at a width of 64 or more);
+    anything else names the ROADMAP item that brings it."""
     gt = cfg.gt
     if cfg.model.type != "GPSModel":
         raise NotImplementedError(
@@ -31,6 +32,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             "the port needs gt.batch_norm=true and gt.layer_norm=false "
             "(ROADMAP Queue 1 item 15)")
+    if gt.dim_hidden < MIN_DIM:
+        raise NotImplementedError(
+            f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
+            "without fused kernels is not ported (ROADMAP Queue 1 item 5)")
     if cfg.gnn.layers_pre_mp > 0 or cfg.gnn.head != "san_graph":
         raise NotImplementedError(
             "gnn.layers_pre_mp > 0 or a head other than san_graph is not "
@@ -44,14 +49,19 @@ def check_supported(cfg) -> None:
 
 
 class GPSModel(nn.Module):
-    def __init__(self, cfg, dim_out: int):
+    def __init__(self, cfg, dim_out: int, max_nodes: Optional[int] = None):
+        """``max_nodes`` (the loaders' node slots per graph, when known)
+        decides the layer path with the width: the merged front at a
+        multiple of 128 and at most 128 slots, else the unmerged path."""
         super().__init__()
         check_supported(cfg)
         d = cfg.gt.dim_hidden
+        merged = merged_width(d) and (max_nodes or 0) <= MERGED_MAX_NODES
         self.encoder = FeatureEncoder(cfg, d)
         self.layers = nn.ModuleList(
             GPSLayer(d, cfg.gt.n_heads, act=cfg.gnn.act,
-                     dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout)
+                     dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout,
+                     merged=merged)
             for _ in range(cfg.gt.layers))
         self.head = SANGraphHead(d, dim_out, pooling=cfg.model.graph_pooling)
 
@@ -65,5 +75,6 @@ class GPSModel(nn.Module):
         return self.head(batch, x)
 
 
-def build_model(cfg, dim_out: int) -> GPSModel:
-    return GPSModel(cfg, dim_out)
+def build_model(cfg, dim_out: int,
+                max_nodes: Optional[int] = None) -> GPSModel:
+    return GPSModel(cfg, dim_out, max_nodes)

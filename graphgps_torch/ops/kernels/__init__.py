@@ -1,11 +1,13 @@
-"""The hand-written CUDA kernels of the main path, one wrapper each: three
-forward kernels and their three backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: five
+forward kernels and their five backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.
 """
 from .combine_ffn import combine_ffn_backward, fused_combine_ffn
+from .drop_add import drop_add_backward, fused_drop_add
+from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .pre_tail import fused_pre_tail, pre_tail_backward
 
@@ -13,7 +15,9 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "combine_ffn": fused_combine_ffn,
             "gps_front_bwd": gps_front_backward,
             "pre_tail_bwd": pre_tail_backward,
-            "combine_ffn_bwd": combine_ffn_backward}
+            "combine_ffn_bwd": combine_ffn_backward,
+            "gatedgcn": fused_gatedgcn, "gatedgcn_bwd": gatedgcn_backward,
+            "drop_add": fused_drop_add, "drop_add_bwd": drop_add_backward}
 
 
 def reset_launch_counts() -> None:

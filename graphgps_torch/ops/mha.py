@@ -1,6 +1,9 @@
 """Dense masked multi-head attention for padded graph batches
-(counterpart of ``graphgps_tpu/ops/mha.py:35-75``). The plain version of the
-layer front uses it."""
+(counterpart of ``graphgps_tpu/ops/mha.py:21-75`` and of the dense rung of
+``graphgps_tpu/ops/pallas/flash_mha.py:87`` ``mha``). The plain version of
+the layer front uses :func:`mha_core`; the unmerged GPS layer's Transformer
+branch, which the JAX package computes outside any Pallas kernel, uses
+:func:`mha`."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -11,7 +14,7 @@ NEG_INF = -1e30
 
 
 def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
-             drop: Optional[Callable] = None):
+             drop: Optional[Callable] = None, grad_through_mask: bool = True):
     """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool. Masked keys get
     ``-1e30`` (not ``-inf``), so a graph with no real node still gives
     finite, uniform weights. Softmax in f32; ``drop`` (the attention
@@ -20,16 +23,32 @@ def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhnd,bhmd->bhnm", q * scale, k)
-    # masked keys take -1e30 in value, while the gradient reaches every
-    # logit, as in the TPU kernels' hand-written backward
-    # (fused_layer.py:199-204); it differs only for a graph with no real
-    # node, whose uniform weights then pass gradient to its q and k
-    masked = torch.where(key_mask[:, None, None, :], logits.detach(), NEG_INF)
-    logits = logits - logits.detach() + masked
+    mask = key_mask[:, None, None, :]
+    if grad_through_mask:
+        # masked keys take -1e30 in value, while the gradient reaches every
+        # logit, as in the TPU kernels' hand-written backward
+        # (fused_layer.py:199-204); it differs only for a graph with no real
+        # node, whose uniform weights then pass gradient to its q and k
+        masked = torch.where(mask, logits.detach(), NEG_INF)
+        logits = logits - logits.detach() + masked
+    else:
+        # as jnp.where in graphgps_tpu/ops/mha.py:54: no gradient to a
+        # masked logit
+        logits = torch.where(mask, logits, NEG_INF)
     attn = torch.softmax(logits.float(), dim=-1)
     if drop is not None:
         attn = drop(attn)
     return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)
+
+
+def mha(q, k, v, key_mask, drop: Optional[Callable] = None):
+    """Masked attention as the JAX package's ``mha`` dispatch computes it on
+    its dense rung (its chunked rung is the same function in less memory).
+    ``drop`` is the attention dropout over the (B, H, N, N) probabilities:
+    the GPS layer passes the port's hash with the u8 keep rule
+    (``kernels/common.py`` ``apply_dropout``: site 0 of the (B*H*N, N) view,
+    a seed of its own)."""
+    return mha_core(q, k, v, key_mask, drop=drop, grad_through_mask=False)
 
 
 def split_heads(x, num_heads: int):

@@ -1,7 +1,8 @@
 """Train and evaluation modes (counterpart of ``graphgps_tpu/train/loop.py``:
 ``train_step`` :146-153, ``train_epoch`` :732-768, ``eval_epoch`` :812,
 ``custom_train`` :884-1057, ``inference_only`` :1060, ``ogblsc_inference``
-:1075; the L1 loss of ``graphgps_tpu/models/losses.py``)."""
+:1075; the L1 and binary cross-entropy losses and the dispatch of
+``graphgps_tpu/models/losses.py`` :23, :52, :104)."""
 from __future__ import annotations
 
 import logging
@@ -19,22 +20,45 @@ from . import checkpoint
 log = logging.getLogger("graphgps_torch")
 
 
-def l1_loss(pred, true, mask):
-    """Mean |pred − true| over the real graphs (NaN targets count as 0)."""
-    vals = (pred - torch.nan_to_num(true)).abs()
+def _masked_mean(vals, mask):
     m = mask.to(vals.dtype).reshape(mask.shape + (1,) * (vals.ndim - mask.ndim))
     return (vals * m).sum() / torch.clamp((torch.ones_like(vals) * m).sum(),
                                           min=1.0)
 
 
+def l1_loss(pred, true, mask):
+    """Mean |pred − true| over the real graphs (NaN targets count as 0)."""
+    return _masked_mean((pred - torch.nan_to_num(true)).abs(), mask)
+
+
+def binary_cross_entropy(pred, true, mask):
+    """Binary cross-entropy with logits over the real graphs; pred (B,) or
+    (B, 1), true the 0/1 labels (any dtype)."""
+    pred = pred.reshape(pred.shape[0], -1)[:, 0].float()
+    t = torch.nan_to_num(true.float()).reshape(pred.shape)
+    vals = (torch.clamp(pred, min=0) - pred * t
+            + torch.log1p(torch.exp(-pred.abs())))
+    return _masked_mean(vals, mask)
+
+
 def compute_loss(cfg, pred, true, mask):
-    if cfg.model.loss_fun != "l1":
-        raise NotImplementedError(
-            f"model.loss_fun={cfg.model.loss_fun!r} is not ported (ROADMAP "
-            "Queue 1 item 17)")
-    loss = l1_loss(pred, true, mask)
-    if cfg.model.size_average == "sum":
+    """The loss of the task (``losses.py:104-138``): ``l1`` for the
+    regression recipes; ``cross_entropy`` (or ``auto``) on a
+    ``classification_binary`` task is binary cross-entropy."""
+    name, tt = cfg.model.loss_fun, cfg.dataset.task_type
+    if name in ("cross_entropy", "ce", "auto") and tt == "classification_binary":
+        name = "binary_cross_entropy"
+    if name == "l1":
+        loss = l1_loss(pred, true, mask)
         d = 1 if true.ndim == 1 else int(true.shape[-1])
+    elif name == "binary_cross_entropy":
+        loss = binary_cross_entropy(pred, true, mask)
+        d = 1
+    else:
+        raise NotImplementedError(
+            f"model.loss_fun={cfg.model.loss_fun!r} on task_type={tt!r} is "
+            "not ported (ROADMAP Queue 1 item 17)")
+    if cfg.model.size_average == "sum":
         loss = loss * mask.sum() * d
     return loss
 
@@ -78,7 +102,7 @@ def eval_epoch(cfg, model, loader, logger: SplitLogger) -> None:
 
 def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
     """One optimizer step: forward in training mode (dropout seeds from
-    ``gen``), L1 loss over the real graphs, backward, optax-rule gradient
+    ``gen``), the task's loss over the real graphs, backward, optax-rule gradient
     clipping, update. Returns (loss, pred, true, mask), detached."""
     opt.zero_grad(set_to_none=True)
     pred, true = model(batch, gen)

@@ -16,10 +16,12 @@ axis 0 under ``nn.scan`` (``...GPSScanBody_0/GPSLayer_0``).
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from .models.gps_layer import merged_width
 
 _UNROLLED = re.compile(r"^(?:Checkpoint)?GPSLayer_(\d+)$")
 
@@ -42,23 +44,34 @@ def _norm(out: dict, prefix: str, params: dict, stats, name: str):
         None if stats is None else stats[name]["MaskedBatchNorm_0"])
 
 
-def gps_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
+def gps_layer_state_dict(p: dict, s, prefix: str = "",
+                         merged: Optional[bool] = None) -> dict:
     """One GPSLayer's flax params/batch_stats → the port's ``GPSLayer``
     state dict (numpy values), keys prefixed with ``prefix``. The port keeps
-    flax's (in, out) layout here; the GatedGCN's Dense_0..4 are A..E, and
-    the front's joint weight is ``[A|D|E|B|Wq|Wk|Wv]``. ``s=None`` maps the
-    parameters only."""
+    flax's (in, out) layout here; the GatedGCN's Dense_0..4 are A..E. A
+    ``merged`` layer (by default at a width that is a multiple of 128) holds
+    the front's joint weight ``[A|D|E|B|Wq|Wk|Wv]``; an unmerged one holds
+    ``[A|D|E|B]`` in its local layer and ``[Wq|Wk|Wv]`` beside it. The flax
+    names are the same on both paths, in training and in evaluation
+    (``Norm_0`` the attention norm, ``Norm_1`` the final norm). ``s=None``
+    maps the parameters only."""
     out: dict = {}
     g = p["GatedGCNLayer_0"]
     gs = None if s is None else s["GatedGCNLayer_0"]
     dense = {lin: g[f"Dense_{i}"] for i, lin in enumerate("ABCDE")}
     d = p["qkv_kernel"].shape[0]
-    out[f"{prefix}.w_front"] = np.concatenate(
-        [np.asarray(dense[k]["kernel"]) for k in "ADEB"]
-        + [np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)], axis=1)
-    out[f"{prefix}.b_front"] = np.concatenate(
-        [np.asarray(dense[k]["bias"]) for k in "ADEB"]
-        + [np.asarray(p["qkv_bias"]).reshape(3 * d)])
+    node_w = [np.asarray(dense[k]["kernel"]) for k in "ADEB"]
+    node_b = [np.asarray(dense[k]["bias"]) for k in "ADEB"]
+    qkv_w = np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)
+    qkv_b = np.asarray(p["qkv_bias"]).reshape(3 * d)
+    if merged_width(d) if merged is None else merged:
+        out[f"{prefix}.w_front"] = np.concatenate(node_w + [qkv_w], axis=1)
+        out[f"{prefix}.b_front"] = np.concatenate(node_b + [qkv_b])
+    else:
+        out[f"{prefix}.local.w_node"] = np.concatenate(node_w, axis=1)
+        out[f"{prefix}.local.b_node"] = np.concatenate(node_b)
+        out[f"{prefix}.w_qkv"] = qkv_w
+        out[f"{prefix}.b_qkv"] = qkv_b
     out[f"{prefix}.local.w_c"] = dense["C"]["kernel"]
     out[f"{prefix}.local.b_c"] = dense["C"]["bias"]
     _norm(out, f"{prefix}.local.norm_x", g, gs, "Norm_0")
@@ -94,9 +107,11 @@ def _layer_trees(params: dict, stats):
             for _, k in found]
 
 
-def state_dict_from_flax(params: dict, batch_stats=None) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: dict, batch_stats=None,
+                         merged: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """The port's state dict from flax ``params`` and ``batch_stats``; with
-    ``batch_stats=None`` the parameters only (a gradient tree, say)."""
+    ``batch_stats=None`` the parameters only (a gradient tree, say).
+    ``merged`` names the layers' path (``gps_layer_state_dict``)."""
     out: dict = {}
     fe = params["FeatureEncoder_0"]
     fs = None if batch_stats is None else batch_stats["FeatureEncoder_0"]
@@ -111,7 +126,7 @@ def state_dict_from_flax(params: dict, batch_stats=None) -> Dict[str, torch.Tens
             else fs["RWSENodeEncoder_0"]["MaskedBatchNorm_0"])
     _linear(out, "encoder.rwse.proj", rw["Dense_0"])
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
-        out.update(gps_layer_state_dict(p, s, f"layers.{i}"))
+        out.update(gps_layer_state_dict(p, s, f"layers.{i}", merged))
     head = params["SANGraphHead_0"]
     n = len(head)
     for i in range(n - 1):
@@ -130,7 +145,7 @@ def load_flax(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
     only port tensors allowed to stay as initialized are embedding tables for
     feature columns the JAX model never saw (it creates one per column of the
     data)."""
-    sd = state_dict_from_flax(params, batch_stats)
+    sd = state_dict_from_flax(params, batch_stats, model.layers[0].merged)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     stray = [k for k in missing
              if not re.match(r"encoder\.(atom|bond)\.embeddings\.\d+\.weight$", k)]

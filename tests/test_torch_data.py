@@ -19,28 +19,36 @@ SMALL = ["gt.layers", "2", "gt.dim_hidden", "128", "gnn.dim_inner", "128",
          "train.mode", "inference-only"]
 
 
-def small_cfgs(*extra):
-    """(jax_cfg, torch_cfg) of the GPS-deep recipe cut to test size."""
+MOLHIV_CFG = str(pathlib.Path(CFG).with_name("ogbg-molhiv-GPS+RWSE.yaml"))
+# the ogbg-molhiv recipe (d = 64, 4 heads) cut to 2 layers; same 40 graphs
+MOLHIV_SMALL = ["gt.layers", "2", "train.batch_size", "8",
+                "dataset.synth_num_graphs", "40", "dataset.synth_max_nodes",
+                "14"]
+
+
+def small_cfgs(*extra, cfg_path=CFG, small=SMALL):
+    """(jax_cfg, torch_cfg) of a recipe (by default GPS-deep) cut to test
+    size."""
     from graphgps_tpu.config import config as jc
     from graphgps_torch import config as tc
 
     out = []
     for mod in (jc, tc):
         cfg = mod.new_cfg()
-        mod.load_cfg(cfg, CFG)
-        mod.update_from_list(cfg, SMALL + list(extra))
+        mod.load_cfg(cfg, cfg_path)
+        mod.update_from_list(cfg, list(small) + list(extra))
         out.append(cfg)
     return out
 
 
-def both_loaders(*extra):
+def both_loaders(*extra, **which):
     import graphgps_tpu.data.datasets  # noqa: F401 -- registries
     from graphgps_tpu.data.datasets.base import load_dataset as jload
     from graphgps_tpu.driver import create_loaders as jloaders
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders
 
-    jcfg, tcfg = small_cfgs(*extra)
+    jcfg, tcfg = small_cfgs(*extra, **which)
     jsplits, tsplits = jload(jcfg), load_dataset(tcfg)
     return (jcfg, jsplits, jloaders(jcfg, jsplits),
             tcfg, tsplits, create_loaders(tcfg, tsplits, "cpu"))

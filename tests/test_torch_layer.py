@@ -94,15 +94,15 @@ def test_front_args_share_batch_index_and_weights():
     (no per-call copy)."""
     from graphgps_torch.models.gps_layer import GPSLayer
 
-    batch, x, e, *_ = _blocked_batch(4, 8, 16, 64, seed=2)
+    batch, x, e, *_ = _blocked_batch(4, 8, 16, 128, seed=2)
     tb = torch_batch(batch)
     xt, et = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(e))
-    layers = [GPSLayer(64, 4).eval() for _ in range(2)]
+    layers = [GPSLayer(128, 4).eval() for _ in range(2)]
     a0, a1 = (lyr.local.front_args(tb, xt, et, lyr.front_pack())
               for lyr in layers)
     for i in range(2, 6):
         assert a0[i] is a1[i]
-    assert a0[9] is layers[0].w_front and a0[9].shape == (64, 7 * 64)
+    assert a0[9] is layers[0].w_front and a0[9].shape == (128, 7 * 128)
     B, N, E = tb.num_graphs, tb.max_nodes, tb.edge_block
     s_loc, r_loc, em, nm = tb.front_index
     base = np.arange(B)[:, None] * N

@@ -55,7 +55,8 @@ def test_unsupported_configs_raise():
     from tests.test_torch_data import small_cfgs
 
     for key, val in (("gt.layer_type", "GINE+Transformer"),
-                     ("gt.layer_norm", "true"), ("gnn.head", "graph")):
+                     ("gt.layer_norm", "true"), ("gnn.head", "graph"),
+                     ("gt.dim_hidden", "32")):
         _, cfg = small_cfgs(key, val)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, 1)
