@@ -1,11 +1,13 @@
 """Dataset loading for the port's paths: PCQM4Mv2, the OGB molecule sets
-(``ogbg-mol*``) and the synthetic zinc-like family they fall back to.
+(``ogbg-mol*``) and the VOC superpixels, and the synthetic families they fall
+back to.
 
-Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like``,
-the same generator and the same random stream, so both packages see the same
-graphs for one seed), ``data/datasets/real.py`` (the PCQM4Mv2 and
-``ogbg-*`` → synthetic fallbacks, :106-112 and :189-209) and ``data/datasets/base.py`` (``DatasetSplits``, ``load_dataset``
-with the PE precompute).
+Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like`` and
+``voc_like``, the same generators and the same random streams, so both
+packages see the same graphs for one seed), ``data/datasets/real.py`` (the
+PCQM4Mv2, ``ogbg-*`` and ``PyG-VOCSuperpixels`` → synthetic fallbacks,
+:73-84, :106-112, :189-209 and :225-240) and ``data/datasets/base.py``
+(``DatasetSplits``, ``load_dataset`` with the PE precompute).
 """
 from __future__ import annotations
 
@@ -94,17 +96,42 @@ def zinc_like(cfg) -> DatasetSplits:
             n_classes = max(2, d.synth_num_tasks)
             g.y = np.array([int(abs(score * 7)) % n_classes], dtype=np.int64)
         graphs.append(g)
-    frac = d.split if len(d.split) == 3 else (0.8, 0.1, 0.1)
+    return _split(graphs, d.split if len(d.split) == 3 else (0.8, 0.1, 0.1))
+
+
+def _split(graphs: List[Graph], frac=(0.8, 0.1, 0.1)) -> DatasetSplits:
     n = len(graphs)
     a = int(n * frac[0])
     b = a + int(n * frac[1])
     return DatasetSplits(train=graphs[:a], val=graphs[a:b], test=graphs[b:])
 
 
-def _fallback(cfg, root: str, present: bool) -> DatasetSplits:
+def voc_like(cfg) -> DatasetSplits:
+    """Node-classification graphs shaped like PascalVOC-SP: a ring of
+    ``synth_min_nodes``..``synth_max_nodes`` nodes with float node features
+    (n, 14), float edge features (E, 2) and one integer class per node
+    (``max(2, synth_num_tasks)`` classes)."""
+    d = cfg.dataset
+    rng = np.random.default_rng(d.synth_seed)
+    num_classes = max(2, d.synth_num_tasks)
+    graphs = []
+    for _ in range(d.synth_num_graphs):
+        n = int(rng.integers(d.synth_min_nodes, d.synth_max_nodes + 1))
+        x = rng.normal(size=(n, 14)).astype(np.float32)
+        s = np.arange(n)
+        r = (s + 1) % n
+        ei = np.stack([np.concatenate([s, r]), np.concatenate([r, s])])
+        e = rng.normal(size=(ei.shape[1], 2)).astype(np.float32)
+        y = (np.abs(x @ rng.normal(size=(14,))) * 3).astype(np.int64) % num_classes
+        graphs.append(Graph(node_feat=x, edge_index=ei, edge_feat=e, y=y))
+    return _split(graphs)
+
+
+def _fallback(cfg, root: str, present: bool,
+              kind: str = "zinc-like") -> DatasetSplits:
     """The real files are not in the repository, so the run takes the same
-    synthetic stand-in as the JAX loader's fallback; real files under
-    ``root`` raise, since reading them is not ported."""
+    synthetic stand-in (``kind``) as the JAX loader's fallback; real files
+    under ``root`` raise, since reading them is not ported."""
     if present:
         raise NotImplementedError(
             f"real dataset files found under {root}: reading them is not "
@@ -114,9 +141,9 @@ def _fallback(cfg, root: str, present: bool) -> DatasetSplits:
             f"dataset {cfg.dataset.format}/{cfg.dataset.name} not found under "
             f"{cfg.dataset.dir} and synthetic_fallback is disabled")
     log.warning("dataset %s/%s not cached under %s — substituting synthetic "
-                "zinc-like", cfg.dataset.format, cfg.dataset.name,
-                cfg.dataset.dir)
-    return zinc_like(cfg)
+                "%s", cfg.dataset.format, cfg.dataset.name, cfg.dataset.dir,
+                kind)
+    return voc_like(cfg) if kind == "voc-like" else zinc_like(cfg)
 
 
 def _pcqm4mv2(cfg) -> DatasetSplits:
@@ -132,14 +159,26 @@ def _ogb_graph(cfg, name: str) -> DatasetSplits:
     return _fallback(cfg, root, os.path.isdir(os.path.join(root, "raw")))
 
 
+def _voc_superpixels(cfg) -> DatasetSplits:
+    """``PyG-VOCSuperpixels`` (``real.py:225`` ``load_superpixels``): the
+    upstream pickles sit under ``VOCSuperpixels/slic_compactness_<c>/``."""
+    root = os.path.join(cfg.dataset.dir, "VOCSuperpixels")
+    return _fallback(cfg, root, os.path.isdir(root), "voc-like")
+
+
 def load_dataset(cfg) -> DatasetSplits:
     fmt, name = cfg.dataset.format, cfg.dataset.name
     if fmt.startswith("synthetic"):
-        if fmt not in ("synthetic", "synthetic-zinc-like"):
+        if fmt == "synthetic-voc-like":
+            splits = voc_like(cfg)
+        elif fmt in ("synthetic", "synthetic-zinc-like"):
+            splits = zinc_like(cfg)
+        else:
             raise NotImplementedError(
                 f"dataset.format={fmt!r} is not ported (ROADMAP Queue 1 "
                 "item 14)")
-        splits = zinc_like(cfg)
+    elif fmt == "PyG-VOCSuperpixels":
+        splits = _voc_superpixels(cfg)
     elif ((fmt == "OGB" and name.startswith("PCQM4Mv2-"))
             or fmt in ("OGB-LSC", "PCQM4Mv2")):
         splits = _pcqm4mv2(cfg)

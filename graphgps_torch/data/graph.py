@@ -27,11 +27,13 @@ import torch
 class Graph:
     """Host-side single graph (numpy)."""
 
-    node_feat: np.ndarray  # (N, Fn) int codes
+    node_feat: np.ndarray  # (N, Fn) int codes or float features
     edge_index: np.ndarray  # (2, E) int: [senders; receivers]
     edge_feat: Optional[np.ndarray] = None  # (E, Fe)
-    y: Optional[np.ndarray] = None  # graph-level (T,)
+    y: Optional[np.ndarray] = None  # graph-level (T,), or node-level (N,)
     pe: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # per-graph arrays that are no node rows (LapPE's EigVals (1, K))
+    extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     @property
     def num_nodes(self) -> int:
@@ -50,18 +52,22 @@ class GraphBatch:
     slot ``j`` to graph ``j // edge_block``.
     """
 
-    node_feat: torch.Tensor  # (B*Nmax, Fn) int32
-    edge_feat: Optional[torch.Tensor]  # (B*Ecap, Fe) int32
+    node_feat: torch.Tensor  # (B*Nmax, Fn) int32 codes or float32 features
+    edge_feat: Optional[torch.Tensor]  # (B*Ecap, Fe) int32 or float32
     senders: torch.Tensor  # (B*Ecap,) int32 into the flat node space
     receivers: torch.Tensor  # (B*Ecap,) int32
     node_mask: torch.Tensor  # (B*Nmax,) bool
     edge_mask: torch.Tensor  # (B*Ecap,) bool
     graph_mask: torch.Tensor  # (B,) bool
-    y: Optional[torch.Tensor]  # (B, T), NaN on padded graphs
+    # (B, T) with NaN on padded graphs; on a node task (B*Nmax,) labels, 0 on
+    # padded slots
+    y: Optional[torch.Tensor]
     pe: Dict[str, torch.Tensor]  # (B*Nmax, k) per encoding, 0 on padding
     num_graphs: int
     max_nodes: int
     edge_block: int
+    # per-graph arrays (B, ...) by name; a padded graph holds what it read
+    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_node_slots(self) -> int:
@@ -90,6 +96,14 @@ class GraphBatch:
                 self.node_mask.reshape(B, N).float())
 
     @functools.cached_property
+    def counts(self):
+        """(B,) int32 real nodes per graph (0 for a padded graph): the node
+        masks are prefixes, so the wide attention kernel takes its key masks
+        from these."""
+        return self.node_mask.reshape(
+            self.num_graphs, self.max_nodes).sum(1, dtype=torch.int32)
+
+    @functools.cached_property
     def real_counts(self):
         """``(real nodes, real edges)`` as f32 scalars, at least 1: the row
         counts of the BatchNorm statistics."""
@@ -104,4 +118,5 @@ class GraphBatch:
             senders=mv(self.senders), receivers=mv(self.receivers),
             node_mask=mv(self.node_mask), edge_mask=mv(self.edge_mask),
             graph_mask=mv(self.graph_mask), y=mv(self.y),
-            pe={k: mv(v) for k, v in self.pe.items()})
+            pe={k: mv(v) for k, v in self.pe.items()},
+            extras={k: mv(v) for k, v in self.extras.items()})

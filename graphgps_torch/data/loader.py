@@ -14,7 +14,12 @@ layout is the same, array for array:
   graph's arrays (as numpy/JAX negative indexing does) under
   ``graph_mask`` False, with NaN targets and zeroed features; integer class
   labels stay integers (int32), and a padded graph then keeps the label it
-  read, as in the JAX loader (``device_loader.py`` :206-209).
+  read, as in the JAX loader (``device_loader.py`` :206-209);
+- features keep their kind: integer codes as int32, float features as
+  float32; on a node task the labels are a node arena gathered like the
+  features, 0 on padded slots (``device_loader.py`` :130-138, :210-215);
+- ``extras`` (per-graph arrays such as LapPE's ``EigVals``) are stacked per
+  graph and gathered by graph index (:140-152, :217-222).
 """
 from __future__ import annotations
 
@@ -42,12 +47,17 @@ def choose_caps(graphs: Sequence[Graph], node_multiple: int = 8,
     return n_cap, round_up(max(max_e, 1), edge_multiple)
 
 
+def _arena_dtype(a: np.ndarray):
+    """int32 for integer codes and labels, float32 for float features."""
+    return np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+
+
 class DeviceArenas:
     """One split's graphs packed into device-resident arrays, with each
     graph's edges in a block of ``edge_cap`` slots."""
 
     def __init__(self, graphs: Sequence[Graph], device,
-                 edge_cap: Optional[int] = None):
+                 edge_cap: Optional[int] = None, y_graph_level: bool = True):
         G = len(graphs)
         g0 = graphs[0]
         max_e = max((g.num_edges for g in graphs), default=1)
@@ -65,7 +75,8 @@ class DeviceArenas:
         e_count = np.zeros((G,), np.int64)
         edge_feat = None
         if g0.edge_feat is not None:
-            edge_feat = np.zeros((G, Ecap, *g0.edge_feat.shape[1:]), np.int32)
+            edge_feat = np.zeros((G, Ecap, *g0.edge_feat.shape[1:]),
+                                 _arena_dtype(g0.edge_feat))
         for i, g in enumerate(graphs):
             e = g.num_edges
             order = np.argsort(g.edge_index[1], kind="stable")
@@ -87,17 +98,23 @@ class DeviceArenas:
         self.n_count = dev(node_off[1:] - node_off[:-1])
         self.e_count = dev(e_count)
         self.node_feat = dev(np.concatenate(
-            [g.node_feat for g in graphs], axis=0).astype(np.int32))
+            [g.node_feat for g in graphs], axis=0).astype(
+                _arena_dtype(g0.node_feat)))
         self.senders = dev(senders)
         self.receivers = dev(receivers)
         self.edge_feat = dev(edge_feat) if edge_feat is not None else None
         self.pe = {k: dev(np.concatenate([g.pe[k] for g in graphs], axis=0)
                           .astype(np.float32)) for k in g0.pe}
-        self.y = None
-        if g0.y is not None:
+        self.y = self.y_node = None
+        if g0.y is not None and y_graph_level:
             y = np.stack([np.atleast_1d(np.asarray(g.y)) for g in graphs])
-            integer = np.issubdtype(y.dtype, np.integer)
-            self.y = dev(y.astype(np.int32 if integer else np.float32))
+            self.y = dev(y.astype(_arena_dtype(y)))
+        elif g0.y is not None:
+            y = np.concatenate([np.asarray(g.y).reshape(g.num_nodes, -1)
+                                for g in graphs], axis=0)
+            self.y_node = dev(y.astype(_arena_dtype(y)))
+        self.extras = {k: dev(np.stack([g.extras[k] for g in graphs]))
+                       for k in g0.extras}
 
     def assemble(self, sel: torch.Tensor, max_nodes: int) -> GraphBatch:
         """(B,) int64 graph indices on the device (−1 = padding) → batch."""
@@ -132,10 +149,15 @@ class DeviceArenas:
             y = self.y[sel]
             if y.is_floating_point():
                 y = torch.where(gmask[:, None], y, float("nan"))
+        elif self.y_node is not None:
+            y = torch.where(node_mask[:, None], self.y_node[node_idx], 0)
+            if y.shape[-1] == 1:
+                y = y[:, 0]
         return GraphBatch(
             node_feat=nf, edge_feat=ef, senders=snd, receivers=rcv,
             node_mask=node_mask, edge_mask=emask, graph_mask=gmask, y=y,
-            pe=pe, num_graphs=B, max_nodes=Nmax, edge_block=Ecap)
+            pe=pe, num_graphs=B, max_nodes=Nmax, edge_block=Ecap,
+            extras={k: v[sel] for k, v in self.extras.items()})
 
 
 class DeviceLoader:
@@ -145,9 +167,10 @@ class DeviceLoader:
     def __init__(self, graphs: Sequence[Graph], batch_size: int, device,
                  max_nodes: Optional[int] = None,
                  max_edges: Optional[int] = None, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, y_graph_level: bool = True):
         edge_cap = (-(-max_edges // batch_size)) if max_edges else None
-        self.arenas = DeviceArenas(graphs, device, edge_cap=edge_cap)
+        self.arenas = DeviceArenas(graphs, device, edge_cap=edge_cap,
+                                   y_graph_level=y_graph_level)
         self.device = torch.device(device)
         self.batch_size = batch_size
         if max_nodes:

@@ -91,11 +91,12 @@ def infer_dims(cfg: CfgNode, splits: DatasetSplits) -> int:
 
 def create_loaders(cfg: CfgNode, splits: DatasetSplits,
                    device) -> Dict[str, DeviceLoader]:
-    """Per-split loaders sharing one (max_nodes, edge block) cap."""
-    if cfg.dataset.task != "graph":
+    """Per-split loaders sharing one (max_nodes, edge block) cap; a node
+    task's loaders carry one label per node."""
+    if cfg.dataset.task not in ("graph", "node"):
         raise NotImplementedError(
-            f"dataset.task={cfg.dataset.task!r} is not ported (ROADMAP Queue "
-            "1 item 17)")
+            f"dataset.task={cfg.dataset.task!r}: the port runs graph and "
+            "node tasks (edge and link tasks: ROADMAP Queue 1 item 17)")
     n_cap, e_cap = choose_caps(splits.all_graphs)
     max_nodes = cfg.dataset.max_nodes or n_cap
     bs = cfg.train.batch_size
@@ -106,7 +107,8 @@ def create_loaders(cfg: CfgNode, splits: DatasetSplits,
         if graphs:
             out[name] = DeviceLoader(graphs, bs, device, max_nodes=max_nodes,
                                      max_edges=max_edges,
-                                     shuffle=(name == "train"), seed=cfg.seed)
+                                     shuffle=(name == "train"), seed=cfg.seed,
+                                     y_graph_level=cfg.dataset.task == "graph")
     cfg.share.num_splits = len(out)
     return out
 

@@ -1,7 +1,7 @@
-"""Task metrics (the port's copy of the regression and binary
+"""Task metrics (the port's copy of the regression, binary and multiclass
 classification branches of ``graphgps_tpu/metrics.py``: ``mae`` :24 …
-``auroc`` :120, ``compute_task_metrics`` :219-237). NaN targets mark missing
-labels and are left out."""
+``auroc`` :120, ``compute_task_metrics`` :219-237 and :261-277). NaN targets
+mark missing labels and are left out."""
 from __future__ import annotations
 
 from typing import Dict
@@ -127,6 +127,20 @@ def compute_task_metrics(task_type: str, pred: np.ndarray, true: np.ndarray,
         out.update(precision_recall_f1(label, t))
         out["auc"] = auroc(score, t)
         return out
+    if task_type == "classification":
+        many = pred.ndim > 1 and pred.shape[-1] > 1
+        label = (pred.argmax(axis=-1) if many
+                 else pred.astype(np.int64)).ravel()
+        t = true.astype(np.int64).ravel()
+        out = {"accuracy": accuracy(label, t),
+               "accuracy-SBM": accuracy_sbm(label, t)}
+        if many:
+            # macro F1 over the classes present, as VOC and COCO report it
+            f1s = [precision_recall_f1((label == c).astype(int),
+                                       (t == c).astype(int))["f1"]
+                   for c in np.unique(t)]
+            out["f1"] = float(np.mean(f1s)) if f1s else 0.0
+        return out
     raise NotImplementedError(
-        f"metrics for task_type={task_type!r} are not ported (ROADMAP "
-        "Queue 1 item 17)")
+        f"metrics for task_type={task_type!r} are not ported (multilabel "
+        "ap/auc: ROADMAP Queue 1 item 17)")

@@ -1,7 +1,7 @@
-"""Shared model building blocks: activations and masked BatchNorm.
+"""Shared model building blocks: activations, masked BatchNorm and the MLP.
 
 Counterpart of ``graphgps_tpu/models/common.py`` (acts :18-33,
-``MaskedBatchNorm`` :80-153). The activations are the kernels' own
+``MaskedBatchNorm`` :80-153, ``MLP`` :187-205). The activations are the kernels' own
 (``ops/kernels/common.py``; gelu is the exact-erf form). The JAX ``Embed``'s
 one-hot gradient trick served the TPU's matrix unit; here an embedding is a
 plain ``nn.Embedding`` lookup.
@@ -97,3 +97,26 @@ class MaskedBatchNorm(nn.Module):
         if self.stats_only:
             return self.stats(x, mask, moments)
         return self.normalize(x, mask, moments)
+
+
+class MLP(nn.Module):
+    """``num_layers`` Linears (``layers``; flax ``Dense_<i>``) with the
+    activation between them, and after the last with ``with_final_act``;
+    the hidden ones are ``hidden_dim`` wide."""
+
+    def __init__(self, dim_in: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 2, act: str = "relu",
+                 with_final_act: bool = False):
+        super().__init__()
+        dims = [dim_in] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(nn.Linear(a, b)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        self.act = get_act(act)
+        self.with_final_act = with_final_act
+
+    def forward(self, x):
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < len(self.layers) - 1 or self.with_final_act:
+                x = self.act(x)
+        return x

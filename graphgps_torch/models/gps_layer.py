@@ -10,10 +10,14 @@ Two paths, chosen by width and settings as the JAX package chooses them
   combine+FFN; three dropout seeds. The attention branch's norm takes its
   statistics from the front's moment partials.
 - **unmerged** (any other width from 64 up; JAX :138-148, :250-268,
-  :357-392, :449-518). The standalone GatedGCN core kernel, then the
-  Transformer branch in PyTorch ops (QKV product, dense masked attention
-  with hashed dropout on the probabilities, out-projection), as the JAX
-  package leaves it to XLA. When the tails are deferred -- in training with
+  :316-392, :449-518). The standalone GatedGCN core kernel (on long graphs
+  the Linears and the edge gate, ``local_gnn.py``), then the Transformer
+  branch: for graphs of more than 128 node slots ``fused_wide_attention``
+  (QKV projection, attention with an online softmax over key tiles and
+  hashed dropout on the probabilities, out-projection, in one call; JAX
+  :316-354); up to 128 the same function in PyTorch ops with a dense
+  softmax, as the JAX package leaves it to XLA there. When the tails are
+  deferred -- in training with
   dropout on, or at a lane width -- the edge tail runs through
   ``fused_pre_tail``, the attention branch's residual through
   ``fused_drop_add`` (a plain add at rate 0), and the x-tail, the attention
@@ -40,7 +44,8 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import fused_combine_ffn, fused_drop_add
+from ..ops.kernels import (fused_combine_ffn, fused_drop_add,
+                           fused_wide_attention)
 from ..ops.kernels.common import apply_dropout
 from ..ops.mha import merge_heads, mha, split_heads
 from .common import MaskedBatchNorm, dense_params, get_act
@@ -52,6 +57,11 @@ SEEDS_PER_LAYER = 3
 SEEDS_PER_LAYER_UNMERGED = 4
 # the merged front holds a graph's N x N scores in shared memory
 MERGED_MAX_NODES = 128
+# the unmerged path's attention: PyTorch ops up to WIDE_MIN_NODES node slots
+# per graph, fused_wide_attention above, up to the TPU kernel's own limit
+# (``wide_eligible``, fused_attn_wide.py :365)
+WIDE_MIN_NODES = 128
+WIDE_MAX_NODES = 768
 # below this width the JAX package runs no fused kernel (fused_gatedgcn.py
 # :498, fused_tail.py :495)
 MIN_DIM = 64
@@ -142,10 +152,22 @@ class GPSLayer(nn.Module):
                 self.rates[0], self.act)
 
     def attention(self, batch: GraphBatch, x, seed: int = 0):
-        """The unmerged Transformer branch up to the out-projection, in
-        PyTorch ops: (B*N, d)."""
+        """The unmerged Transformer branch up to the out-projection:
+        (B*N, d). Wide graphs go through ``fused_wide_attention``, the
+        others through PyTorch ops."""
         d, H = self.dim_h, self.num_heads
         xd = batch.dense_view(x)
+        if batch.max_nodes > WIDE_MAX_NODES:
+            raise NotImplementedError(
+                f"{batch.max_nodes} node slots per graph exceed the wide "
+                f"attention's {WIDE_MAX_NODES}: the flash attention for "
+                "longer graphs is not ported (ROADMAP Queue 2 item 9, "
+                "flash_mha)")
+        if batch.max_nodes > WIDE_MIN_NODES:
+            return fused_wide_attention(
+                xd, batch.counts, self.w_qkv, self.b_qkv, self.w_out,
+                self.b_out, seed, H, 1.0 / float(d // H) ** 0.5,
+                self.rates[1]).reshape(-1, d)
         qkv = xd @ self.w_qkv + self.b_qkv
         q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H)
                    for i in range(3))

@@ -1,13 +1,13 @@
-"""Graph pooling and the san_graph head (counterpart of
+"""Graph pooling, the san_graph head and the node head (counterpart of
 ``graphgps_tpu/models/heads.py``: ``global_mean_pool`` :38,
-``SANGraphHead`` :67-89)."""
+``SANGraphHead`` :67-89, ``InductiveNodeHead`` :110-124)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from .common import get_act
+from .common import MLP, get_act
 
 
 def _masked_dense(x, batch: GraphBatch):
@@ -49,3 +49,18 @@ class SANGraphHead(nn.Module):
         for lin in self.hidden:
             g = self.act(lin(g))
         return self.out(g), batch.y
+
+
+class InductiveNodeHead(nn.Module):
+    """Node-level MLP head: ``layers`` Linears of the input width with relu
+    between them, the last to ``dim_out``; predictions for every node slot
+    (the loss and the metrics take the real ones by the node mask)."""
+
+    def __init__(self, dim_in: int, dim_out: int, layers: int = 3,
+                 act: str = "relu"):
+        super().__init__()
+        self.mlp = MLP(dim_in, dim_in, dim_out, num_layers=max(1, layers),
+                       act=act)
+
+    def forward(self, batch: GraphBatch, x):
+        return self.mlp(x), batch.y

@@ -1,6 +1,7 @@
 """GatedGCN local layer (counterpart of ``graphgps_tpu/models/local_gnn.py``
 ``GatedGCNLayer`` :74-329: the merged dispatch :106-149, the standalone
-fused core :150-184, the fused tails :258-316 and the plain tails :318-329).
+fused core :150-184, the long-graph rung :185-233, the fused tails :258-316
+and the plain tails :318-329).
 
 Two paths. On the merged path (:meth:`GatedGCNLayer.forward`) the front
 kernel takes the node projections A, D, E, B (flax ``Dense_0``,
@@ -22,6 +23,16 @@ partials, the edge tail through ``fused_pre_tail``, the x-tail handed back);
 without it both tails are plain PyTorch: ``x + act(bn(x_new))`` with the
 norms' own masked statistics in training and no dropout (the JAX layer takes
 its fused tails whenever dropout is on).
+
+The unmerged path has a second rung for long graphs. The core kernel holds
+a graph's receivers in shared memory (five arrays of N x 64 floats in its
+backward), so it takes graphs of at most ``gatedgcn.MAX_NODES`` node slots;
+beyond that the five Linears are ``torch.matmul`` products here (the JAX
+package computes them outside its kernel too), ``fused_edge_gate`` does the
+gathers, the gate and the aggregation, and ``x_new = A x + num / (den +
+1e-6)`` follows in PyTorch. The rule is this card's shared memory, not the
+TPU's VMEM arithmetic (``edge_gate_eligible``). The edge gate returns no
+moment partials: on this rung the norms take their own masked statistics.
 """
 from __future__ import annotations
 
@@ -31,7 +42,9 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import fused_gatedgcn, fused_gps_front, fused_pre_tail
+from ..ops.kernels import (fused_edge_gate, fused_gatedgcn, fused_gps_front,
+                           fused_pre_tail)
+from ..ops.kernels.gatedgcn import MAX_NODES as CORE_MAX_NODES
 from .common import MaskedBatchNorm, dense_params, get_act
 
 
@@ -81,17 +94,19 @@ class GatedGCNLayer(nn.Module):
                 front.attn_rate, front.drop_rate)
 
     def edge_tail_args(self, e, gate, seed: int = 0, rate: float = 0.0,
-                       moments=None) -> tuple:
+                       moments=None, mask=None) -> tuple:
         """The arguments of :func:`fused_pre_tail`:
-        ``e + drop(act(bn_e(gate)))``."""
-        me, ve, sce, bie = self.norm_e(moments=moments)
+        ``e + drop(act(bn_e(gate)))``; the training statistics from a
+        kernel's ``moments`` or, with ``mask``, from ``gate`` itself."""
+        me, ve, sce, bie = self.norm_e(gate, mask, moments)
         return (e, gate, me, torch.rsqrt(ve + self.eps), sce, bie, seed, rate,
                 self.act)
 
-    def x_tail_args(self, x, x_new, moments=None) -> tuple:
+    def x_tail_args(self, x, x_new, moments=None, mask=None) -> tuple:
         """The x-tail ``x + drop(act(bn_x(x_new)))`` as (x_in, v, mu, inv,
-        gamma, beta), for the combine+FFN kernel to apply."""
-        mx, vx, scx, bix = self.norm_x(moments=moments)
+        gamma, beta), for the combine+FFN kernel to apply; statistics as in
+        :meth:`edge_tail_args`."""
+        mx, vx, scx, bix = self.norm_x(x_new, mask, moments)
         return (x, x_new, mx, torch.rsqrt(vx + self.eps), scx, bix)
 
     def forward(self, batch: GraphBatch, x, e, front: FrontPack,
@@ -125,27 +140,55 @@ class GatedGCNLayer(nn.Module):
                 nmask, self.norm_x.running_mean, self.norm_e.running_mean,
                 self.w_node, self.b_node, self.w_c, self.b_c)
 
-    def unmerged(self, batch: GraphBatch, x, e, defer: bool,
-                 seed_e: int = 0, rate: float = 0.0):
-        """The standalone core and the tails. With ``defer`` returns
-        (x-tail arguments, e_new); otherwise (x_new, e_new), both tails
-        applied in plain PyTorch (``rate`` must be 0 then)."""
+    def edge_gate_args(self, batch: GraphBatch, x, e) -> tuple:
+        """(A x (B*N, d), the arguments of :func:`fused_edge_gate`): the five
+        Linears as ``torch.matmul`` products from ``[A|D|E|B]`` and C."""
+        B, N, E, d = (batch.num_graphs, batch.max_nodes, batch.edge_block,
+                      self.dim)
+        s_loc, r_loc, emask, _ = batch.front_index
+        w, b = self.w_node, self.b_node
+        ax = x @ w[:, :d] + b[:d]
+        pd = x @ w[:, d:2 * d] + b[d:2 * d]
+        peb = x @ w[:, 2 * d:] + b[2 * d:]
+        ce = e @ self.w_c + self.b_c
+        return ax, (pd.reshape(B, N, d), peb.reshape(B, N, 2 * d),
+                    ce.reshape(B, E, d), s_loc, r_loc, emask)
+
+    def core(self, batch: GraphBatch, x, e):
+        """The unmerged path's pre-norm outputs (x_new (B*N, d), gate
+        (B*E, d), mom_x, mom_e): through the core kernel, with the norms'
+        moment sums in training; on long graphs through the Linears and the
+        edge gate, with no moments (the norms then reduce x_new and gate
+        themselves)."""
+        d = self.dim
+        if batch.max_nodes > CORE_MAX_NODES:
+            ax, args = self.edge_gate_args(batch, x, e)
+            gate, nd = fused_edge_gate(*args)
+            nd = nd.reshape(-1, 2 * d)
+            return (ax + nd[:, :d] / (nd[:, d:] + 1e-6), gate.reshape(-1, d),
+                    None, None)
         args = self.core_args(batch, x, e)
         cx, cg = args[6], args[7]
         xo, gate, px, pg = fused_gatedgcn(*args)
-        d = self.dim
-        xo, gate = xo.reshape(-1, d), gate.reshape(-1, d)
+        mom_x = mom_e = None
+        if self.training:
+            cnt_n, cnt_e = batch.real_counts
+            mom_x = (px[0, :d], px[0, d:], cnt_n, cx)
+            mom_e = (pg[0, :d], pg[0, d:], cnt_e, cg)
+        return xo.reshape(-1, d), gate.reshape(-1, d), mom_x, mom_e
+
+    def unmerged(self, batch: GraphBatch, x, e, defer: bool,
+                 seed_e: int = 0, rate: float = 0.0):
+        """:meth:`core` and the tails. With ``defer`` returns (x-tail
+        arguments, e_new); otherwise (x_new, e_new), both tails applied in
+        plain PyTorch (``rate`` must be 0 then)."""
+        xo, gate, mom_x, mom_e = self.core(batch, x, e)
         if not defer:
             if rate > 0.0:
                 raise ValueError("the plain tails carry no dropout")
             act = get_act(self.act)
             return (x + act(self.norm_x.normalize(xo, batch.node_mask)),
                     e + act(self.norm_e.normalize(gate, batch.edge_mask)))
-        mom_x = mom_e = None
-        if self.training:
-            cnt_n, cnt_e = batch.real_counts
-            mom_x = (px[0, :d], px[0, d:], cnt_n, cx)
-            mom_e = (pg[0, :d], pg[0, d:], cnt_e, cg)
-        e_new = fused_pre_tail(*self.edge_tail_args(e, gate, seed_e, rate,
-                                                    mom_e))
-        return self.x_tail_args(x, xo, mom_x), e_new
+        e_new = fused_pre_tail(*self.edge_tail_args(
+            e, gate, seed_e, rate, mom_e, batch.edge_mask))
+        return self.x_tail_args(x, xo, mom_x, batch.node_mask), e_new

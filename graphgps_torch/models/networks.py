@@ -1,7 +1,7 @@
-"""GPSModel: FeatureEncoder → L × GPSLayer → san_graph head (counterpart
-of ``graphgps_tpu/models/networks.py:175-239`` ``GPSModel`` and :411
-``build_model``; a plain layer loop in place of ``nn.scan``, and the
-activations stored for the backward in place of ``parallel.remat``)."""
+"""GPSModel: FeatureEncoder → L × GPSLayer → head (counterpart of
+``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``
+and :411 ``build_model``; a plain layer loop in place of ``nn.scan``, and
+the activations stored for the backward in place of ``parallel.remat``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,13 +12,14 @@ from torch import nn
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
 from .gps_layer import MERGED_MAX_NODES, MIN_DIM, GPSLayer, merged_width
-from .heads import SANGraphHead
+from .heads import InductiveNodeHead, SANGraphHead
 
 
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
-    Transformer, BatchNorm, san_graph head, at a width of 64 or more);
-    anything else names the ROADMAP item that brings it."""
+    Transformer, BatchNorm, the san_graph or the inductive_node head, at a
+    width of 64 or more); anything else names the ROADMAP item that brings
+    it."""
     gt = cfg.gt
     if cfg.model.type != "GPSModel":
         raise NotImplementedError(
@@ -36,16 +37,31 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
             "without fused kernels is not ported (ROADMAP Queue 1 item 5)")
-    if cfg.gnn.layers_pre_mp > 0 or cfg.gnn.head != "san_graph":
+    if cfg.gnn.layers_pre_mp > 0:
         raise NotImplementedError(
-            "gnn.layers_pre_mp > 0 or a head other than san_graph is not "
-            "ported (ROADMAP Queue 1 item 17)")
+            "gnn.layers_pre_mp > 0 is not ported (ROADMAP Queue 1 item 17)")
+    if cfg.gnn.head not in HEADS:
+        raise NotImplementedError(
+            f"gnn.head={cfg.gnn.head!r}: the port has {sorted(HEADS)} "
+            "(the default graph head: ROADMAP Queue 1 item 17)")
     if cfg.posenc_EquivStableLapPE.enable:
         raise NotImplementedError(
             "EquivStableLapPE is not ported (ROADMAP Queue 1 item 16)")
     if cfg.train.get("log_attn_weights", False):
         raise NotImplementedError(
             "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
+
+
+HEADS = ("san_graph", "inductive_node")
+
+
+def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:
+    """The head ``gnn.head`` names: san_graph ignores ``gnn.layers_post_mp``
+    (two halving layers and the output), the node head takes it."""
+    if cfg.gnn.head == "san_graph":
+        return SANGraphHead(dim_in, dim_out, pooling=cfg.model.graph_pooling)
+    return InductiveNodeHead(dim_in, dim_out,
+                             layers=max(1, cfg.gnn.layers_post_mp))
 
 
 class GPSModel(nn.Module):
@@ -63,13 +79,15 @@ class GPSModel(nn.Module):
                      dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout,
                      merged=merged)
             for _ in range(cfg.gt.layers))
-        self.head = SANGraphHead(d, dim_out, pooling=cfg.model.graph_pooling)
+        self.head = make_head(cfg, d, dim_out)
 
     def forward(self, batch: GraphBatch,
                 gen: Optional[torch.Generator] = None):
-        """Returns (pred (B, dim_out), true (B, T)). In training, ``gen``
-        (a host generator) draws every layer's dropout seeds."""
-        x, e = self.encoder(batch)
+        """Returns (pred, true): (B, dim_out) and (B, T) from a graph head,
+        (B*N, dim_out) and (B*N,) from the node head. In training, ``gen``
+        (a host generator) draws LapPE's sign flip and every layer's dropout
+        seeds."""
+        x, e = self.encoder(batch, gen)
         for layer in self.layers:
             x, e = layer(batch, x, e, gen)
         return self.head(batch, x)

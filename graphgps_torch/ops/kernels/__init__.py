@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: five
-forward kernels and their five backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: seven
+forward kernels and their seven backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -7,9 +7,11 @@ path went through the kernels.
 """
 from .combine_ffn import combine_ffn_backward, fused_combine_ffn
 from .drop_add import drop_add_backward, fused_drop_add
+from .edge_gate import edge_gate_backward, fused_edge_gate
 from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .pre_tail import fused_pre_tail, pre_tail_backward
+from .wide_attention import fused_wide_attention, wide_attention_backward
 
 WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "combine_ffn": fused_combine_ffn,
@@ -17,7 +19,10 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "pre_tail_bwd": pre_tail_backward,
             "combine_ffn_bwd": combine_ffn_backward,
             "gatedgcn": fused_gatedgcn, "gatedgcn_bwd": gatedgcn_backward,
-            "drop_add": fused_drop_add, "drop_add_bwd": drop_add_backward}
+            "drop_add": fused_drop_add, "drop_add_bwd": drop_add_backward,
+            "edge_gate": fused_edge_gate, "edge_gate_bwd": edge_gate_backward,
+            "wide_attention": fused_wide_attention,
+            "wide_attention_bwd": wide_attention_backward}
 
 
 def reset_launch_counts() -> None:

@@ -19,6 +19,11 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # positions of the differentiable tensor inputs among the twelve
 GRAD_INPUTS = (0, 1, 8, 9, 10, 11)   # x, e, wn, bn, wc, bc
+# the most node slots per graph the core holds in shared memory: its backward
+# keeps five arrays of N x 64 floats a block (``ggcn_core_bwd_smem``,
+# csrc/ggcn_core.cuh). The GatedGCN layer routes longer graphs to the edge
+# gate (``edge_gate.py``)
+MAX_NODES = SMEM_LIMIT // (5 * 64 * 4)
 
 
 def gatedgcn_plain(x, e, s_loc, r_loc, emask, nmask, cx, cg, wn, bn, wc, bc):
@@ -73,7 +78,9 @@ def _check_args(x, e, s_loc, r_loc, emask, nmask, cx, cg, wn, bn, wc, bc):
            _size("gatedgcn_core_bwd_smem", 1)(N)) > SMEM_LIMIT:
         raise ValueError(
             f"fused_gatedgcn: N={N} node slots per graph exceed the core's "
-            "shared memory (long graphs: ROADMAP Queue 2, fused_edge_gate)")
+            f"shared memory ({MAX_NODES} at most): long graphs take the "
+            "layer's other rung, the Linears and fused_edge_gate "
+            "(GatedGCNLayer.unmerged)")
     build.require("x", x, (B, N, d), dev)
     build.require("e", e, (B, E, d), dev)
     build.require("s_loc", s_loc, (B, E), dev, torch.int32)

@@ -17,7 +17,7 @@ def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
              drop: Optional[Callable] = None, grad_through_mask: bool = True):
     """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool. Masked keys get
     ``-1e30`` (not ``-inf``), so a graph with no real node still gives
-    finite, uniform weights. Softmax in f32; ``drop`` (the attention
+    finite, uniform weights. Softmax in at least f32; ``drop`` (the attention
     dropout) maps the (B, H, N, N) probabilities before they weight ``v``.
     Returns (B, H, N, Dh)."""
     if scale is None:
@@ -35,7 +35,9 @@ def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
         # as jnp.where in graphgps_tpu/ops/mha.py:54: no gradient to a
         # masked logit
         logits = torch.where(mask, logits, NEG_INF)
-    attn = torch.softmax(logits.float(), dim=-1)
+    if logits.dtype != torch.float64:    # a float64 run is a reference
+        logits = logits.float()
+    attn = torch.softmax(logits, dim=-1)
     if drop is not None:
         attn = drop(attn)
     return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)

@@ -1,8 +1,9 @@
 """Train and evaluation modes (counterpart of ``graphgps_tpu/train/loop.py``:
 ``train_step`` :146-153, ``train_epoch`` :732-768, ``eval_epoch`` :812,
 ``custom_train`` :884-1057, ``inference_only`` :1060, ``ogblsc_inference``
-:1075; the L1 and binary cross-entropy losses and the dispatch of
-``graphgps_tpu/models/losses.py`` :23, :52, :104)."""
+:1075, ``_loss_mask`` :81; the L1, cross-entropy, binary and weighted
+cross-entropy losses and the dispatch of ``graphgps_tpu/models/losses.py``
+:23, :41, :52, :73, :104)."""
 from __future__ import annotations
 
 import logging
@@ -26,6 +27,12 @@ def _masked_mean(vals, mask):
                                           min=1.0)
 
 
+def _f32(t):
+    """``t`` in at least float32 (a float64 run, the reference of a
+    precision check, stays float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def l1_loss(pred, true, mask):
     """Mean |pred − true| over the real graphs (NaN targets count as 0)."""
     return _masked_mean((pred - torch.nan_to_num(true)).abs(), mask)
@@ -34,40 +41,97 @@ def l1_loss(pred, true, mask):
 def binary_cross_entropy(pred, true, mask):
     """Binary cross-entropy with logits over the real graphs; pred (B,) or
     (B, 1), true the 0/1 labels (any dtype)."""
-    pred = pred.reshape(pred.shape[0], -1)[:, 0].float()
+    pred = _f32(pred.reshape(pred.shape[0], -1)[:, 0])
     t = torch.nan_to_num(true.float()).reshape(pred.shape)
     vals = (torch.clamp(pred, min=0) - pred * t
             + torch.log1p(torch.exp(-pred.abs())))
     return _masked_mean(vals, mask)
 
 
+def _class_targets(pred, true):
+    """Integer class targets (R,) for logits (R, C), clipped to the classes."""
+    if true.ndim == pred.ndim:   # (R, 1) graph-label column → (R,)
+        true = true[..., 0]
+    return true.long().clamp(0, pred.shape[-1] - 1)
+
+
+def cross_entropy(pred, true, mask):
+    """Multiclass cross-entropy with integer targets over the real rows;
+    pred (R, C), true (R,) or (R, 1)."""
+    tgt = _class_targets(pred, true)
+    logp = torch.log_softmax(_f32(pred), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    return _masked_mean(nll, mask)
+
+
+def weighted_cross_entropy(pred, true, mask):
+    """Cross-entropy weighted by the inverse class frequencies of the
+    batch's real rows: class c weighs ``total / max(count_c · C, 1)``, and
+    the mean is over the rows' weights."""
+    C = pred.shape[-1]
+    tgt = _class_targets(pred, true)
+    m = mask.float()
+    counts = torch.zeros(C, dtype=torch.float32,
+                         device=pred.device).index_add(0, tgt, m)
+    total = torch.clamp(m.sum(), min=1.0)
+    w = (total / torch.clamp(counts * C, min=1.0))[tgt]
+    logp = torch.log_softmax(_f32(pred), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    return (nll * w * m).sum() / torch.clamp((w * m).sum(), min=1.0)
+
+
 def compute_loss(cfg, pred, true, mask):
     """The loss of the task (``losses.py:104-138``): ``l1`` for the
-    regression recipes; ``cross_entropy`` (or ``auto``) on a
-    ``classification_binary`` task is binary cross-entropy."""
+    regression recipes; ``cross_entropy`` (or ``auto``) is binary
+    cross-entropy on a ``classification_binary`` task and the multiclass
+    one on ``classification``; ``weighted_cross_entropy`` as named."""
     name, tt = cfg.model.loss_fun, cfg.dataset.task_type
-    if name in ("cross_entropy", "ce", "auto") and tt == "classification_binary":
-        name = "binary_cross_entropy"
+    if name in ("cross_entropy", "ce", "auto"):
+        name = {"classification_binary": "binary_cross_entropy",
+                "classification": "cross_entropy"}.get(tt)
     if name == "l1":
         loss = l1_loss(pred, true, mask)
         d = 1 if true.ndim == 1 else int(true.shape[-1])
     elif name == "binary_cross_entropy":
         loss = binary_cross_entropy(pred, true, mask)
         d = 1
+    elif name == "cross_entropy":
+        loss = cross_entropy(pred, true, mask)
+        d = 1
+    elif name == "weighted_cross_entropy":
+        if cfg.model.size_average == "sum":
+            raise ValueError(
+                "model.size_average='sum' is not supported for "
+                "weighted_cross_entropy: its denominator is class-weighted; "
+                "use 'mean'")
+        return weighted_cross_entropy(pred, true, mask)
     else:
         raise NotImplementedError(
             f"model.loss_fun={cfg.model.loss_fun!r} on task_type={tt!r} is "
-            "not ported (ROADMAP Queue 1 item 17)")
+            "not ported (multi-target and multilabel losses: ROADMAP Queue 1 "
+            "item 17)")
     if cfg.model.size_average == "sum":
         loss = loss * mask.sum() * d
     return loss
 
 
+def loss_mask(batch, pred):
+    """The padding mask at the predictions' level: the graph mask for one
+    row per graph, the node mask for one row per node slot."""
+    if pred.shape[0] == batch.num_graphs:
+        return batch.graph_mask
+    if pred.shape[0] == batch.num_node_slots:
+        return batch.node_mask
+    raise ValueError(f"predictions of {pred.shape[0]} rows match neither the "
+                     f"{batch.num_graphs} graphs nor the "
+                     f"{batch.num_node_slots} node slots")
+
+
 @torch.no_grad()
 def eval_step(cfg, model, batch):
     pred, true = model(batch)
-    pred = pred.float()
-    mask = batch.graph_mask
+    pred = _f32(pred)
+    mask = loss_mask(batch, pred)
     return compute_loss(cfg, pred, true, mask), pred, true, mask
 
 
@@ -101,13 +165,14 @@ def eval_epoch(cfg, model, loader, logger: SplitLogger) -> None:
 
 
 def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
-    """One optimizer step: forward in training mode (dropout seeds from
-    ``gen``), the task's loss over the real graphs, backward, optax-rule gradient
-    clipping, update. Returns (loss, pred, true, mask), detached."""
+    """One optimizer step: forward in training mode (dropout seeds and
+    LapPE signs from ``gen``), the task's loss over the real graphs or
+    nodes, backward, optax-rule gradient clipping, update. Returns (loss,
+    pred, true, mask), detached."""
     opt.zero_grad(set_to_none=True)
     pred, true = model(batch, gen)
-    pred = pred.float()
-    mask = batch.graph_mask
+    pred = _f32(pred)
+    mask = loss_mask(batch, pred)
     loss = compute_loss(cfg, pred, true, mask)
     loss.backward()
     # a parameter the loss does not reach (the last layer's edge-tail norm)

@@ -6,8 +6,9 @@ params-shaped tree of gradients (``batch_stats=None``) by the port's
 parameter names, so tests compare gradients, updated parameters and updated
 running statistics key by key. A flax ``Dense`` kernel
 is (in, out): the GPS layers keep it so, since their kernels take that
-layout, and the encoder's and head's ``nn.Linear`` weights take it
-transposed (out, in); an ``Embed`` table stays as it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
+layout, and the ``nn.Linear`` weights of the encoders (RWSE, LapPE, the
+Linear node and edge encoders) and of the heads (san_graph, the node head's
+MLP) take it transposed (out, in); an ``Embed`` table stays as it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
 running ``mean``/``var`` (biased) become ``weight``/``bias`` and
 ``running_mean``/``running_var``. The layer stack may be unrolled
 (``GPSLayer_<i>``, or ``CheckpointGPSLayer_<i>`` under remat) or stacked on
@@ -113,26 +114,74 @@ def state_dict_from_flax(params: dict, batch_stats=None,
     ``batch_stats=None`` the parameters only (a gradient tree, say).
     ``merged`` names the layers' path (``gps_layer_state_dict``)."""
     out: dict = {}
-    fe = params["FeatureEncoder_0"]
-    fs = None if batch_stats is None else batch_stats["FeatureEncoder_0"]
-    for enc, name in (("atom", "AtomEncoder_0"), ("bond", "BondEncoder_0")):
-        for k, v in fe[name].items():
-            i = int(k.split("_")[1])
-            out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
-    rw = fe["RWSENodeEncoder_0"]
-    if "MaskedBatchNorm_0" in rw:
-        _bn(out, "encoder.rwse.raw_norm", rw["MaskedBatchNorm_0"],
-            None if fs is None
-            else fs["RWSENodeEncoder_0"]["MaskedBatchNorm_0"])
-    _linear(out, "encoder.rwse.proj", rw["Dense_0"])
+    _encoder_state_dict(out, params["FeatureEncoder_0"],
+                        None if batch_stats is None
+                        else batch_stats.get("FeatureEncoder_0", {}))
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
         out.update(gps_layer_state_dict(p, s, f"layers.{i}", merged))
-    head = params["SANGraphHead_0"]
-    n = len(head)
-    for i in range(n - 1):
-        _linear(out, f"head.hidden.{i}", head[f"Dense_{i}"])
-    _linear(out, "head.out", head[f"Dense_{n - 1}"])
+    if "SANGraphHead_0" in params:
+        head = params["SANGraphHead_0"]
+        n = len(head)
+        for i in range(n - 1):
+            _linear(out, f"head.hidden.{i}", head[f"Dense_{i}"])
+        _linear(out, "head.out", head[f"Dense_{n - 1}"])
+    else:
+        _dense_list(out, "head.mlp.layers",
+                    params["InductiveNodeHead_0"]["MLP_0"])
     return to_torch(out)
+
+
+def _dense_list(out: dict, prefix: str, tree: dict, first: int = 0,
+                count: Optional[int] = None) -> None:
+    """``tree``'s ``Dense_<first>``.. (``count`` of them, by default all
+    that follow) → ``<prefix>.<i>`` Linears, i from 0."""
+    n = count if count is not None else sum(
+        k.startswith("Dense_") for k in tree) - first
+    for i in range(n):
+        _linear(out, f"{prefix}.{i}", tree[f"Dense_{first + i}"])
+
+
+def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
+    """The FeatureEncoder's flax trees: embedding tables (Atom, Bond) or one
+    Dense (VOCNode/LinearNode, VOCEdge/LinearEdge), and RWSE or LapPE (its
+    DeepSet Denses, then one post Dense or the post ``MLP_0``)."""
+    def stats(name):
+        return None if fs is None else fs[name]["MaskedBatchNorm_0"]
+
+    for enc, name in (("atom", "AtomEncoder_0"), ("bond", "BondEncoder_0")):
+        for k, v in fe.get(name, {}).items():
+            i = int(k.split("_")[1])
+            out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
+    for enc, names in (("node_lin", ("VOCNodeEncoder_0", "LinearNodeEncoder_0")),
+                       ("edge_lin", ("LinearEdgeEncoder_0",))):
+        for name in names:
+            if name in fe:
+                _linear(out, f"encoder.{enc}.proj", fe[name]["Dense_0"])
+    if "RWSENodeEncoder_0" in fe:
+        rw = fe["RWSENodeEncoder_0"]
+        if "MaskedBatchNorm_0" in rw:
+            _bn(out, "encoder.rwse.raw_norm", rw["MaskedBatchNorm_0"],
+                stats("RWSENodeEncoder_0"))
+        _linear(out, "encoder.rwse.proj", rw["Dense_0"])
+    if "LapPENodeEncoder_0" in fe:
+        lap = fe["LapPENodeEncoder_0"]
+        if "MaskedBatchNorm_0" in lap:
+            _bn(out, "encoder.lap.raw_norm", lap["MaskedBatchNorm_0"],
+                stats("LapPENodeEncoder_0"))
+        n = sum(k.startswith("Dense_") for k in lap)
+        if "MLP_0" in lap:
+            _dense_list(out, "encoder.lap.post.layers", lap["MLP_0"])
+        elif n > 1 and _square(lap[f"Dense_{n - 1}"]):
+            # dim_pe → dim_pe: the one post layer (the DeepSet's own last
+            # Dense narrows 2·dim_pe to dim_pe)
+            _dense_list(out, "encoder.lap.post.layers", lap, n - 1, 1)
+            n -= 1
+        _dense_list(out, "encoder.lap.pre", lap, 0, n)
+
+
+def _square(dense: dict) -> bool:
+    a, b = np.asarray(dense["kernel"]).shape
+    return a == b
 
 
 def to_torch(sd: dict) -> Dict[str, torch.Tensor]:

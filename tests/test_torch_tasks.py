@@ -61,7 +61,7 @@ def test_binary_cross_entropy_matches_jax(size_average):
 def test_loss_refuses_unported():
     from graphgps_torch.train.loop import compute_loss
 
-    _, tcfg = small_cfgs("dataset.task_type", "classification",
+    _, tcfg = small_cfgs("dataset.task_type", "classification_multilabel",
                          cfg_path=MOLHIV_CFG, small=MOLHIV_SMALL)
     t = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
