@@ -32,22 +32,30 @@ one. Phases, each fatal on failure:
    ``F.multi_head_attention_forward``, the one PyTorch call that computes
    the wide attention's function, is held against the kernel at rate 0 and
    timed forward and backward as those rows' ``library_ms``;
+3e. the Graphormer MLP block's kernel, ``ln_ffn``, forward and backward, on
+   layer 0's inputs of the fourth main path (ZINC Graphormer: batch 256, 41
+   rows per graph with the token, d=80) at dropout 0.1/0.1, at the recipe's
+   training rates 0.1/0 and at 0/0, within rtol 1e-5 and atol 1e-5 of each
+   tensor's largest entry, with bit-identical backward reruns and each
+   site's kept fraction on the u8 grid;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
-   32, then VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes),
+   32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, then
+   ZINC Graphormer 12x80 with 8 heads and the graph token at batch 256),
    each with every launch count set to 0 just before a run and read just
    after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
    b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1): one
       stats line per epoch and split with finite losses (``auc`` on
-      ogbg-molhiv), the launches per layer and training step (forward ones
+      ogbg-molhiv, ``f1`` on VOC, ``mae`` otherwise), the launches per layer
+      and training step (forward ones
       also per evaluated batch where evaluation runs them; the edge tail's
       backward in all layers but the last, whose edge output does not reach
       the loss), and the best epoch's checkpoint reloads into a fresh model
       with the same selection metric;
    c. one training step on the card and on the CPU (the plain path) from the
-      same weights (calibrated BatchNorm statistics), batch and dropout
-      seeds: loss, every gradient, the updated running statistics and the
+      same weights (calibrated BatchNorm statistics; the Graphormer has
+      none), batch and dropout seeds: loss, every gradient, the updated running statistics and the
       updated parameters; the same step in float64 on the CPU is the
       reference of a gradient behind an ill-conditioned norm;
    d. one batch's predictions (logits) against the same model on the CPU
@@ -59,7 +67,8 @@ one. Phases, each fatal on failure:
 
 The line before the last is ``{"kernels": [...]}`` (the six kernels of the
 merged path at GPS-deep's shapes, the four of the unmerged path at
-ogbg-molhiv's, the four of the long-graph rung at VOC's); the last line is
+ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
+Graphormer MLP block at ZINC's: sixteen); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -79,6 +88,7 @@ CFG = "configs/GPS/pcqm4m-GPSdeep+RWSE.yaml"
 MOLHIV_CFG = "configs/GPS/ogbg-molhiv-GPS+RWSE.yaml"
 PCQM_GPS_CFG = "configs/GPS/pcqm4m-GPS+RWSE.yaml"
 VOC_CFG = "configs/GPS/vocsuperpixels-GPS.yaml"
+ZINC_CFG = "configs/Graphormer/zinc-Graphormer.yaml"
 # the VOC stand-in at the real data's size: graphs of 400-500 nodes (512 node
 # slots), 21 classes; 160 graphs give 4 full training batches of 32 and one
 # half-filled batch each for val and test (graphs with no real node)
@@ -103,6 +113,8 @@ MOLHIV_LAUNCHES = {
 VOC_LAUNCHES = {
     "edge_gate": (1, 1), "edge_gate_bwd": (1, 0), "wide_attention": (1, 1),
     "wide_attention_bwd": (1, 0)}
+# the Graphormer: the MLP block per layer, every other part in PyTorch ops
+ZINC_LAUNCHES = {"ln_ffn": (1, 1), "ln_ffn_bwd": (1, 0)}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (the kernels run f32 on CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -135,6 +147,12 @@ KEEP_REL_TOL = 0.005
 # phase 3c: ogbg-molhiv's rates (residual branches, attention probabilities)
 UNMERGED_DROP_RATE = 0.05
 UNMERGED_ATTN_RATE = 0.5
+# phase 3e: (inner, outer) dropout of the MLP block, the recipe's training
+# rates (mlp_dropout 0.1, dropout 0) in the kernels line; the tolerance
+# (atol relative to each tensor's largest entry): K = 80 products and
+# row sums over 10,496 rows in another order than cuBLAS's
+LN_FFN_RATES = ((0.1, 0.1), (0.1, 0.0), (0.0, 0.0))
+LN_FFN_RTOL, LN_FFN_ATOL = 1e-5, 1e-5
 # a backward kernel vs autograd of its plain version: another summation
 # order, and a gradient entry is a sum over rows (or 7d products) that
 # cancel, so its f32 rounding follows the tensor's largest entries
@@ -497,10 +515,13 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
     outside tolerance, a kept fraction outside the u8 grid's ± 0.5%, or two
     runs that differ in any bit. ``c``: name, run (cots or None → (cots,
     the backward call)), plain (cots → gradients), inputs (the tensors the
-    backward reads beside the cotangents), sites [(name, rows, cols)],
-    flops, source, replaces, and ``library`` (cots → a call of autograd
-    through one PyTorch function that computes the same forward, where
-    there is one: timed, used nowhere in the port)."""
+    backward reads beside the cotangents), sites [(name, rows, cols[,
+    site id, by default the place in the list])], flops, source, replaces,
+    ``library`` (cots → a call of autograd through one PyTorch function that
+    computes the same forward, where there is one: timed, used nowhere in
+    the port), and ``tol`` = (rtol, atol) to make the atol relative to each
+    tensor's largest entry with no floor (by default GRAD_RTOL and GRAD_ATOL
+    × max(1, largest entry))."""
     from graphgps_torch.ops.kernels.common import dropout_mask, keep_rule
 
     cots, bwd = c["run"]()
@@ -510,15 +531,18 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     want = c["plain"](cots)
-    ok, err, rel = grads_close(torch, got, want, GRAD_RTOL, GRAD_ATOL)
+    rtol, atol = c.get("tol", (GRAD_RTOL, GRAD_ATOL))
+    floor = 0.0 if "tol" in c else 1.0
+    ok, err, rel = grads_close(torch, got, want, rtol, atol, floor)
     device = cots[0].device
-    kept = {name: float((dropout_mask(seed, i, r_, c_, rate, device) > 0)
-                        .float().mean())
-            for i, (name, r_, c_) in enumerate(c["sites"])}
+    kept = {name: float((dropout_mask(seed, site[0] if site else i, r_, c_,
+                                      rate, device) > 0).float().mean())
+            for i, (name, r_, c_, *site) in enumerate(c["sites"])}
     row = dict(name=c["name"], route="cuda", source=c["source"],
                replaces=c["replaces"], max_abs_err=err,
-               max_err_over_tensor_max=rel, rtol=GRAD_RTOL,
-               atol=f"{GRAD_ATOL} x max(1, max|grad|)",
+               max_err_over_tensor_max=rel, rtol=rtol,
+               atol=(f"{atol} x max|grad|" if floor == 0.0
+                     else f"{atol} x max(1, max|grad|)"),
                bit_identical_reruns=same,
                **timings(torch, bwd, lambda: c["plain"](cots),
                          c["library"](cots) if "library" in c else None),
@@ -941,6 +965,87 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
         {k: v.clone() for k, v in model.state_dict().items()}
 
 
+def check_ln_ffn(torch, cfg_path: str, opts, device):
+    """Phase 3e: the Graphormer MLP block (``ln_ffn``), forward and backward,
+    kernel against plain version, on layer 0's inputs of the recipe
+    ``cfg_path`` (``opts`` on top) at its batch size and width: the rows
+    after layer 0's attention half, the graph token's included, at every
+    rate pair of LN_FFN_RATES. Returns (rows, the seeded model's state
+    dict); every row carries ``shape`` and its ``rates``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, infer_dims
+    from graphgps_torch.models.networks import build_model
+    from graphgps_torch.ops.kernels import ln_ffn
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+    model = model.to(device).eval()
+    layer, gb = model.layers[0], model.encoder.graphormer
+    with torch.no_grad():
+        x, _ = model.encoder(batch)
+        seq = layer.attention_block(batch, x, gb.token_state(batch.num_graphs),
+                                    gb.attn_bias(batch), [0, 0, 0])
+    B, S, d = seq.shape
+    R, dh = B * S, layer.w_ffn1.shape[1]
+    ins = tuple(t.detach().contiguous() for t in (
+        seq.reshape(R, d), layer.ln_ffn.weight, layer.ln_ffn.bias,
+        layer.w_ffn1, layer.b_ffn1, layer.w_ffn2, layer.b_ffn2))
+    # the rows whose output is read: real nodes and the graph tokens
+    real = int(batch.node_mask.sum()) + B
+    shapes = dict(B=B, S=S, R=R, d=d, dh=dh, real_rows=real)
+    src = "graphgps_torch/csrc/ln_ffn.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_combine.py"
+    tol = (LN_FFN_RTOL, LN_FFN_ATOL)
+    cots_for = cotangents(torch, SEED + 9, device)
+    rows = []
+    for r1, r2 in LN_FFN_RATES:
+        conf = (DROP_SEED, r1, r2, "gelu")
+
+        def run(cots=None, conf=conf):
+            out, kept = ln_ffn._launch_forward(ins, *conf, ln_ffn.EPS, True)
+            cots = cots or cots_for([out])
+            return cots, lambda: ln_ffn.ln_ffn_backward(*ins, cots[0], *conf,
+                                                        kept=kept)
+
+        sites = [("FFN inner", R, dh, 1)] if r1 > 0 else []
+        if r2 > 0:
+            sites.append(("FFN outer", R, d, 2))
+        fwd = dict(name="ln_ffn", fn=ln_ffn.fused_ln_ffn,
+                   plain=ln_ffn.ln_ffn_plain, args=(*ins, *conf), tol=tol,
+                   source=src, replaces=f"{tpu}:672",
+                   # the two products on the rows that are read
+                   flops=4 * real * d * dh)
+        bwd = dict(name="ln_ffn_bwd", run=run,
+                   plain=lambda c, conf=conf: ln_ffn.ln_ffn_backward_plain(
+                       *ins, c[0], *conf),
+                   inputs=ins, source=src, replaces=f"{tpu}:713",
+                   sites=sites, tol=tol,
+                   # dU = dA2 W2^T, dY = dA1 W1^T, dW1 = Y^T dA1, dW2 = Z^T dA2
+                   flops=8 * real * d * dh)
+        # one rate per call: both sites' rates are equal where both are on
+        at = dict(shapes, rates=[r1, r2])
+        rows += [dict(forward_case(torch, fwd, at), rates=[r1, r2]),
+                 dict(backward_case(torch, bwd, DROP_SEED, r1, at),
+                      rates=[r1, r2])]
+    for r in rows:
+        r["shape"] = "zinc-Graphormer"
+    return rows, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def layers_of(cfg) -> int:
+    """The recipe's layer count: the Graphormer's own, or the GPS layers."""
+    if cfg.model.type == "Graphormer":
+        return cfg.graphormer.num_layers
+    return cfg.gt.layers
+
+
 def expected_launches(table, layers: int, steps: int, evals: int, names):
     """Launches of every kernel in ``names`` over ``steps`` training steps
     and ``evals`` evaluated batches of a model of ``layers`` layers whose
@@ -1239,7 +1344,7 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
                 "out_dir", out_dir]
         cfg = cfg_of(opts)
         splits = load_dataset(cfg)
-        bs, layers = cfg.train.batch_size, cfg.gt.layers
+        bs, layers = cfg.train.batch_size, layers_of(cfg)
         held = {}
 
         def prepare(model):
@@ -1351,7 +1456,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
-    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG):
+    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG):
         if not os.path.exists(path):
             fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
@@ -1398,23 +1503,34 @@ def main() -> None:
              and r.get("attn_rate", voc_cfg.gt.attn_dropout)
              == voc_cfg.gt.attn_dropout]
 
-    # 4. the three main paths
+    # 3e. the Graphormer MLP block's kernel at zinc-Graphormer's shapes; the
+    # kernels line takes the rows at the recipe's training rates
+    zinc_rows, zinc_state = check_ln_ffn(torch, ZINC_CFG,
+                                         ["seed", str(SEED)], device)
+    rows += [r for r in zinc_rows if r["rates"] == list(LN_FFN_RATES[1])]
+
+    # 4. the four main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
     mol_counts = drive_recipe(torch, "ogbg-molhiv", MOLHIV_CFG,
                               MOLHIV_LAUNCHES, "auc", mol_state, device, card)
     voc_counts = drive_recipe(torch, "vocsuperpixels", VOC_CFG, VOC_LAUNCHES,
                               "f1", voc_state, device, card, extra=VOC_OPTS)
+    zinc_counts = drive_recipe(torch, "zinc-Graphormer", ZINC_CFG,
+                               ZINC_LAUNCHES, "mae", zinc_state, device, card)
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
             path, counts = "ogbg-molhiv", mol_counts
         elif r["name"] in VOC_LAUNCHES:
             path, counts = "vocsuperpixels", voc_counts
+        elif r["name"] in ZINC_LAUNCHES:
+            path, counts = "zinc-Graphormer", zinc_counts
         r["launches"] = counts[r["name"]]
         r["main_path"] = path
         r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
         r["launches_vocsuperpixels"] = voc_counts[r["name"]]
+        r["launches_zinc_graphormer"] = zinc_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
@@ -1423,7 +1539,8 @@ def main() -> None:
                            "bound_by", "library_ms", "profile_whole",
                            "main_path",
                            "launches_ogbg_molhiv",
-                           "launches_vocsuperpixels")} for r in rows])),
+                           "launches_vocsuperpixels",
+                           "launches_zinc_graphormer")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -49,26 +49,6 @@ __global__ void combine_prologue_kernel(
   }
 }
 
-// out = drop(in) * act'(aux) (aux optional), with per-chunk column partials
-// of out. out may alias in.
-__global__ void __launch_bounds__(COLS* ROW_WARPS)
-drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
-                 float* __restrict__ part, int R, int n, int act, Drop drop) {
-  const int c = blockIdx.x * COLS + threadIdx.x;
-  const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
-  float acc[1] = {0.0f};
-  if (c < n) {
-    for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS) {
-      const size_t i = (size_t)r * n + c;
-      float o = drop_apply(drop, i, in[i]);
-      if (aux != nullptr) o *= act_grad(aux[i], act);
-      out[i] = o;
-      acc[0] += o;
-    }
-  }
-  store_col_partials<1>(acc, part, gridDim.y, n, c);
-}
-
 // From dh: ds_attn, dv_loc and the eight norm-vector sums
 // [dmux, divx, dgax, dbex, dmua, diva, dgaa, dbea] as per-chunk partials.
 __global__ void __launch_bounds__(COLS* ROW_WARPS)

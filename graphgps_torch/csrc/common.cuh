@@ -142,6 +142,27 @@ inline cudaError_t reduce_partials(const float* part, float* out, int T, int B,
   return cudaGetLastError();
 }
 
+// out = drop(in) * act'(aux) (aux optional), with per-chunk column partials
+// of out. out may alias in. The FFN backward kernels' dropout and activation
+// gradient with its bias gradient's partials.
+__global__ void __launch_bounds__(COLS* ROW_WARPS)
+drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
+                 float* __restrict__ part, int R, int n, int act, Drop drop) {
+  const int c = blockIdx.x * COLS + threadIdx.x;
+  const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
+  float acc[1] = {0.0f};
+  if (c < n) {
+    for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS) {
+      const size_t i = (size_t)r * n + c;
+      float o = drop_apply(drop, i, in[i]);
+      if (aux != nullptr) o *= act_grad(aux[i], act);
+      out[i] = o;
+      acc[0] += o;
+    }
+  }
+  store_col_partials<1>(acc, part, gridDim.y, n, c);
+}
+
 // Column sums of X (R, n) into part (1, chunks, n).
 __global__ void __launch_bounds__(COLS* ROW_WARPS)
 colsum_partial_kernel(const float* __restrict__ X, float* __restrict__ part, int R,

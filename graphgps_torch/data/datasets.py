@@ -1,12 +1,13 @@
 """Dataset loading for the port's paths: PCQM4Mv2, the OGB molecule sets
-(``ogbg-mol*``) and the VOC superpixels, and the synthetic families they fall
-back to.
+(``ogbg-mol*``), ZINC and the VOC superpixels, and the synthetic families
+they fall back to.
 
 Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like`` and
 ``voc_like``, the same generators and the same random streams, so both
 packages see the same graphs for one seed), ``data/datasets/real.py`` (the
-PCQM4Mv2, ``ogbg-*`` and ``PyG-VOCSuperpixels`` → synthetic fallbacks,
-:73-84, :106-112, :189-209 and :225-240) and ``data/datasets/base.py``
+PCQM4Mv2, ``ogbg-*``, ``PyG-ZINC`` and ``PyG-VOCSuperpixels`` → synthetic
+fallbacks, :73-84, :87-96, :106-112, :189-209 and :225-240) and
+``data/datasets/base.py``
 (``DatasetSplits``, ``load_dataset`` with the PE precompute).
 """
 from __future__ import annotations
@@ -159,6 +160,13 @@ def _ogb_graph(cfg, name: str) -> DatasetSplits:
     return _fallback(cfg, root, os.path.isdir(os.path.join(root, "raw")))
 
 
+def _zinc(cfg) -> DatasetSplits:
+    """``PyG-ZINC`` (``real.py:87`` ``load_zinc``): the raw pickles and the
+    legacy caches all sit under ``ZINC/``."""
+    root = os.path.join(cfg.dataset.dir, "ZINC")
+    return _fallback(cfg, root, os.path.isdir(root))
+
+
 def _voc_superpixels(cfg) -> DatasetSplits:
     """``PyG-VOCSuperpixels`` (``real.py:225`` ``load_superpixels``): the
     upstream pickles sit under ``VOCSuperpixels/slic_compactness_<c>/``."""
@@ -179,6 +187,8 @@ def load_dataset(cfg) -> DatasetSplits:
                 "item 14)")
     elif fmt == "PyG-VOCSuperpixels":
         splits = _voc_superpixels(cfg)
+    elif fmt == "PyG-ZINC":
+        splits = _zinc(cfg)
     elif ((fmt == "OGB" and name.startswith("PCQM4Mv2-"))
             or fmt in ("OGB-LSC", "PCQM4Mv2")):
         splits = _pcqm4mv2(cfg)

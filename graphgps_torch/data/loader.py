@@ -19,7 +19,12 @@ layout is the same, array for array:
   float32; on a node task the labels are a node arena gathered like the
   features, 0 on padded slots (``device_loader.py`` :130-138, :210-215);
 - ``extras`` (per-graph arrays such as LapPE's ``EigVals``) are stacked per
-  graph and gathered by graph index (:140-152, :217-222).
+  graph and gathered by graph index (:140-152, :217-222). Node-sized extras
+  (the Graphormer ``spatial_types`` (N, N) and ``shortest_path_types``
+  (N, N, D), ``batching.py`` :24-45) are zero-padded to the node cap on
+  their node axes and zero for a padded graph, as the host ``collate``
+  gives them (:120-131); they keep their host dtype (the path types uint8);
+- ``pe`` columns keep their kind too: the Graphormer degrees stay integers.
 """
 from __future__ import annotations
 
@@ -47,6 +52,24 @@ def choose_caps(graphs: Sequence[Graph], node_multiple: int = 8,
     return n_cap, round_up(max(max_e, 1), edge_multiple)
 
 
+# node-sized extras: which axes pad to the node cap (``batching.py`` :33)
+NODE_SIZED_AXES = {"spatial_types": (0, 1), "shortest_path_types": (0, 1)}
+
+
+def _stack_extras(key: str, arrays, node_cap: int) -> np.ndarray:
+    """One extras entry of every graph stacked on a new axis 0; a
+    node-sized one zero-padded to ``node_cap`` on its node axes first."""
+    axes = NODE_SIZED_AXES.get(key)
+    if axes is None:
+        return np.stack(arrays)
+    a0 = arrays[0]
+    shape = [node_cap if i in axes else n for i, n in enumerate(a0.shape)]
+    out = np.zeros((len(arrays), *shape), a0.dtype)
+    for i, a in enumerate(arrays):
+        out[(i, *(slice(0, n) for n in a.shape))] = a
+    return out
+
+
 def _arena_dtype(a: np.ndarray):
     """int32 for integer codes and labels, float32 for float features."""
     return np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
@@ -56,12 +79,13 @@ class DeviceArenas:
     """One split's graphs packed into device-resident arrays, with each
     graph's edges in a block of ``edge_cap`` slots."""
 
-    def __init__(self, graphs: Sequence[Graph], device,
+    def __init__(self, graphs: Sequence[Graph], device, node_cap: int,
                  edge_cap: Optional[int] = None, y_graph_level: bool = True):
+        """``node_cap``: the node slots per graph, which node-sized extras
+        pad to."""
         G = len(graphs)
         g0 = graphs[0]
         max_e = max((g.num_edges for g in graphs), default=1)
-        self.max_nodes_raw = max(g.num_nodes for g in graphs)
         self.edge_cap = edge_cap or round_up(max(max_e, 1), 8)
         if self.edge_cap < max_e:
             raise ValueError(f"edge_cap {self.edge_cap} < max graph edges {max_e}")
@@ -104,7 +128,7 @@ class DeviceArenas:
         self.receivers = dev(receivers)
         self.edge_feat = dev(edge_feat) if edge_feat is not None else None
         self.pe = {k: dev(np.concatenate([g.pe[k] for g in graphs], axis=0)
-                          .astype(np.float32)) for k in g0.pe}
+                          .astype(_arena_dtype(g0.pe[k]))) for k in g0.pe}
         self.y = self.y_node = None
         if g0.y is not None and y_graph_level:
             y = np.stack([np.atleast_1d(np.asarray(g.y)) for g in graphs])
@@ -113,7 +137,8 @@ class DeviceArenas:
             y = np.concatenate([np.asarray(g.y).reshape(g.num_nodes, -1)
                                 for g in graphs], axis=0)
             self.y_node = dev(y.astype(_arena_dtype(y)))
-        self.extras = {k: dev(np.stack([g.extras[k] for g in graphs]))
+        self.extras = {k: dev(_stack_extras(k, [g.extras[k] for g in graphs],
+                                            node_cap))
                        for k in g0.extras}
 
     def assemble(self, sel: torch.Tensor, max_nodes: int) -> GraphBatch:
@@ -142,7 +167,7 @@ class DeviceArenas:
         if self.edge_feat is not None:
             ef = self.edge_feat[sel].reshape(B * Ecap, -1)
             ef = torch.where(emask[:, None], ef, 0)
-        pe = {key: torch.where(node_mask[:, None], arena[node_idx], 0.0)
+        pe = {key: torch.where(node_mask[:, None], arena[node_idx], 0)
               for key, arena in self.pe.items()}
         y = None
         if self.y is not None:
@@ -157,7 +182,15 @@ class DeviceArenas:
             node_feat=nf, edge_feat=ef, senders=snd, receivers=rcv,
             node_mask=node_mask, edge_mask=emask, graph_mask=gmask, y=y,
             pe=pe, num_graphs=B, max_nodes=Nmax, edge_block=Ecap,
-            extras={k: v[sel] for k, v in self.extras.items()})
+            extras={k: self._extra(k, v, sel, gmask)
+                    for k, v in self.extras.items()})
+
+    @staticmethod
+    def _extra(key: str, arena, sel, gmask):
+        v = arena[sel]
+        if key in NODE_SIZED_AXES:
+            v = torch.where(gmask.reshape(-1, *[1] * (v.ndim - 1)), v, 0)
+        return v
 
 
 class DeviceLoader:
@@ -169,16 +202,17 @@ class DeviceLoader:
                  max_edges: Optional[int] = None, shuffle: bool = False,
                  seed: int = 0, y_graph_level: bool = True):
         edge_cap = (-(-max_edges // batch_size)) if max_edges else None
-        self.arenas = DeviceArenas(graphs, device, edge_cap=edge_cap,
-                                   y_graph_level=y_graph_level)
-        self.device = torch.device(device)
-        self.batch_size = batch_size
         if max_nodes:
             self.max_nodes = max_nodes
         else:
-            self.max_nodes = round_up(self.arenas.max_nodes_raw, 8)
+            self.max_nodes = round_up(max(g.num_nodes for g in graphs), 8)
             if self.max_nodes >= 256:
                 self.max_nodes = round_up(self.max_nodes, 128)
+        self.arenas = DeviceArenas(graphs, device, self.max_nodes,
+                                   edge_cap=edge_cap,
+                                   y_graph_level=y_graph_level)
+        self.device = torch.device(device)
+        self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0

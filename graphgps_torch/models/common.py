@@ -1,7 +1,9 @@
-"""Shared model building blocks: activations, masked BatchNorm and the MLP.
+"""Shared model building blocks: activations, masked BatchNorm, flax's
+LayerNorm and the MLP.
 
 Counterpart of ``graphgps_tpu/models/common.py`` (acts :18-33,
-``MaskedBatchNorm`` :80-153, ``MLP`` :187-205). The activations are the kernels' own
+``MaskedBatchNorm`` :80-153, ``MLP`` :187-205) and of flax's
+``nn.LayerNorm``. The activations are the kernels' own
 (``ops/kernels/common.py``; gelu is the exact-erf form). The JAX ``Embed``'s
 one-hot gradient trick served the TPU's matrix unit; here an embedding is a
 plain ``nn.Embedding`` lookup.
@@ -97,6 +99,27 @@ class MaskedBatchNorm(nn.Module):
         if self.stats_only:
             return self.stats(x, mask, moments)
         return self.normalize(x, mask, moments)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` as the JAX package uses it (flax 0.12): over the
+    last axis, eps 1e-6 (torch's default is 1e-5), and the fast variance
+    ``max(E[x²] − E[x]², 0)`` (``use_fast_variance=True``), not the centred
+    one; ``y = (x − mean)·(rsqrt(var + eps)·scale) + bias``. Parameters
+    ``weight`` and ``bias`` (flax ``scale`` and ``bias``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class MLP(nn.Module):

@@ -1,19 +1,24 @@
 """Node/edge feature encoders of the ported paths: Atom and Bond (embedding
-sums), VOCNode/LinearNode and VOCEdge/LinearEdge (one Linear over float
-features), the RWSE and LapPE encodings, and their composition.
+sums), TypeDictNode (one embedding), VOCNode/LinearNode and VOCEdge/
+LinearEdge (one Linear over float features), the RWSE and LapPE encodings,
+the Graphormer bias encoder, and their composition.
 
-Counterparts: ``graphgps_tpu/models/encoders.py`` (``AtomEncoder`` :43,
-``LinearNodeEncoder``/``VOCNodeEncoder`` :58-77, ``BondEncoder`` :116,
-``LinearEdgeEncoder`` :128-135, ``KernelPENodeEncoder``/RWSE :199-230,
-``LapPENodeEncoder`` :241-332) and ``graphgps_tpu/models/networks.py:80-132``
-``FeatureEncoder``: the dataset encoder embeds into ``d − dim_pe`` channels,
-the PE encoder appends its ``dim_pe``, and padded node slots are zeroed.
+Counterparts: ``graphgps_tpu/models/encoders.py`` (``TypeDictNodeEncoder``
+:29-40, ``AtomEncoder`` :43, ``LinearNodeEncoder``/``VOCNodeEncoder``
+:58-77, ``BondEncoder`` :116, ``LinearEdgeEncoder`` :128-135,
+``KernelPENodeEncoder``/RWSE :199-230, ``LapPENodeEncoder`` :241-332,
+``GraphormerBiasEncoder`` :441-509) and
+``graphgps_tpu/models/networks.py:80-132`` ``FeatureEncoder``: the dataset
+encoder embeds into ``d − dim_pe`` channels, the PE encoder appends its
+``dim_pe`` (GraphormerBias adds its degree embeddings in place and takes no
+width), and padded node slots are zeroed.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import parse_times_func
@@ -56,6 +61,18 @@ class AtomEncoder(_SumEmbedding):
 class BondEncoder(_SumEmbedding):
     def __init__(self, dim_emb: int):
         super().__init__(BOND_FEATURE_DIMS, dim_emb)
+
+
+class TypeDictNodeEncoder(nn.Module):
+    """One embedding of the node type, column 0 of the integer features
+    (ZINC: 28 types)."""
+
+    def __init__(self, num_types: int, dim_emb: int):
+        super().__init__()
+        self.embedding = nn.Embedding(num_types, dim_emb)
+
+    def forward(self, feats):
+        return self.embedding(feats[:, 0].long())
 
 
 class LinearEncoder(nn.Module):
@@ -150,6 +167,101 @@ class LapPENodeEncoder(nn.Module):
         return torch.cat([x, pe], dim=-1) if x is not None else pe
 
 
+class GraphormerBiasEncoder(nn.Module):
+    """Graphormer's structural encodings (``encoders.py:441-509``): the
+    additive per-head attention bias and the degree embeddings, and the
+    graph token.
+
+    - ``attn_bias``: (B, H, N, N) from the spatial (shortest-path distance)
+      type's embedding (``spatial``, 22 = num_spatial_types + 2 rows) plus,
+      with edge paths, the edge encoding along the shortest paths: hop k's
+      edge type embedded (``edge_type``) and mixed by its own H×H matrix
+      (``edge_dis``), summed over the D hops (all D: hops past the path read
+      type 0, as in JAX) and divided by max(distance type, 1). Here the
+      embedding is folded into the mixing first, a (D·T, H) table with
+      ``T = num_edge_types``, and the sum over hops is one product of each
+      pair's one-hot (hop, type) row with it: no (B, N, N, D, H) tensor is
+      formed, and the table's gradient is a product too (a scatter of
+      B·N²·D rows into the table, as ``embedding_bag``'s backward, took
+      ~5.8 ms a training step at batch 256 on an H100). With the graph
+      token the bias grows a row and a column of ``graph_token_bias`` at
+      position 0: (B, H, N+1, N+1).
+    - ``forward``: x plus the in- and out-degree embeddings (degrees clipped
+      to their tables).
+    - ``token_state``: the learned ``graph_token`` (d,) for each graph.
+    """
+
+    def __init__(self, dim: int, num_heads: int, num_spatial_types: int = 20,
+                 num_in_degrees: int = 64, num_out_degrees: int = 64,
+                 node_degrees_only: bool = False,
+                 use_graph_token: bool = False, num_edge_types: int = 4,
+                 edge_paths: bool = True):
+        super().__init__()
+        H = num_heads
+        self.node_degrees_only = node_degrees_only
+        self.edge_paths = edge_paths and not node_degrees_only
+        self.num_edge_types = num_edge_types
+        self.use_graph_token = use_graph_token
+        self.num_in, self.num_out = num_in_degrees, num_out_degrees
+        init = lambda *shape: nn.Parameter(  # noqa: E731
+            torch.randn(*shape) * 0.02)
+        if not node_degrees_only:
+            self.spatial = init(num_spatial_types + 2, H)
+            if self.edge_paths:
+                self.edge_type = init(num_edge_types, H)
+                self.edge_dis = init(num_spatial_types, H, H)
+            if use_graph_token:
+                self.graph_token_bias = init(H)
+        self.in_degree = init(num_in_degrees, dim)
+        self.out_degree = init(num_out_degrees, dim)
+        if use_graph_token:
+            self.graph_token = init(dim)
+
+    def forward(self, batch: GraphBatch, x):
+        in_deg = batch.pe["in_degrees"][:, 0].long().clamp(0, self.num_in - 1)
+        out_deg = batch.pe["out_degrees"][:, 0].long().clamp(
+            0, self.num_out - 1)
+        x = x + F.embedding(in_deg, self.in_degree)
+        return x + F.embedding(out_deg, self.out_degree)
+
+    def attn_bias(self, batch: GraphBatch):
+        """(B, H, N, N) or, with the graph token, (B, H, N+1, N+1); None
+        with ``node_degrees_only``."""
+        if self.node_degrees_only:
+            return None
+        spatial = batch.extras["spatial_types"].long()        # (B, N, N)
+        bias = F.embedding(spatial, self.spatial)              # (B, N, N, H)
+        if self.edge_paths:
+            spt = batch.extras.get("shortest_path_types")
+            if spt is None:
+                raise ValueError(
+                    "posenc_GraphormerBias.has_edge_attr: the batch holds no "
+                    "shortest_path_types (a dataset without edge features)")
+            B, N, _, D = spt.shape
+            T, H = self.num_edge_types, self.spatial.shape[1]
+            table = torch.einsum("th,dhk->dtk", self.edge_type, self.edge_dis)
+            types = torch.arange(T, device=spt.device, dtype=spt.dtype)
+            onehot = spt.clamp(max=T - 1)[..., None] == types  # (B,N,N,D,T)
+            mixed = (onehot.reshape(-1, D * T).to(table.dtype)
+                     @ table.reshape(D * T, H))
+            denom = torch.clamp(spatial, min=1).to(mixed.dtype)
+            bias = bias + mixed.reshape(B, N, N, H) / denom[..., None]
+        bias = bias.permute(0, 3, 1, 2)
+        if self.use_graph_token:
+            B, H, N, _ = bias.shape
+            tb = self.graph_token_bias[None, :, None, None]
+            bias = torch.cat([tb.expand(B, H, 1, N + 1),
+                              torch.cat([tb.expand(B, H, N, 1), bias], dim=3)],
+                             dim=2)
+        return bias
+
+    def token_state(self, num_graphs: int):
+        """(B, d) graph token states, or None without the token."""
+        if not self.use_graph_token:
+            return None
+        return self.graph_token[None, :].expand(num_graphs, -1)
+
+
 NODE_ENCODERS = ("Atom", "VOCNode", "LinearNode")
 PE_ENCODERS = ("RWSE", "LapPE")
 EDGE_ENCODERS = ("Bond", "VOCEdge", "LinearEdge")
@@ -160,12 +272,20 @@ class FeatureEncoder(nn.Module):
     encoder, from ``dataset.node_encoder_name`` (``<node>+<pe>``) and
     ``dataset.edge_encoder_name``: ``Atom+RWSE``/``Bond`` on the molecule
     recipes (modules ``atom``, ``rwse``, ``bond``), ``VOCNode+LapPE``/
-    ``VOCEdge`` on the superpixels (``node_lin``, ``lap``, ``edge_lin``)."""
+    ``VOCEdge`` on the superpixels (``node_lin``, ``lap``, ``edge_lin``);
+    ``TypeDictNode+GraphormerBias`` and no edge encoder on the Graphormer
+    recipe (``type_dict``, ``graphormer``: the degree embeddings added in
+    place; the network reads the attention bias and the graph token from
+    ``graphormer``)."""
 
     def __init__(self, cfg, dim_h: int):
         super().__init__()
         ds = cfg.dataset
         node, _, pe = ds.node_encoder_name.partition("+")
+        self.graphormer = None
+        if pe == "GraphormerBias":
+            self._init_graphormer(cfg, dim_h, node)
+            return
         if not (ds.node_encoder and ds.edge_encoder
                 and node in NODE_ENCODERS and pe in PE_ENCODERS
                 and ds.edge_encoder_name in EDGE_ENCODERS
@@ -200,9 +320,31 @@ class FeatureEncoder(nn.Module):
         self.pe_name = "rwse" if pe == "RWSE" else "lap"
         self.edge_name = "bond" if ds.edge_encoder_name == "Bond" else "edge_lin"
 
+    def _init_graphormer(self, cfg, dim_h: int, node: str) -> None:
+        ds = cfg.dataset
+        if not (ds.node_encoder and node == "TypeDictNode"
+                and not ds.edge_encoder and not ds.node_encoder_bn):
+            raise NotImplementedError(
+                f"encoders {ds.node_encoder_name!r} with edge_encoder="
+                f"{ds.edge_encoder}: the port has TypeDictNode+GraphormerBias "
+                "with no edge encoder and no encoder BatchNorm (ROADMAP "
+                "Queue 1 items 12 and 16)")
+        p = cfg.posenc_GraphormerBias
+        self.type_dict = TypeDictNodeEncoder(ds.node_encoder_num_types, dim_h)
+        self.graphormer = GraphormerBiasEncoder(
+            dim_h, cfg.graphormer.num_heads, p.num_spatial_types,
+            p.num_in_degrees, p.num_out_degrees, p.node_degrees_only,
+            # the token belongs to the Graphormer stack (networks.py:64-75)
+            cfg.graphormer.use_graph_token and cfg.model.type == "Graphormer",
+            max(2, ds.edge_encoder_num_types), bool(p.has_edge_attr))
+
     def forward(self, batch: GraphBatch,
                 gen: Optional[torch.Generator] = None):
-        """``gen`` draws LapPE's training sign flip."""
+        """``gen`` draws LapPE's training sign flip. Returns (x, e); e is
+        None without an edge encoder."""
+        if self.graphormer is not None:
+            x = self.graphormer(batch, self.type_dict(batch.node_feat))
+            return torch.where(batch.node_mask[:, None], x, 0.0), None
         x = getattr(self, self.node_name)(batch.node_feat)
         x = getattr(self, self.pe_name)(batch, x, gen)
         e = getattr(self, self.edge_name)(batch.edge_feat)

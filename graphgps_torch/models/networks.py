@@ -1,7 +1,9 @@
-"""GPSModel: FeatureEncoder → L × GPSLayer → head (counterpart of
-``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``
-and :411 ``build_model``; a plain layer loop in place of ``nn.scan``, and
-the activations stored for the backward in place of ``parallel.remat``)."""
+"""GPSModel: FeatureEncoder → L × GPSLayer → head, and the dispatch to
+GraphormerNet (``models/graphormer.py``) (counterpart of
+``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``,
+:269 ``GraphormerNet`` and :411 ``build_model``; a plain layer loop in place
+of ``nn.scan``, and the activations stored for the backward in place of
+``parallel.remat``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,15 +14,35 @@ from torch import nn
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
 from .gps_layer import MERGED_MAX_NODES, MIN_DIM, GPSLayer, merged_width
-from .heads import InductiveNodeHead, SANGraphHead
+from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
+
+
+def check_graphormer_supported(cfg) -> None:
+    """The Graphormer configurations the port runs: graph tasks with the
+    ``graphormer_graph`` head (the node-task recipes need transductive
+    splits); the encoders raise on their own."""
+    if cfg.dataset.task != "graph":
+        raise NotImplementedError(
+            f"model.type=Graphormer on dataset.task={cfg.dataset.task!r}: "
+            "node tasks need transductive splits and the node head, not "
+            "ported (ROADMAP Queue 1 item 17)")
+    if cfg.gnn.head != "graphormer_graph":
+        raise NotImplementedError(
+            f"gnn.head={cfg.gnn.head!r} on a Graphormer: the port has "
+            "graphormer_graph (ROADMAP Queue 1 item 17)")
+    if cfg.train.get("log_attn_weights", False):
+        raise NotImplementedError(
+            "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
 
 
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
     Transformer, BatchNorm, the san_graph or the inductive_node head, at a
-    width of 64 or more); anything else names the ROADMAP item that brings
-    it."""
+    width of 64 or more; or a Graphormer, ``check_graphormer_supported``);
+    anything else names the ROADMAP item that brings it."""
     gt = cfg.gt
+    if cfg.model.type == "Graphormer":
+        return check_graphormer_supported(cfg)
     if cfg.model.type != "GPSModel":
         raise NotImplementedError(
             f"model.type={cfg.model.type!r} is not ported (ROADMAP Queue 1 "
@@ -60,6 +82,9 @@ def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:
     (two halving layers and the output), the node head takes it."""
     if cfg.gnn.head == "san_graph":
         return SANGraphHead(dim_in, dim_out, pooling=cfg.model.graph_pooling)
+    if cfg.gnn.head == "graphormer_graph":
+        return GraphormerGraphHead(dim_in, dim_out,
+                                   pooling=cfg.model.graph_pooling)
     return InductiveNodeHead(dim_in, dim_out,
                              layers=max(1, cfg.gnn.layers_post_mp))
 
@@ -93,6 +118,11 @@ class GPSModel(nn.Module):
         return self.head(batch, x)
 
 
-def build_model(cfg, dim_out: int,
-                max_nodes: Optional[int] = None) -> GPSModel:
+def build_model(cfg, dim_out: int, max_nodes: Optional[int] = None):
+    """The network ``model.type`` names: GPSModel or GraphormerNet."""
+    check_supported(cfg)
+    if cfg.model.type == "Graphormer":
+        from .graphormer import GraphormerNet
+
+        return GraphormerNet(cfg, dim_out)
     return GPSModel(cfg, dim_out, max_nodes)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: seven
-forward kernels and their seven backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: eight
+forward kernels and their eight backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -10,6 +10,7 @@ from .drop_add import drop_add_backward, fused_drop_add
 from .edge_gate import edge_gate_backward, fused_edge_gate
 from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
+from .ln_ffn import fused_ln_ffn, ln_ffn_backward
 from .pre_tail import fused_pre_tail, pre_tail_backward
 from .wide_attention import fused_wide_attention, wide_attention_backward
 
@@ -22,7 +23,8 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "drop_add": fused_drop_add, "drop_add_bwd": drop_add_backward,
             "edge_gate": fused_edge_gate, "edge_gate_bwd": edge_gate_backward,
             "wide_attention": fused_wide_attention,
-            "wide_attention_bwd": wide_attention_backward}
+            "wide_attention_bwd": wide_attention_backward,
+            "ln_ffn": fused_ln_ffn, "ln_ffn_bwd": ln_ffn_backward}
 
 
 def reset_launch_counts() -> None:

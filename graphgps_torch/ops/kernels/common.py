@@ -1,5 +1,5 @@
 """Helpers shared by the kernel wrappers and their plain versions: the
-activations, the dropout rule (one counter hash, the same in
+activations, the dropout rules (one counter hash, the same in
 ``csrc/common.cuh``), and the f32 setting of the plain versions."""
 from __future__ import annotations
 
@@ -111,6 +111,24 @@ def apply_dropout(v, seed: int, site: int, rate: float):
     cols = v.shape[-1]
     m = dropout_mask(seed, site, v.numel() // cols, cols, rate, v.device)
     return v if m is None else v * m.reshape(v.shape)
+
+
+def exact_dropout(v, seed: int, site: int, rate: float):
+    """flax ``nn.Dropout``'s rule over the port's counter hash: keep with
+    probability 1 − rate (to 2⁻²⁴; flax draws ``jax.random.bernoulli``),
+    kept values divided by 1 − rate, on the view (v.numel() / cols, cols),
+    cols = v.shape[-1]. The JAX package's dropout outside its kernels
+    (``nn.Dropout``) keeps this rate exactly where the kernels' u8 grid
+    rounds it; the top 24 bits of the hash give u in [0, 1), kept when
+    u < 1 − rate. ``v`` itself at rate 0."""
+    check_rate(rate)
+    if rate == 0.0:
+        return v
+    cols = v.shape[-1]
+    bits = drop_bits(seed, site, v.numel() // cols, cols, v.device)
+    u = (bits >> 8).to(torch.float32) * 2.0 ** -24
+    keep = (u < 1.0 - rate).reshape(v.shape)
+    return torch.where(keep, v / (1.0 - rate), 0.0)
 
 
 def needs_grad(*tensors) -> bool:

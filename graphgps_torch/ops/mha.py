@@ -2,8 +2,8 @@
 (counterpart of ``graphgps_tpu/ops/mha.py:21-75`` and of the dense rung of
 ``graphgps_tpu/ops/pallas/flash_mha.py:87`` ``mha``). The plain version of
 the layer front uses :func:`mha_core`; the unmerged GPS layer's Transformer
-branch, which the JAX package computes outside any Pallas kernel, uses
-:func:`mha`."""
+branch and the Graphormer layer, which the JAX package compute outside any
+Pallas kernel, use :func:`mha`."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -14,15 +14,19 @@ NEG_INF = -1e30
 
 
 def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
-             drop: Optional[Callable] = None, grad_through_mask: bool = True):
-    """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool. Masked keys get
-    ``-1e30`` (not ``-inf``), so a graph with no real node still gives
-    finite, uniform weights. Softmax in at least f32; ``drop`` (the attention
-    dropout) maps the (B, H, N, N) probabilities before they weight ``v``.
-    Returns (B, H, N, Dh)."""
+             drop: Optional[Callable] = None, grad_through_mask: bool = True,
+             bias=None):
+    """q, k, v: (B, H, N, Dh); key_mask: (B, N) bool; ``bias``: an additive
+    (B, H, N, N) term of the logits (Graphormer's spatial bias), added before
+    the mask. Masked keys get ``-1e30`` (not ``-inf``), so a graph with no
+    real node still gives finite, uniform weights. Softmax in at least f32;
+    ``drop`` (the attention dropout) maps the (B, H, N, N) probabilities
+    before they weight ``v``. Returns (B, H, N, Dh)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhnd,bhmd->bhnm", q * scale, k)
+    if bias is not None:
+        logits = logits + bias
     mask = key_mask[:, None, None, :]
     if grad_through_mask:
         # masked keys take -1e30 in value, while the gradient reaches every
@@ -43,14 +47,16 @@ def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
     return torch.einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v)
 
 
-def mha(q, k, v, key_mask, drop: Optional[Callable] = None):
+def mha(q, k, v, key_mask, drop: Optional[Callable] = None, bias=None):
     """Masked attention as the JAX package's ``mha`` dispatch computes it on
-    its dense rung (its chunked rung is the same function in less memory).
+    its dense rung (its chunked rung is the same function in less memory),
+    and as ``graphgps_tpu/ops/mha.py:35`` ``mha_core`` with a ``bias``.
     ``drop`` is the attention dropout over the (B, H, N, N) probabilities:
-    the GPS layer passes the port's hash with the u8 keep rule
+    the layers pass the port's hash with the u8 keep rule
     (``kernels/common.py`` ``apply_dropout``: site 0 of the (B*H*N, N) view,
     a seed of its own)."""
-    return mha_core(q, k, v, key_mask, drop=drop, grad_through_mask=False)
+    return mha_core(q, k, v, key_mask, drop=drop, grad_through_mask=False,
+                    bias=bias)
 
 
 def split_heads(x, num_heads: int):

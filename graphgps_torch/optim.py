@@ -1,7 +1,8 @@
 """Optimizer, gradient clipping and epoch-indexed learning-rate schedules
 (counterpart of ``graphgps_tpu/optim/optimizers.py``: ``adam``/``adamW``
 :27-38 on optax's defaults, ``linear_with_warmup`` :51-61,
-``cosine_with_warmup`` :65-76 and ``none`` :95-98, ``make_tx``'s ``clip_by_global_norm`` :229-286, ``set_lr``
+``cosine_with_warmup`` :65-76, ``polynomial_with_warmup`` :79-93 and
+``none`` :95-98, ``make_tx``'s ``clip_by_global_norm`` :229-286, ``set_lr``
 :289-306). As in the JAX package the schedule is a function of the epoch
 index and the loop sets the learning rate once per epoch."""
 from __future__ import annotations
@@ -33,9 +34,11 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter]):
 
 
 def build_schedule(cfg) -> Callable[[int], float]:
-    """The learning rate of an epoch: ``linear_with_warmup`` or
-    ``cosine_with_warmup`` (the HF-transformers formulas, half a cosine
-    cycle; lr 0 in epoch 0 when there is warm-up) or ``none`` (constant)."""
+    """The learning rate of an epoch: ``linear_with_warmup``,
+    ``cosine_with_warmup`` or ``polynomial_with_warmup`` (the
+    HF-transformers formulas: half a cosine cycle; power 1 down to
+    ``optim.min_lr``; lr 0 in epoch 0 when there is warm-up) or ``none``
+    (constant)."""
     name = cfg.optim.scheduler
     base = cfg.optim.base_lr
     if name == "none":
@@ -60,9 +63,23 @@ def build_schedule(cfg) -> Callable[[int], float]:
                 math.pi * 0.5 * 2.0 * progress)))
 
         return f
+    if name == "polynomial_with_warmup":
+        warm, total = cfg.optim.num_warmup_epochs, cfg.optim.max_epoch
+        lr_end = cfg.optim.min_lr
+
+        def f(epoch: int) -> float:
+            if epoch < warm:
+                return base * epoch / max(1, warm)
+            if epoch > total:
+                return lr_end
+            remaining = 1 - (epoch - warm) / max(1, total - warm)
+            return (base - lr_end) * remaining + lr_end
+
+        return f
     raise NotImplementedError(
         f"optim.scheduler={name!r} is not ported (linear_with_warmup, "
-        "cosine_with_warmup, none; ROADMAP Queue 1 item 17)")
+        "cosine_with_warmup, polynomial_with_warmup, none; ROADMAP Queue 1 "
+        "item 17)")
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:

@@ -1,14 +1,16 @@
-"""Host-side (numpy) structural encodings: RWSE and LapPE.
+"""Host-side (numpy) structural encodings: RWSE, LapPE and the Graphormer
+bias statistics.
 
 Counterpart of ``graphgps_tpu/pe/host.py`` (``adjacency`` :22, ``laplacian``
 :33, ``eigvec_normalizer`` :45, ``lap_eig`` :71, ``rwse`` :92,
-``compute_posenc`` :229): random-walk landing probabilities (the diagonals of
-``P^k`` with ``P = D^-1 A``) and the smallest Laplacian eigenpairs, computed
-once per graph at load time.
+``graphormer_bias`` :151, ``compute_posenc`` :229): random-walk landing
+probabilities (the diagonals of ``P^k`` with ``P = D^-1 A``), the smallest
+Laplacian eigenpairs, and all-pairs shortest-path types with the edge types
+along each path, computed once per graph at load time.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -107,6 +109,106 @@ def rwse(g: Graph, times: List[int]) -> np.ndarray:
     return out
 
 
+def _bfs_all_sources(n: int, s: np.ndarray, r: np.ndarray, directed: bool):
+    """(dist (n, n) int64, -1 where unreachable; parent (n, n)): breadth-first
+    search from every source at once, picking the parent that the JAX
+    package's per-source loop picks (``pe/host.py:166-190``). That loop
+    appends to adjacency lists in edge order (edge i: ``adj[s_i]`` gets r_i,
+    then, undirected, ``adj[r_i]`` gets s_i), walks a level's frontier in the
+    order its nodes were appended, and gives a node the first frontier node
+    that reaches it. So a node of the next level takes the frontier node of
+    lowest rank among its neighbours as parent, and the next frontier is
+    ordered by (that parent's rank, the first place of the node in the
+    parent's list)."""
+    E = len(s)
+    if directed:
+        src, dst, order = s, r, np.arange(E)
+    else:
+        src, dst = np.concatenate([s, r]), np.concatenate([r, s])
+        order = np.concatenate([2 * np.arange(E), 2 * np.arange(E) + 1])
+    big = np.iinfo(np.int64).max // 4
+    K = 2 * E + 1
+    # first[u, v]: the append index of v's first entry in adj[u]
+    first = np.full((n, n), big, np.int64)
+    np.minimum.at(first, (src, dst), order)
+    adj = first < big
+    idx = np.arange(n)
+    dist = np.full((n, n), -1, np.int64)
+    parent = np.full((n, n), -1, np.int64)
+    dist[idx, idx] = 0
+    rank = np.full((n, n), big, np.int64)     # [source, node]: frontier rank
+    rank[idx, idx] = 0
+    d = 0
+    while True:
+        d += 1
+        # key[source, u, v]: when the loop would append v from frontier u
+        key = np.where(adj[None] & (rank < big)[:, :, None],
+                       rank[:, :, None] * K + first[None], big)
+        best = key.min(axis=1)
+        new = (best < big) & (dist < 0)
+        if not new.any():
+            return dist, parent
+        dist[new] = d
+        parent[new] = key.argmin(axis=1)[new]
+        srt = np.argsort(np.where(new, best, big), axis=1, kind="stable")
+        rank = np.full((n, n), big, np.int64)
+        np.put_along_axis(rank, srt, np.broadcast_to(idx, (n, n)), axis=1)
+        rank[~new] = big
+
+
+def graphormer_bias(g: Graph, num_spatial_types: int, directed: bool = False,
+                    with_edge_paths: bool = False) -> Dict[str, np.ndarray]:
+    """All-pairs shortest-path types and in/out degrees for the Graphormer
+    bias encoder (``graphgps_tpu/pe/host.py:151-227``), the same integers:
+    ``spatial_types`` (N, N) int32 (the distance clamped to
+    ``num_spatial_types - 1``, ``num_spatial_types`` where unreachable),
+    ``in_degrees`` and ``out_degrees`` (N,) int32 (both the total degree on
+    an undirected graph) and, with ``with_edge_paths``,
+    ``shortest_path_types`` (N, N, num_spatial_types): the scalar edge type
+    of each hop along the BFS shortest path, truncated to its first
+    ``num_spatial_types`` nodes, zeros past the path, on the diagonal and
+    where unreachable. That one is uint8 (edge types up to 255; ZINC has 4):
+    at int64 a batch of 256 molecules would carry 65 MB of it."""
+    n = g.num_nodes
+    s, r = (np.asarray(a, np.int64) for a in g.edge_index)
+    dist, parent = _bfs_all_sources(n, s, r, directed)
+    spatial = np.where(dist < 0, num_spatial_types,
+                       np.minimum(dist, num_spatial_types - 1)).astype(np.int32)
+    in_deg = np.bincount(r, minlength=n).astype(np.int32)
+    out_deg = np.bincount(s, minlength=n).astype(np.int32)
+    if not directed:
+        in_deg = out_deg = in_deg + out_deg
+    out = dict(spatial_types=spatial, in_degrees=in_deg, out_degrees=out_deg)
+    if with_edge_paths and g.edge_feat is not None:
+        etype = np.zeros((n, n), dtype=np.int64)
+        ef = g.edge_feat.reshape(g.num_edges, -1)[:, 0]
+        etype[s, r] = ef
+        if not directed:
+            etype[r, s] = ef
+        if etype.min(initial=0) < 0 or etype.max(initial=0) > 255:
+            raise ValueError("shortest_path_types holds edge types in uint8: "
+                             f"got types {etype.min()}..{etype.max()}")
+        D = num_spatial_types
+        # the path's nodes, walked back from j through the parents
+        reach = dist > 0
+        steps = int(dist.max(initial=0))
+        nodes = np.zeros((n, n, steps + 1), np.int64)
+        cur = np.broadcast_to(np.arange(n)[None, :], (n, n)).copy()
+        rows = np.broadcast_to(np.arange(n)[:, None], (n, n))
+        for t in range(steps + 1):
+            p = dist - t
+            ok = reach & (p >= 0)
+            nodes[ok, p[ok]] = cur[ok]
+            cur = np.where(ok & (p > 0), parent[rows, cur], cur)
+        spt = np.zeros((n, n, D), np.uint8)
+        hops = np.minimum(dist, D - 1)
+        for k in range(min(steps, D - 1)):
+            ok = reach & (k < hops)
+            spt[ok, k] = etype[nodes[ok, k], nodes[ok, k + 1]]
+        out["shortest_path_types"] = spt
+    return out
+
+
 def compute_posenc(graphs: List[Graph], cfg) -> None:
     """Attach every enabled encoding to ``g.pe`` in place."""
     for name in enabled_posenc(cfg):
@@ -123,6 +225,18 @@ def compute_posenc(graphs: List[Graph], cfg) -> None:
                                         pcfg.eigen.eigvec_norm)
                 g.pe["EigVecs"] = evects
                 g.extras["EigVals"] = evals[None, :].copy()
+        elif name == "GraphormerBias":
+            edge_paths = bool(pcfg.get("has_edge_attr", False))
+            for g in graphs:
+                stats = graphormer_bias(
+                    g, pcfg.num_spatial_types, pcfg.directed_graphs,
+                    with_edge_paths=edge_paths and g.edge_feat is not None)
+                g.extras["spatial_types"] = stats["spatial_types"]
+                if "shortest_path_types" in stats:
+                    g.extras["shortest_path_types"] = \
+                        stats["shortest_path_types"]
+                g.pe["in_degrees"] = stats["in_degrees"][:, None]
+                g.pe["out_degrees"] = stats["out_degrees"][:, None]
         else:
             raise NotImplementedError(
                 f"posenc_{name} is not ported (ROADMAP Queue 1 item 16)")

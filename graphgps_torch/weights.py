@@ -1,4 +1,5 @@
-"""Carry a JAX GPSModel's flax variables over to the port's state dict.
+"""Carry a JAX GPSModel's or GraphormerNet's flax variables over to the
+port's state dict.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the variables). The same mapping names a
@@ -12,7 +13,10 @@ MLP) take it transposed (out, in); an ``Embed`` table stays as it is; a ``Masked
 running ``mean``/``var`` (biased) become ``weight``/``bias`` and
 ``running_mean``/``running_var``. The layer stack may be unrolled
 (``GPSLayer_<i>``, or ``CheckpointGPSLayer_<i>`` under remat) or stacked on
-axis 0 under ``nn.scan`` (``...GPSScanBody_0/GPSLayer_0``).
+axis 0 under ``nn.scan`` (``...GPSScanBody_0/GPSLayer_0``). A GraphormerNet
+(``GraphormerLayer_<i>``, ``GraphormerGraphHead_0``) maps as
+``graphormer_layer_state_dict`` says; a flax ``LayerNorm``'s ``scale`` is
+the port's ``weight``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from .models.gps_layer import merged_width
 
 _UNROLLED = re.compile(r"^(?:Checkpoint)?GPSLayer_(\d+)$")
+_GRAPHORMER = re.compile(r"^GraphormerLayer_(\d+)$")
 
 
 def _linear(out: dict, prefix: str, dense: dict) -> None:
@@ -87,6 +92,27 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "",
     return {k.lstrip("."): v for k, v in out.items()}
 
 
+def graphormer_layer_state_dict(p: dict, prefix: str = "") -> dict:
+    """One GraphormerLayer's flax params → the port's ``GraphormerLayer``
+    state dict (numpy values), keys prefixed with ``prefix``: ``LayerNorm_0``
+    → ``ln_attn``, ``Dense_0..2`` (q, k, v) side by side → ``w_qkv``/
+    ``b_qkv``, ``Dense_3`` → ``w_out``/``b_out``, ``LayerNorm_1`` →
+    ``ln_ffn``, ``Dense_4``/``Dense_5`` → ``w_ffn1``.. ``b_ffn2``, in flax's
+    (in, out) layout."""
+    out: dict = {}
+    for name, ln in (("ln_attn", "LayerNorm_0"), ("ln_ffn", "LayerNorm_1")):
+        out[f"{prefix}.{name}.weight"] = p[ln]["scale"]
+        out[f"{prefix}.{name}.bias"] = p[ln]["bias"]
+    out[f"{prefix}.w_qkv"] = np.concatenate(
+        [np.asarray(p[f"Dense_{i}"]["kernel"]) for i in range(3)], axis=1)
+    out[f"{prefix}.b_qkv"] = np.concatenate(
+        [np.asarray(p[f"Dense_{i}"]["bias"]) for i in range(3)])
+    for name, dense in (("out", 3), ("ffn1", 4), ("ffn2", 5)):
+        out[f"{prefix}.w_{name}"] = p[f"Dense_{dense}"]["kernel"]
+        out[f"{prefix}.b_{name}"] = p[f"Dense_{dense}"]["bias"]
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -117,9 +143,18 @@ def state_dict_from_flax(params: dict, batch_stats=None,
     _encoder_state_dict(out, params["FeatureEncoder_0"],
                         None if batch_stats is None
                         else batch_stats.get("FeatureEncoder_0", {}))
+    graphormer = sorted((int(m.group(1)), k) for k in params
+                        if (m := _GRAPHORMER.match(k)))
+    for i, k in graphormer:
+        out.update(graphormer_layer_state_dict(params[k], f"layers.{i}"))
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
         out.update(gps_layer_state_dict(p, s, f"layers.{i}", merged))
-    if "SANGraphHead_0" in params:
+    if "GraphormerGraphHead_0" in params:
+        head = params["GraphormerGraphHead_0"]
+        out["head.norm.weight"] = head["LayerNorm_0"]["scale"]
+        out["head.norm.bias"] = head["LayerNorm_0"]["bias"]
+        _linear(out, "head.out", head["Dense_0"])
+    elif "SANGraphHead_0" in params:
         head = params["SANGraphHead_0"]
         n = len(head)
         for i in range(n - 1):
@@ -152,6 +187,11 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
         for k, v in fe.get(name, {}).items():
             i = int(k.split("_")[1])
             out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
+    if "TypeDictNodeEncoder_0" in fe:
+        out["encoder.type_dict.embedding.weight"] = \
+            fe["TypeDictNodeEncoder_0"]["Embed_0"]["embedding"]
+    if "GraphormerBiasEncoder_0" in fe:
+        _graphormer_bias_state_dict(out, fe["GraphormerBiasEncoder_0"])
     for enc, names in (("node_lin", ("VOCNodeEncoder_0", "LinearNodeEncoder_0")),
                        ("edge_lin", ("LinearEdgeEncoder_0",))):
         for name in names:
@@ -179,6 +219,26 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
         _dense_list(out, "encoder.lap.pre", lap, 0, n)
 
 
+def _graphormer_bias_state_dict(out: dict, gb: dict) -> None:
+    """The GraphormerBias encoder's tables. flax numbers its ``Embed``s in
+    call order: the spatial table and, with edge paths, the edge-type table
+    come before the in- and out-degree tables (degrees only: just those
+    two)."""
+    tables = [gb[f"Embed_{i}"]["embedding"]
+              for i in range(sum(k.startswith("Embed_") for k in gb))]
+    names = ["in_degree", "out_degree"]
+    if "edge_dis_encoder" in gb:
+        names = ["spatial", "edge_type"] + names
+        out["encoder.graphormer.edge_dis"] = gb["edge_dis_encoder"]
+    elif len(tables) == 3:
+        names = ["spatial"] + names
+    for name, t in zip(names, tables):
+        out[f"encoder.graphormer.{name}"] = t
+    for name in ("graph_token", "graph_token_bias"):
+        if name in gb:
+            out[f"encoder.graphormer.{name}"] = gb[name]
+
+
 def _square(dense: dict) -> bool:
     a, b = np.asarray(dense["kernel"]).shape
     return a == b
@@ -194,7 +254,8 @@ def load_flax(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
     only port tensors allowed to stay as initialized are embedding tables for
     feature columns the JAX model never saw (it creates one per column of the
     data)."""
-    sd = state_dict_from_flax(params, batch_stats, model.layers[0].merged)
+    sd = state_dict_from_flax(params, batch_stats,
+                              getattr(model.layers[0], "merged", None))
     missing, unexpected = model.load_state_dict(sd, strict=False)
     stray = [k for k in missing
              if not re.match(r"encoder\.(atom|bond)\.embeddings\.\d+\.weight$", k)]

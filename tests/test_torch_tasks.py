@@ -230,7 +230,7 @@ def test_pcqm4m_gps_cli_cpu_trains_plain_tails(tmp_path):
 @pytest.mark.parametrize("key,val,what", [
     ("gt.dim_hidden", "32", "dim_hidden=32"),
     ("dataset.task_type", "classification_multilabel", "task_type"),
-    ("optim.scheduler", "polynomial_with_warmup", "scheduler"),
+    ("optim.scheduler", "step", "scheduler"),
 ])
 def test_molhiv_unported_settings_raise(tmp_path, key, val, what):
     """What the recipe's neighbours still refuse, each naming its ROADMAP
