@@ -38,11 +38,24 @@ one. Phases, each fatal on failure:
    training rates 0.1/0 and at 0/0, within rtol 1e-5 and atol 1e-5 of each
    tensor's largest entry, with bit-identical backward reruns and each
    site's kept fraction on the u8 grid;
+3f. SAN's attention-norm apply + FFN kernel, ``bn_ffn``, forward and
+   backward, on layer 0's inputs of the fifth main path in training
+   (ogbg-molhiv SAN: batch 64, 40 node slots a graph, R = 2,560, d=64; the
+   attention block's residual sum and its batch statistics) at the recipe's
+   rate 0.01 and at 0, and at the molpcba-SAN width on seeded inputs (batch
+   512 x 40 slots, R = 20,480, d=304) at rate 0.2, within rtol 1e-5 and
+   atol 1e-5 of each tensor's largest entry, with bit-identical backward
+   reruns, each kept fraction on the u8 grid, and relu's derivative in the
+   plain backward on the kernel's side of each kink (a unit that the two
+   computations' rounding puts on different sides must lie within rounding
+   of 0); no single PyTorch call computes the norm apply and the FFN, so
+   these rows have no ``library_ms``;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
-   32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, then
-   ZINC Graphormer 12x80 with 8 heads and the graph token at batch 256),
-   each with every launch count set to 0 just before a run and read just
-   after:
+   32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, ZINC
+   Graphormer 12x80 with 8 heads and the graph token at batch 256, then
+   ogbg-molhiv SAN 10x64 with 4 heads, LapPE's Transformer and the plateau
+   scheduler at batch 64), each with every launch count set to 0 just
+   before a run and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
    b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1): one
@@ -52,7 +65,8 @@ one. Phases, each fatal on failure:
       also per evaluated batch where evaluation runs them; the edge tail's
       backward in all layers but the last, whose edge output does not reach
       the loss), and the best epoch's checkpoint reloads into a fresh model
-      with the same selection metric;
+      with the same selection metric (and, under ``reduce_on_plateau``, the
+      scheduler's state of that epoch);
    c. one training step on the card and on the CPU (the plain path) from the
       same weights (calibrated BatchNorm statistics; the Graphormer has
       none), batch and dropout seeds: loss, every gradient, the updated running statistics and the
@@ -68,7 +82,8 @@ one. Phases, each fatal on failure:
 The line before the last is ``{"kernels": [...]}`` (the six kernels of the
 merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
-Graphormer MLP block at ZINC's: sixteen); the last line is
+Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
+ogbg-molhiv SAN's: eighteen); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -89,6 +104,7 @@ MOLHIV_CFG = "configs/GPS/ogbg-molhiv-GPS+RWSE.yaml"
 PCQM_GPS_CFG = "configs/GPS/pcqm4m-GPS+RWSE.yaml"
 VOC_CFG = "configs/GPS/vocsuperpixels-GPS.yaml"
 ZINC_CFG = "configs/Graphormer/zinc-Graphormer.yaml"
+SAN_CFG = "configs/SAN/ogbg-molhiv-SAN.yaml"
 # the VOC stand-in at the real data's size: graphs of 400-500 nodes (512 node
 # slots), 21 classes; 160 graphs give 4 full training batches of 32 and one
 # half-filled batch each for val and test (graphs with no real node)
@@ -115,6 +131,10 @@ VOC_LAUNCHES = {
     "wide_attention_bwd": (1, 0)}
 # the Graphormer: the MLP block per layer, every other part in PyTorch ops
 ZINC_LAUNCHES = {"ln_ffn": (1, 1), "ln_ffn_bwd": (1, 0)}
+# SAN: the norm apply + FFN per layer in training only. In evaluation
+# (d = 64, no multiple of 128) JAX takes the plain norm and FFN, and so does
+# the port: 0 launches per evaluated batch
+SAN_LAUNCHES = {"bn_ffn": (1, 0), "bn_ffn_bwd": (1, 0)}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (the kernels run f32 on CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -153,6 +173,16 @@ UNMERGED_ATTN_RATE = 0.5
 # row sums over 10,496 rows in another order than cuBLAS's
 LN_FFN_RATES = ((0.1, 0.1), (0.1, 0.0), (0.0, 0.0))
 LN_FFN_RTOL, LN_FFN_ATOL = 1e-5, 1e-5
+# phase 3f: SAN's norm apply + FFN, the same tolerance (K = 64 or 304 and
+# 608 products, column sums over up to 20,480 rows); the molpcba-SAN width
+# (configs/SAN/ogbg-molpcba-SAN.yaml: batch 512, d = 304, dropout 0.2) on
+# seeded inputs, 40 node slots a graph as the molhiv stand-in's
+BN_FFN_RTOL, BN_FFN_ATOL = 1e-5, 1e-5
+MOLPCBA_ROWS, MOLPCBA_DIM, MOLPCBA_RATE = 512 * 40, 304, 0.2
+# a relu unit whose side of the kink the kernel's and the plain version's
+# rounding part lies within this much of the pre-activations' largest
+# entry from 0 (f32 sums of 64 to 304 products)
+KINK_RTOL = 1e-5
 # a backward kernel vs autograd of its plain version: another summation
 # order, and a gradient entry is a sum over rows (or 7d products) that
 # cancel, so its f32 rounding follows the tensor's largest entries
@@ -294,13 +324,9 @@ def branch_outputs(layer, batch, x, e):
     return xo, gate, x + layer.attention(batch, x)
 
 
-def calibrated_model(torch, cfg, splits, batch):
+def seeded_model(torch, cfg, splits, batch):
     """The entry point's seeded model (same seed, same weights) with seeded
-    BatchNorm scale/bias, and running statistics set, layer by layer, to the
-    masked statistics of each norm's input on ``batch`` -- the state
-    training leaves them in. An untrained 16-layer stack with arbitrary
-    running statistics grows its activations to ~1e4 and is chaotic: f32 and
-    f64 runs of the plain path differ by ~5% there."""
+    BatchNorm scale/bias, in evaluation on ``batch``'s device."""
     from graphgps_torch.driver import infer_dims
     from graphgps_torch.models.common import MaskedBatchNorm
     from graphgps_torch.models.networks import build_model
@@ -315,14 +341,25 @@ def calibrated_model(torch, cfg, splits, batch):
                 d = m.weight.shape[0]
                 m.weight.copy_(1.0 + 0.1 * torch.randn(d, generator=g))
                 m.bias.copy_(0.1 * torch.randn(d, generator=g))
-    model = model.to(batch.device).eval()
+    return model.to(batch.device).eval()
+
+
+def fit(bn, v, mask):
+    """A norm's running statistics set to the masked statistics of its
+    input ``v``."""
+    v = v.reshape(mask.shape[0], -1)[mask]
+    bn.running_mean.copy_(v.mean(0))
+    bn.running_var.copy_(v.var(0, unbiased=False))
+
+
+def calibrated_model(torch, cfg, splits, batch):
+    """``seeded_model`` with running statistics set, layer by layer, to the
+    masked statistics of each norm's input on ``batch`` -- the state
+    training leaves them in. An untrained 16-layer stack with arbitrary
+    running statistics grows its activations to ~1e4 and is chaotic: f32 and
+    f64 runs of the plain path differ by ~5% there."""
+    model = seeded_model(torch, cfg, splits, batch)
     nm, em = batch.node_mask, batch.edge_mask
-
-    def fit(bn, v, mask):
-        v = v.reshape(mask.shape[0], -1)[mask]
-        bn.running_mean.copy_(v.mean(0))
-        bn.running_var.copy_(v.var(0, unbiased=False))
-
     with torch.no_grad():
         rwse = getattr(model.encoder, "rwse", None)
         if rwse is not None and rwse.raw_norm is not None:
@@ -343,6 +380,22 @@ def calibrated_model(torch, cfg, splits, batch):
             fit(out, h, nm)
             out.weight.copy_(w)
             out.bias.copy_(b)
+            x, e = layer(batch, x, e)
+    return model
+
+
+def calibrated_san_model(torch, cfg, splits, batch):
+    """``calibrated_model`` for a SANTransformer: each SAN layer's attention
+    norm fitted to the attention block's residual sum, its last norm to the
+    FFN block's output (the plain route of evaluation), layer by layer."""
+    model = seeded_model(torch, cfg, splits, batch)
+    nm = batch.node_mask
+    with torch.no_grad():
+        x, e = model.encoder(batch)
+        for layer in model.layers:
+            h = x + layer.attn(batch, x, e) @ layer.w_o + layer.b_o
+            fit(layer.norm1, h, nm)
+            fit(layer.norm2, layer.ffn(h, nm, 0), nm)
             x, e = layer(batch, x, e)
     return model
 
@@ -1039,6 +1092,121 @@ def check_ln_ffn(torch, cfg_path: str, opts, device):
     return rows, {k: v.clone() for k, v in model.state_dict().items()}
 
 
+def bn_ffn_cases(torch, ins, rate: float, n_real: int, shapes: dict,
+                 tag: str) -> list:
+    """The forward and backward rows of ``bn_ffn`` on ``ins`` (s, mu, inv,
+    gamma, beta, W1, b1, W2, b2) at dropout ``rate`` (inner site only, as
+    SAN takes it), ``n_real`` of the R rows read. The plain backward takes
+    relu's derivative on the kernel's side of each kink (its kept a1 > 0):
+    a unit the two computations put on different sides must lie within
+    KINK_RTOL of the pre-activations' largest entry from 0; their count is
+    in the rows (``relu_kink_flips``)."""
+    from graphgps_torch.ops.kernels import bn_ffn
+
+    conf = (DROP_SEED, rate, "relu", False)
+    R, d = ins[0].shape
+    dh = ins[5].shape[1]
+    src = "graphgps_torch/csrc/bn_ffn.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_combine.py"
+    tol = (BN_FFN_RTOL, BN_FFN_ATOL)
+    cots_for = cotangents(torch, SEED + 11, ins[0].device)
+    with torch.no_grad():
+        a1 = bn_ffn._launch_forward(ins, *conf, True)[1][1]
+        s, mu, inv, ga, be, w1, b1 = ins[:7]
+        a1_plain = ((s - mu) * inv * ga + be) @ w1 + b1
+        mask = (a1 > 0).float()
+        flips = (a1_plain > 0).float() != mask
+        n_flips = int(flips.sum())
+        far = float(a1_plain[flips].abs().max()) if n_flips else 0.0
+        top = float(a1_plain.abs().max())
+    print(json.dumps(dict(shape=tag, rate=rate, relu_kink_flips=n_flips,
+                          largest_flipped_preactivation=far,
+                          largest_preactivation=top)), flush=True)
+    if far > KINK_RTOL * top:
+        fail(f"bn_ffn: a relu unit {far} from 0 takes another side in the "
+             "kernel than in its plain version")
+
+    def run(cots=None):
+        out, kept = bn_ffn._launch_forward(ins, *conf, True)
+        cots = cots or cots_for([out])
+        return cots, lambda: bn_ffn.bn_ffn_backward(*ins, cots[0], *conf,
+                                                    kept=kept)
+
+    fwd = dict(name="bn_ffn", fn=bn_ffn.fused_bn_ffn,
+               plain=bn_ffn.bn_ffn_plain, args=(*ins, *conf), tol=tol,
+               source=src, replaces=f"{tpu}:440",
+               # the norm apply (4 per element) and the two products on the
+               # rows that are read
+               flops=4 * n_real * d * dh + 4 * n_real * d)
+    bwd = dict(name="bn_ffn_bwd", run=run,
+               plain=lambda c: bn_ffn.bn_ffn_backward_plain(
+                   *ins, c[0], *conf, relu_mask=mask),
+               inputs=ins, source=src, replaces=f"{tpu}:483",
+               sites=[("FFN inner", R, dh, 1)] if rate > 0 else [], tol=tol,
+               # dU = dA2 W2^T, dH = dA1 W1^T, dW1 = H^T dA1, dW2 = U^T dA2;
+               # ds and the four column sums
+               flops=8 * n_real * d * dh + 10 * n_real * d)
+    at = dict(shapes, rate=rate)
+    rows = [forward_case(torch, fwd, at), backward_case(torch, bwd, DROP_SEED,
+                                                        rate, at)]
+    for r in rows:
+        r.update(shape=tag, rate=rate, relu_kink_flips=n_flips)
+    return rows
+
+
+def check_bn_ffn(torch, cfg_path: str, opts, device):
+    """Phase 3f: SAN's norm apply + FFN (``bn_ffn``), forward and backward,
+    kernel against plain version, on layer 0's inputs of the recipe
+    ``cfg_path`` (``opts`` on top) in training at its batch size and width:
+    the attention block's residual sum s = x + O(attention(x)) and the
+    attention norm's batch statistics of s, at the recipe's dropout and at
+    0; then at the molpcba-SAN width on seeded inputs (every row read).
+    Returns (rows, the calibrated model's state dict); every row carries
+    ``shape`` and ``rate``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = calibrated_san_model(torch, cfg, splits, batch)
+    layer, nm = model.layers[0], batch.node_mask
+    with torch.no_grad():
+        x, e = model.encoder(batch)
+        s = x + layer.attn(batch, x, e) @ layer.w_o + layer.b_o
+        mu, var = layer.norm1.batch_stats(s, nm)
+    ins = tuple(t.detach().contiguous() for t in (
+        s, mu, torch.rsqrt(var + layer.eps), layer.norm1.weight,
+        layer.norm1.bias, layer.w_ffn1, layer.b_ffn1, layer.w_ffn2,
+        layer.b_ffn2))
+    B, N = batch.num_graphs, batch.max_nodes
+    n_real = int(nm.sum())
+    shapes = dict(B=B, N=N, R=B * N, d=layer.dim_h,
+                  dh=layer.w_ffn1.shape[1], real_rows=n_real)
+    rows = []
+    for rate in (cfg.gt.dropout, 0.0):
+        rows += bn_ffn_cases(torch, ins, rate, n_real, shapes,
+                             "ogbg-molhiv-SAN")
+
+    # the molpcba-SAN width: a residual stream with a per-column offset,
+    # its batch statistics, the recipe's layer widths
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    R, d = MOLPCBA_ROWS, MOLPCBA_DIM
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    s = rnd(R, d) * (1.0 + 0.5 * rnd(d).abs()) + 2.0 * rnd(d)
+    mu, var = s.mean(0), s.var(0, unbiased=False)
+    big = (s, mu, torch.rsqrt(var + 1e-5), 1.0 + 0.1 * rnd(d), 0.1 * rnd(d),
+           rnd(d, 2 * d) / d ** 0.5, 0.1 * rnd(2 * d),
+           rnd(2 * d, d) / (2 * d) ** 0.5, 0.1 * rnd(d))
+    rows += bn_ffn_cases(torch, big, MOLPCBA_RATE, R,
+                         dict(B=512, N=40, R=R, d=d, dh=2 * d, real_rows=R),
+                         "ogbg-molpcba-SAN width")
+    return rows, {k: v.clone() for k, v in model.state_dict().items()}
+
+
 def layers_of(cfg) -> int:
     """The recipe's layer count: the Graphormer's own, or the GPS layers."""
     if cfg.model.type == "Graphormer":
@@ -1100,7 +1268,20 @@ def check_training_run(torch, cfg, splits, run_dir, device, metric: str):
         torch.manual_seed(cfg.seed + 7)
         model = build_model(cfg, infer_dims(cfg, splits), loader.max_nodes)
     model = model.to(device).eval()
-    checkpoint.load_ckpt(run_dir, model)
+    plateau = None
+    if cfg.optim.scheduler == "reduce_on_plateau":
+        from graphgps_torch.optim import build_schedule
+
+        plateau = build_schedule(cfg)
+    checkpoint.load_ckpt(run_dir, model, scheduler=plateau)
+    if plateau is not None:
+        # saved right after the update that made the epoch the best
+        print(json.dumps(dict(best_epoch_scheduler=plateau.state_dict())),
+              flush=True)
+        if (plateau.num_bad != 0 or plateau.lr != cfg.optim.base_lr
+                or not abs(plateau.best - val[best][metric]) <= 1e-5):
+            fail(f"the best checkpoint's scheduler state "
+                 f"{plateau.state_dict()} is not that of epoch {best}")
     preds, trues = [], []
     with torch.no_grad():
         for _real, batch in loader:
@@ -1456,7 +1637,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
-    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG):
+    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG, SAN_CFG):
         if not os.path.exists(path):
             fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
@@ -1509,7 +1690,14 @@ def main() -> None:
                                          ["seed", str(SEED)], device)
     rows += [r for r in zinc_rows if r["rates"] == list(LN_FFN_RATES[1])]
 
-    # 4. the four main paths
+    # 3f. SAN's norm apply + FFN at ogbg-molhiv SAN's shapes and at the
+    # molpcba-SAN width; the kernels line takes the rows at the recipe's rate
+    san_rows, san_state = check_bn_ffn(torch, SAN_CFG, ["seed", str(SEED)],
+                                       device)
+    rows += [r for r in san_rows
+             if r["shape"] == "ogbg-molhiv-SAN" and r["rate"] > 0]
+
+    # 4. the five main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
     mol_counts = drive_recipe(torch, "ogbg-molhiv", MOLHIV_CFG,
@@ -1518,6 +1706,8 @@ def main() -> None:
                               "f1", voc_state, device, card, extra=VOC_OPTS)
     zinc_counts = drive_recipe(torch, "zinc-Graphormer", ZINC_CFG,
                                ZINC_LAUNCHES, "mae", zinc_state, device, card)
+    san_counts = drive_recipe(torch, "ogbg-molhiv-SAN", SAN_CFG,
+                              SAN_LAUNCHES, "auc", san_state, device, card)
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
@@ -1526,11 +1716,14 @@ def main() -> None:
             path, counts = "vocsuperpixels", voc_counts
         elif r["name"] in ZINC_LAUNCHES:
             path, counts = "zinc-Graphormer", zinc_counts
+        elif r["name"] in SAN_LAUNCHES:
+            path, counts = "ogbg-molhiv-SAN", san_counts
         r["launches"] = counts[r["name"]]
         r["main_path"] = path
         r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
         r["launches_vocsuperpixels"] = voc_counts[r["name"]]
         r["launches_zinc_graphormer"] = zinc_counts[r["name"]]
+        r["launches_ogbg_molhiv_san"] = san_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
@@ -1540,7 +1733,8 @@ def main() -> None:
                            "main_path",
                            "launches_ogbg_molhiv",
                            "launches_vocsuperpixels",
-                           "launches_zinc_graphormer")} for r in rows])),
+                           "launches_zinc_graphormer",
+                           "launches_ogbg_molhiv_san")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ the Graphormer bias encoder, and their composition.
 Counterparts: ``graphgps_tpu/models/encoders.py`` (``TypeDictNodeEncoder``
 :29-40, ``AtomEncoder`` :43, ``LinearNodeEncoder``/``VOCNodeEncoder``
 :58-77, ``BondEncoder`` :116, ``LinearEdgeEncoder`` :128-135,
-``KernelPENodeEncoder``/RWSE :199-230, ``LapPENodeEncoder`` :241-332,
+``KernelPENodeEncoder``/RWSE :199-230, ``LapPENodeEncoder`` :241-332 (its
+Transformer form :295-315),
 ``GraphormerBiasEncoder`` :441-509) and
 ``graphgps_tpu/models/networks.py:80-132`` ``FeatureEncoder``: the dataset
 encoder embeds into ``d − dim_pe`` channels, the PE encoder appends its
@@ -15,6 +16,7 @@ width), and padded node slots are zeroed.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -23,7 +25,9 @@ from torch import nn
 
 from ..config import parse_times_func
 from ..data.graph import GraphBatch
-from .common import MLP, MaskedBatchNorm
+from ..ops.kernels.common import exact_dropout
+from .common import MLP, LayerNorm, MaskedBatchNorm
+from .gps_layer import draw_seeds
 
 # OGB molecule feature cardinalities (ogb.utils.features)
 ATOM_FEATURE_DIMS = [119, 5, 12, 12, 10, 6, 6, 2, 2]
@@ -112,39 +116,108 @@ def draw_signs(gen: Optional[torch.Generator], K: int):
     return torch.randint(0, 2, (K,), generator=gen) * 2.0 - 1.0
 
 
+class FreqEncoderLayer(nn.Module):
+    """One post-norm ``nn.TransformerEncoderLayer`` over a node's frequency
+    axis, as the JAX package writes it out (``encoders.py:298-315``): MHA
+    with q, k, v projections (flax ``DenseGeneral``, here ``qkv``) whose
+    logits at a padded frequency's key are −1e30 (a padded node has no real
+    frequency; its softmax is then uniform, not NaN), the out-projection,
+    residual and flax's LayerNorm (``norm1``); then relu FFN of ``ffn_dim``
+    (``ffn1``, ``ffn2``), residual and LayerNorm (``norm2``). Dropout on four
+    sites with flax ``nn.Dropout``'s exact rate (``exact_dropout``): the
+    attention probabilities (site 0), the attention output (1), the FFN's
+    hidden units (2) and its output (3)."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"posenc_LapPE.dim_pe={dim} is not divisible by "
+                             f"posenc_LapPE.n_heads={num_heads}")
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.out = nn.Linear(dim, dim)
+        self.norm1 = LayerNorm(dim)
+        self.ffn1 = nn.Linear(dim, ffn_dim)
+        self.ffn2 = nn.Linear(ffn_dim, dim)
+        self.norm2 = LayerNorm(dim)
+
+    def forward(self, h, freq_mask, seed: int = 0, rate: float = 0.0):
+        """h: (S, K, dim); freq_mask: (S, K) real frequencies."""
+        S, K, dim = h.shape
+        H = self.num_heads
+        q, k, v = (t.reshape(S, K, H, dim // H)
+                   for t in self.qkv(h).split(dim, dim=-1))
+        logits = torch.einsum("skhd,slhd->shkl", q, k) / math.sqrt(dim // H)
+        logits = torch.where(freq_mask[:, None, None, :], logits, -1e30)
+        attn = exact_dropout(torch.softmax(logits, dim=-1), seed, 0, rate)
+        o = torch.einsum("shkl,slhd->skhd", attn, v).reshape(S, K, dim)
+        h = self.norm1(h + exact_dropout(self.out(o), seed, 1, rate))
+        f = exact_dropout(torch.relu(self.ffn1(h)), seed, 2, rate)
+        return self.norm2(h + exact_dropout(self.ffn2(f), seed, 3, rate))
+
+
 class LapPENodeEncoder(nn.Module):
-    """LapPE in its DeepSet form: per node the ``max_freqs`` (eigenvector
-    entry, eigenvalue) pairs go through ``layers`` Linears with relu
-    (``pre``), the NaN-padded frequencies are masked, the rest summed over
-    the frequency axis, then ``post_layers`` more Linears (``post``). In
-    training the eigenvectors' signs are flipped at random, one sign per
-    frequency, drawn from the host generator. ``raw_norm_type`` BatchNorm
-    normalises the raw pairs per frequency over (real nodes × 2)."""
+    """LapPE: per node the ``max_freqs`` (eigenvector entry, eigenvalue)
+    pairs go through the frequency model, the NaN-padded frequencies are
+    masked, the rest summed over the frequency axis, then ``post_layers``
+    more Linears (``post``). The model is a DeepSet, ``layers`` Linears with
+    relu (``pre``), or a Transformer: a Linear to ``dim_pe`` (``linear_a``)
+    and ``layers`` ``FreqEncoderLayer``s (``transformer``) with ``n_heads``,
+    an FFN of ``ffn_dim`` (torch's default 2048, which the reference keeps)
+    and dropout ``dropout`` in training, its seeds one per layer from the
+    host generator. In training the eigenvectors' signs are flipped at
+    random, one sign per frequency, drawn from the host generator.
+    ``raw_norm_type`` BatchNorm normalises the raw pairs per frequency over
+    (real nodes × 2)."""
 
     def __init__(self, dim_pe: int, max_freqs: int, model: str = "DeepSet",
                  layers: int = 2, post_layers: int = 0,
-                 raw_norm_type: str = "none"):
+                 raw_norm_type: str = "none", n_heads: int = 4,
+                 ffn_dim: int = 2048, dropout: float = 0.1):
         super().__init__()
-        if model != "DeepSet":
+        if model not in ("DeepSet", "Transformer"):
             raise NotImplementedError(
-                f"posenc_LapPE.model={model!r}: the port has the DeepSet "
-                "form only (ROADMAP Queue 1 item 16)")
+                f"posenc_LapPE.model={model!r}: the port has the DeepSet and "
+                "Transformer forms (ROADMAP Queue 1 item 16)")
         self.raw_norm = (MaskedBatchNorm(max_freqs)
                          if raw_norm_type.lower() == "batchnorm" else None)
-        if layers <= 1:
-            dims = [2, dim_pe]
+        self.pre = self.linear_a = self.transformer = None
+        if model == "Transformer":
+            self.dropout = dropout
+            self.linear_a = nn.Linear(2, dim_pe)
+            self.transformer = nn.ModuleList(
+                FreqEncoderLayer(dim_pe, n_heads, ffn_dim)
+                for _ in range(layers))
         else:
-            dims = [2] + [2 * dim_pe] * (layers - 1) + [dim_pe]
-        self.pre = nn.ModuleList(nn.Linear(a, b)
-                                 for a, b in zip(dims[:-1], dims[1:]))
+            if layers <= 1:
+                dims = [2, dim_pe]
+            else:
+                dims = [2] + [2 * dim_pe] * (layers - 1) + [dim_pe]
+            self.pre = nn.ModuleList(nn.Linear(a, b)
+                                     for a, b in zip(dims[:-1], dims[1:]))
         self.post = None
         if post_layers > 0:
             self.post = MLP(dim_pe, 2 * dim_pe, dim_pe,
                             num_layers=post_layers, with_final_act=True)
 
+    def frequencies(self, h, freq_mask, gen=None):
+        """The frequency model over h (S, K, 2) → (S, K, dim_pe)."""
+        if self.transformer is None:
+            for lin in self.pre:
+                h = torch.relu(lin(h))
+            return h
+        h = self.linear_a(h)
+        rate = self.dropout if self.training else 0.0
+        seeds = [0] * len(self.transformer)
+        if rate > 0.0:
+            seeds = draw_seeds(gen, len(self.transformer))
+        for layer, seed in zip(self.transformer, seeds):
+            h = layer(h, freq_mask, seed, rate)
+        return h
+
     def forward(self, batch: GraphBatch, x,
                 gen: Optional[torch.Generator] = None):
-        dtype = self.pre[0].weight.dtype
+        dtype = (self.linear_a or self.pre[0]).weight.dtype
         evecs = batch.pe["EigVecs"].to(dtype)                    # (S, K)
         S, K = evecs.shape
         freq_mask = ~torch.isnan(evecs)
@@ -159,8 +232,7 @@ class LapPENodeEncoder(nn.Module):
             h2 = h.transpose(1, 2).reshape(S * 2, K)
             h2 = self.raw_norm(h2, batch.node_mask.repeat_interleave(2))
             h = h2.reshape(S, 2, K).transpose(1, 2)
-        for lin in self.pre:
-            h = torch.relu(lin(h))
+        h = self.frequencies(h, freq_mask, gen)
         pe = torch.where(freq_mask[..., None], h, 0.0).sum(dim=1)
         if self.post is not None:
             pe = self.post(pe)
@@ -295,7 +367,8 @@ class FeatureEncoder(nn.Module):
                 f"encoders {ds.node_encoder_name!r}/{ds.edge_encoder_name!r}: "
                 f"the port has one of {NODE_ENCODERS} with one of "
                 f"{PE_ENCODERS} (RWSE with a Linear model, LapPE as a "
-                f"DeepSet), one of {EDGE_ENCODERS}, and no encoder BatchNorm "
+                f"DeepSet or a Transformer), one of {EDGE_ENCODERS}, and no "
+                "encoder BatchNorm "
                 "(ROADMAP Queue 1 items 12 and 16)")
         p = cfg[f"posenc_{pe}"]
         if node == "Atom":
@@ -311,7 +384,7 @@ class FeatureEncoder(nn.Module):
                 p.dim_pe, p.eigen.max_freqs,
                 model=p.model if p.model != "none" else "DeepSet",
                 layers=p.layers, post_layers=p.post_layers,
-                raw_norm_type=p.raw_norm_type)
+                raw_norm_type=p.raw_norm_type, n_heads=p.n_heads)
         if ds.edge_encoder_name == "Bond":
             self.bond = BondEncoder(dim_h)
         else:

@@ -16,7 +16,8 @@ Two paths, chosen by width and settings as the JAX package chooses them
   (QKV projection, attention with an online softmax over key tiles and
   hashed dropout on the probabilities, out-projection, in one call; JAX
   :316-354); up to 128 the same function in PyTorch ops with a dense
-  softmax, as the JAX package leaves it to XLA there. When the tails are
+  softmax, as the JAX package leaves it to XLA there; beyond 768 JAX's
+  chunked attention, not ported. When the tails are
   deferred -- in training with
   dropout on, or at a lane width -- the edge tail runs through
   ``fused_pre_tail``, the attention branch's residual through
@@ -44,7 +45,7 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import (fused_combine_ffn, fused_drop_add,
+from ..ops.kernels import (build, fused_combine_ffn, fused_drop_add,
                            fused_wide_attention)
 from ..ops.kernels.common import apply_dropout
 from ..ops.mha import merge_heads, mha, split_heads
@@ -65,6 +66,15 @@ WIDE_MAX_NODES = 768
 # below this width the JAX package runs no fused kernel (fused_gatedgcn.py
 # :498, fused_tail.py :495)
 MIN_DIM = 64
+
+
+def tail_eligible(rows: int, d: int, act: str) -> bool:
+    """The envelope of the FFN-block kernels (``fused_tail.py:479``
+    ``tail_eligible``, behind ``ln_ffn_eligible`` and ``combine_eligible``
+    of ``fused_combine.py``): a width of 64 or more, an activation the
+    kernels take and a multiple of 8 rows. Its TPU block and mesh
+    conditions do not carry over."""
+    return d >= MIN_DIM and act in build.ACTS and rows % 8 == 0
 
 
 def merged_width(dim_h: int) -> bool:
@@ -158,11 +168,14 @@ class GPSLayer(nn.Module):
         d, H = self.dim_h, self.num_heads
         xd = batch.dense_view(x)
         if batch.max_nodes > WIDE_MAX_NODES:
+            # JAX's "auto" dispatch takes chunked MHA there
+            # (graphgps_tpu/ops/pallas/flash_mha.py:121-135); flash only on
+            # request and never with attention dropout
             raise NotImplementedError(
                 f"{batch.max_nodes} node slots per graph exceed the wide "
-                f"attention's {WIDE_MAX_NODES}: the flash attention for "
-                "longer graphs is not ported (ROADMAP Queue 2 item 9, "
-                "flash_mha)")
+                f"attention's {WIDE_MAX_NODES}: the chunked attention for "
+                "longer graphs (graphgps_tpu/ops/chunked_mha.py) is not "
+                "ported (ROADMAP Queue 1 item 14)")
         if batch.max_nodes > WIDE_MIN_NODES:
             return fused_wide_attention(
                 xd, batch.counts, self.w_qkv, self.b_qkv, self.w_out,

@@ -6,8 +6,9 @@ A layer is pre-LN attention with the additive spatial bias, then the pre-LN
 MLP block. With the graph token, its state is sequence position 0 of every
 graph through the whole stack and its key is never masked. The MLP block
 goes through the ``fused_ln_ffn`` kernel under the JAX package's envelope
-(``ln_ffn_eligible``: width ≥ 64 and a row count that is a multiple of 8);
-outside it, through PyTorch ops as JAX's plain path.
+(``ln_ffn_eligible``, here ``gps_layer.tail_eligible``: width ≥ 64 and a
+row count that is a multiple of 8); outside it, through PyTorch ops as
+JAX's plain path.
 
 Dropout, three rules as in the JAX package:
 - the attention probabilities: the u8 keep rule (``keep_mask_u8``) over the
@@ -38,17 +39,9 @@ from ..ops.kernels.common import apply_dropout, exact_dropout
 from ..ops.mha import merge_heads, mha, split_heads
 from .common import LayerNorm, dense_params, get_act
 from .encoders import FeatureEncoder
-from .gps_layer import MIN_DIM, draw_seeds
+from .gps_layer import draw_seeds, tail_eligible
 
 SEEDS_PER_LAYER = 3   # attention, attention output, MLP block
-
-
-def ln_ffn_eligible(rows: int, d: int) -> bool:
-    """``fused_combine.py:800`` ``ln_ffn_eligible`` (through
-    ``fused_tail.py:479`` ``tail_eligible``) for gelu: a width of 64 or more
-    and a multiple of 8 rows. Its TPU block and mesh conditions do not carry
-    over."""
-    return d >= MIN_DIM and rows % 8 == 0
 
 
 class GraphormerLayer(nn.Module):
@@ -81,7 +74,7 @@ class GraphormerLayer(nn.Module):
         """``h + drop(W2 drop(gelu(W1 LN(h) + b1)) + b2)`` over (R, d)
         rows: the kernel inside the envelope, PyTorch ops outside."""
         drop, _, mlp = self.rates
-        if ln_ffn_eligible(*h.shape):
+        if tail_eligible(*h.shape, "gelu"):
             return fused_ln_ffn(h, self.ln_ffn.weight, self.ln_ffn.bias,
                                 self.w_ffn1, self.b_ffn1, self.w_ffn2,
                                 self.b_ffn2, seed, mlp, drop, "gelu")

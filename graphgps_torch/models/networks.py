@@ -1,9 +1,10 @@
-"""GPSModel: FeatureEncoder → L × GPSLayer → head, and the dispatch to
-GraphormerNet (``models/graphormer.py``) (counterpart of
+"""GPSModel: FeatureEncoder → L × GPSLayer → head, SANTransformer:
+FeatureEncoder → L × SANLayer → head, and the dispatch to GraphormerNet
+(``models/graphormer.py``) (counterpart of
 ``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``,
-:269 ``GraphormerNet`` and :411 ``build_model``; a plain layer loop in place
-of ``nn.scan``, and the activations stored for the backward in place of
-``parallel.remat``)."""
+:240-268 ``SANTransformer``, :269 ``GraphormerNet`` and :411
+``build_model``; a plain layer loop in place of ``nn.scan``, and the
+activations stored for the backward in place of ``parallel.remat``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,6 +16,14 @@ from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
 from .gps_layer import MERGED_MAX_NODES, MIN_DIM, GPSLayer, merged_width
 from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
+from .san import SANLayer
+
+# the ROADMAP item that brings each gt.attn_impl the JAX package honours
+# (graphgps_tpu/models/gps_layer.py:284-392) but the port does not: the
+# port's GPSLayer takes JAX's "auto" choice
+ATTN_IMPLS = {"dense": "Queue 1 item 14", "chunked": "Queue 1 item 14",
+              "flash": "Queue 2 item 9", "fused": "Queue 2 item 6",
+              "ring": "Queue 1 item 18"}
 
 
 def check_graphormer_supported(cfg) -> None:
@@ -35,14 +44,54 @@ def check_graphormer_supported(cfg) -> None:
             "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
 
 
+def check_san_supported(cfg) -> None:
+    """The SANTransformer configurations the port runs: plain SAN (not
+    SAN2's learnable γ), BatchNorm or no norm, ``full_graph`` either way,
+    and ``check_stack_supported``. The encoders raise on their own."""
+    gt = cfg.gt
+    if gt.layer_type == "SAN2" or gt.gamma_learnable:
+        raise NotImplementedError(
+            "SAN2 / gt.gamma_learnable (a learnable γ, and its epoch γ "
+            "logging, graphgps_tpu/train/loop.py:963-970) is not ported "
+            "(ROADMAP Queue 1 item 15)")
+    if gt.layer_norm:
+        raise NotImplementedError(
+            "gt.layer_norm=true on SAN: MaskedLayerNorm is not ported "
+            "(ROADMAP Queue 1 item 15)")
+    check_stack_supported(cfg)
+
+
+def check_stack_supported(cfg) -> None:
+    """What a GPSModel and a SANTransformer share: no ``layers_pre_mp``,
+    the san_graph or the inductive_node head, no EquivStableLapPE, no
+    attention-weight logging."""
+    if cfg.gnn.layers_pre_mp > 0:
+        raise NotImplementedError(
+            "gnn.layers_pre_mp > 0 is not ported (ROADMAP Queue 1 item 17)")
+    if cfg.gnn.head not in HEADS:
+        raise NotImplementedError(
+            f"gnn.head={cfg.gnn.head!r}: the port has {sorted(HEADS)} "
+            "(the default graph head: ROADMAP Queue 1 item 17)")
+    if cfg.posenc_EquivStableLapPE.enable:
+        raise NotImplementedError(
+            "EquivStableLapPE is not ported (ROADMAP Queue 1 item 16)")
+    if cfg.train.get("log_attn_weights", False):
+        raise NotImplementedError(
+            "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
+
+
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
-    Transformer, BatchNorm, the san_graph or the inductive_node head, at a
-    width of 64 or more; or a Graphormer, ``check_graphormer_supported``);
-    anything else names the ROADMAP item that brings it."""
+    Transformer, BatchNorm, ``gt.attn_impl`` auto, the san_graph or the
+    inductive_node head, at a width of 64 or more; a SANTransformer,
+    ``check_san_supported``; or a Graphormer,
+    ``check_graphormer_supported``); anything else names the ROADMAP item
+    that brings it."""
     gt = cfg.gt
     if cfg.model.type == "Graphormer":
         return check_graphormer_supported(cfg)
+    if cfg.model.type == "SANTransformer":
+        return check_san_supported(cfg)
     if cfg.model.type != "GPSModel":
         raise NotImplementedError(
             f"model.type={cfg.model.type!r} is not ported (ROADMAP Queue 1 "
@@ -59,19 +108,12 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
             "without fused kernels is not ported (ROADMAP Queue 1 item 5)")
-    if cfg.gnn.layers_pre_mp > 0:
+    if gt.attn_impl != "auto":
         raise NotImplementedError(
-            "gnn.layers_pre_mp > 0 is not ported (ROADMAP Queue 1 item 17)")
-    if cfg.gnn.head not in HEADS:
-        raise NotImplementedError(
-            f"gnn.head={cfg.gnn.head!r}: the port has {sorted(HEADS)} "
-            "(the default graph head: ROADMAP Queue 1 item 17)")
-    if cfg.posenc_EquivStableLapPE.enable:
-        raise NotImplementedError(
-            "EquivStableLapPE is not ported (ROADMAP Queue 1 item 16)")
-    if cfg.train.get("log_attn_weights", False):
-        raise NotImplementedError(
-            "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
+            f"gt.attn_impl={gt.attn_impl!r}: the port runs the 'auto' "
+            "choice only (ROADMAP "
+            f"{ATTN_IMPLS.get(gt.attn_impl, 'Queue 1 item 14')})")
+    check_stack_supported(cfg)
 
 
 HEADS = ("san_graph", "inductive_node")
@@ -87,6 +129,32 @@ def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:
                                    pooling=cfg.model.graph_pooling)
     return InductiveNodeHead(dim_in, dim_out,
                              layers=max(1, cfg.gnn.layers_post_mp))
+
+
+class SANTransformer(nn.Module):
+    """FeatureEncoder (Atom+LapPE, Bond on ogbg-molhiv) → L × SANLayer →
+    head."""
+
+    def __init__(self, cfg, dim_out: int):
+        super().__init__()
+        check_san_supported(cfg)
+        gt, d = cfg.gt, cfg.gt.dim_hidden
+        self.encoder = FeatureEncoder(cfg, d)
+        self.layers = nn.ModuleList(
+            SANLayer(d, gt.n_heads, gamma=gt.gamma, full_graph=gt.full_graph,
+                     dropout=gt.dropout, batch_norm=gt.batch_norm,
+                     residual=gt.residual)
+            for _ in range(gt.layers))
+        self.head = make_head(cfg, d, dim_out)
+
+    def forward(self, batch: GraphBatch,
+                gen: Optional[torch.Generator] = None):
+        """Returns (pred, true) as ``GPSModel.forward``; in training ``gen``
+        draws LapPE's sign flip and every dropout seed."""
+        x, e = self.encoder(batch, gen)
+        for layer in self.layers:
+            x, e = layer(batch, x, e, gen)
+        return self.head(batch, x)
 
 
 class GPSModel(nn.Module):
@@ -119,8 +187,11 @@ class GPSModel(nn.Module):
 
 
 def build_model(cfg, dim_out: int, max_nodes: Optional[int] = None):
-    """The network ``model.type`` names: GPSModel or GraphormerNet."""
+    """The network ``model.type`` names: GPSModel, SANTransformer or
+    GraphormerNet."""
     check_supported(cfg)
+    if cfg.model.type == "SANTransformer":
+        return SANTransformer(cfg, dim_out)
     if cfg.model.type == "Graphormer":
         from .graphormer import GraphormerNet
 

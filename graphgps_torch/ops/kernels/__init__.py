@@ -1,10 +1,11 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: eight
-forward kernels and their eight backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: nine
+forward kernels and their nine backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.
 """
+from .bn_ffn import bn_ffn_backward, fused_bn_ffn
 from .combine_ffn import combine_ffn_backward, fused_combine_ffn
 from .drop_add import drop_add_backward, fused_drop_add
 from .edge_gate import edge_gate_backward, fused_edge_gate
@@ -24,7 +25,8 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "edge_gate": fused_edge_gate, "edge_gate_bwd": edge_gate_backward,
             "wide_attention": fused_wide_attention,
             "wide_attention_bwd": wide_attention_backward,
-            "ln_ffn": fused_ln_ffn, "ln_ffn_bwd": ln_ffn_backward}
+            "ln_ffn": fused_ln_ffn, "ln_ffn_bwd": ln_ffn_backward,
+            "bn_ffn": fused_bn_ffn, "bn_ffn_bwd": bn_ffn_backward}
 
 
 def reset_launch_counts() -> None:

@@ -1,14 +1,17 @@
 """Optimizer, gradient clipping and epoch-indexed learning-rate schedules
 (counterpart of ``graphgps_tpu/optim/optimizers.py``: ``adam``/``adamW``
 :27-38 on optax's defaults, ``linear_with_warmup`` :51-61,
-``cosine_with_warmup`` :65-76, ``polynomial_with_warmup`` :79-93 and
-``none`` :95-98, ``make_tx``'s ``clip_by_global_norm`` :229-286, ``set_lr``
-:289-306). As in the JAX package the schedule is a function of the epoch
-index and the loop sets the learning rate once per epoch."""
+``cosine_with_warmup`` :65-76, ``polynomial_with_warmup`` :79-93,
+``none`` :95-98 and ``ReduceLROnPlateau``/``reduce_on_plateau`` :114-166,
+``make_tx``'s ``clip_by_global_norm`` :229-286, ``set_lr`` :289-306). As in
+the JAX package the schedule is a function of the epoch index, or the
+plateau scheduler's host state, and the loop sets the learning rate once per
+epoch."""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Union
 
 import torch
 
@@ -33,14 +36,68 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter]):
         "1 item 17)")
 
 
-def build_schedule(cfg) -> Callable[[int], float]:
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """Host-side plateau scheduler state. The loop calls ``update(metric)``
+    once per evaluated epoch with the selection metric and sets ``lr`` as
+    the next epoch's learning rate. An improvement must beat the best by more
+    than ``eps``; after more than ``patience`` epochs without one the rate
+    drops by ``factor``, not below ``min_lr``, and only by more than
+    ``eps``."""
+
+    base_lr: float
+    factor: float = 0.5
+    patience: int = 10
+    mode: str = "min"
+    min_lr: float = 0.0
+    eps: float = 1e-8
+
+    lr: float = dataclasses.field(default=0.0)
+    best: float = dataclasses.field(default=math.inf)
+    num_bad: int = dataclasses.field(default=0)
+
+    def __post_init__(self):
+        self.lr = self.base_lr
+        self.best = math.inf if self.mode == "min" else -math.inf
+
+    def update(self, metric: float) -> float:
+        better = (metric < self.best - self.eps if self.mode == "min"
+                  else metric > self.best + self.eps)
+        if better:
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            new_lr = max(self.lr * self.factor, self.min_lr)
+            if self.lr - new_lr > self.eps:
+                self.lr = new_lr
+            self.num_bad = 0
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return dict(lr=self.lr, best=self.best, num_bad=self.num_bad)
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr, self.best, self.num_bad = d["lr"], d["best"], d["num_bad"]
+
+
+def build_schedule(cfg) -> Union[Callable[[int], float], ReduceLROnPlateau]:
     """The learning rate of an epoch: ``linear_with_warmup``,
     ``cosine_with_warmup`` or ``polynomial_with_warmup`` (the
     HF-transformers formulas: half a cosine cycle; power 1 down to
     ``optim.min_lr``; lr 0 in epoch 0 when there is warm-up) or ``none``
-    (constant)."""
+    (constant); or, for ``reduce_on_plateau``, the scheduler's host state,
+    whose ``lr`` the loop reads and whose ``update`` it calls."""
     name = cfg.optim.scheduler
     base = cfg.optim.base_lr
+    if name == "reduce_on_plateau":
+        # min for an argmin metric or a regression task, else max (auc, f1)
+        mode = ("min" if cfg.metric_agg == "argmin"
+                or cfg.dataset.task_type == "regression" else "max")
+        return ReduceLROnPlateau(base_lr=base, factor=cfg.optim.reduce_factor,
+                                 patience=cfg.optim.schedule_patience,
+                                 mode=mode, min_lr=cfg.optim.min_lr)
     if name == "none":
         return lambda epoch: base
     if name == "linear_with_warmup":
@@ -78,8 +135,8 @@ def build_schedule(cfg) -> Callable[[int], float]:
         return f
     raise NotImplementedError(
         f"optim.scheduler={name!r} is not ported (linear_with_warmup, "
-        "cosine_with_warmup, polynomial_with_warmup, none; ROADMAP Queue 1 "
-        "item 17)")
+        "cosine_with_warmup, polynomial_with_warmup, reduce_on_plateau, "
+        "none; ROADMAP Queue 1 item 17)")
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:

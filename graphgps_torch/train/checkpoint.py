@@ -3,7 +3,8 @@
 ``clean_ckpt``): one ``torch.save`` file per epoch,
 ``<run_dir>/ckpt/<epoch>.pt``, holding the model's parameters and buffers
 (the BatchNorm running statistics), the optimizer's state, the dropout
-generator's state and the epoch. A file is written under a temporary name
+generator's state, the plateau scheduler's state (``lr``, ``best``,
+``num_bad``; None under the epoch schedules) and the epoch. A file is written under a temporary name
 and renamed, so a reader never sees half a checkpoint. The JAX package's
 orbax checkpoints are not read (ROADMAP Queue 1 item 17)."""
 from __future__ import annotations
@@ -31,22 +32,27 @@ def saved_epochs(run_dir: str) -> list:
 
 
 def save_ckpt(run_dir: str, model, opt, epoch: int,
-              gen: Optional[torch.Generator] = None) -> str:
+              gen: Optional[torch.Generator] = None, scheduler=None) -> str:
+    """``scheduler``: the plateau scheduler, whose state is stored, or
+    None."""
     path = ckpt_path(run_dir, epoch)
     os.makedirs(ckpt_dir(run_dir), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(dict(model=model.state_dict(), optimizer=opt.state_dict(),
                     generator=None if gen is None else gen.get_state(),
+                    scheduler=(None if scheduler is None
+                               else scheduler.state_dict()),
                     epoch=epoch), tmp)
     os.replace(tmp, path)
     return path
 
 
 def load_ckpt(run_dir: str, model, opt=None, epoch: int = -1,
-              gen: Optional[torch.Generator] = None) -> int:
+              gen: Optional[torch.Generator] = None, scheduler=None) -> int:
     """Restore the given epoch (the latest when ``epoch`` < 0 or not
-    saved) into ``model`` (and ``opt``, ``gen``). Returns the next epoch to
-    run, 0 when there is no checkpoint."""
+    saved) into ``model`` (and ``opt``, ``gen``, and the plateau
+    ``scheduler`` when the checkpoint holds its state). Returns the next
+    epoch to run, 0 when there is no checkpoint."""
     epochs = saved_epochs(run_dir)
     if not epochs:
         return 0
@@ -58,6 +64,8 @@ def load_ckpt(run_dir: str, model, opt=None, epoch: int = -1,
         opt.load_state_dict(state["optimizer"])
     if gen is not None and state["generator"] is not None:
         gen.set_state(state["generator"])
+    if scheduler is not None and state.get("scheduler") is not None:
+        scheduler.load_state_dict(state["scheduler"])
     return state["epoch"] + 1
 
 

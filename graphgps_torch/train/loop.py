@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..logging_utils import SplitLogger
-from ..optim import build_optimizer, build_schedule, clip_by_global_norm, set_lr
+from ..optim import (ReduceLROnPlateau, build_optimizer, build_schedule,
+                     clip_by_global_norm, set_lr)
 from . import checkpoint
 
 log = logging.getLogger("graphgps_torch")
@@ -246,11 +247,13 @@ def is_ckpt_epoch(cfg, epoch: int) -> bool:
 
 def custom_train(cfg, loaders, model, run_dir: str,
                  gen: Optional[torch.Generator] = None) -> Dict:
-    """The epoch loop: the learning rate set per epoch from the schedule, one
-    train epoch, evaluation of val and test every ``eval_period``, the best
-    epoch by ``metric_best`` (falling back to the loss, argmin, when the
-    metric is missing), and checkpoints of the best epoch or every
-    ``ckpt_period``. ``gen`` draws the dropout seeds."""
+    """The epoch loop: the learning rate set per epoch from the schedule (or
+    the plateau scheduler's ``lr``, updated after each evaluated epoch with
+    the selection metric), one train epoch, evaluation of val and test every
+    ``eval_period``, the best epoch by ``metric_best`` (falling back to the
+    loss, argmin, when the metric is missing), and checkpoints of the best
+    epoch or every ``ckpt_period``, which carry the plateau scheduler's
+    state. ``gen`` draws the dropout seeds."""
     check_train_supported(cfg)
     if cfg.train.preempt_save:
         log.warning("train.preempt_save: preemption handling is not ported "
@@ -258,6 +261,7 @@ def custom_train(cfg, loaders, model, run_dir: str,
                     "its last checkpoint with train.auto_resume")
     opt = build_optimizer(cfg, model.parameters())
     schedule = build_schedule(cfg)
+    plateau = schedule if isinstance(schedule, ReduceLROnPlateau) else None
     metric = resolve_metric_best(cfg)
     agg = cfg.metric_agg
     if cfg.metric_best == "auto" and metric in ("mae", "mse", "rmse", "loss"):
@@ -270,12 +274,13 @@ def custom_train(cfg, loaders, model, run_dir: str,
     start_epoch = 0
     if cfg.train.auto_resume:
         start_epoch = checkpoint.load_ckpt(run_dir, model, opt,
-                                           cfg.train.epoch_resume, gen)
+                                           cfg.train.epoch_resume, gen,
+                                           plateau)
     ckpt = cfg.train.enable_ckpt
     history: Dict[str, List[Dict]] = {s: [] for s in loaders}
     best_val, best_epoch = None, -1
     for epoch in range(start_epoch, cfg.optim.max_epoch):
-        lr = schedule(epoch)
+        lr = plateau.lr if plateau is not None else schedule(epoch)
         set_lr(opt, lr)
         t0 = time.perf_counter()
         train_epoch(cfg, model, opt, loaders["train"], loggers["train"], lr,
@@ -295,17 +300,20 @@ def custom_train(cfg, loaders, model, run_dir: str,
                 metric, agg = "loss", "argmin"
                 better = _metric_cmp(agg)
             cur = val_hist[-1].get(metric, val_hist[-1]["loss"])
+            if plateau is not None:
+                plateau.update(cur)
             if best_val is None or better(cur, best_val):
                 best_val, best_epoch = cur, epoch
                 if ckpt and cfg.train.ckpt_best:
-                    checkpoint.save_ckpt(run_dir, model, opt, epoch, gen)
+                    checkpoint.save_ckpt(run_dir, model, opt, epoch, gen,
+                                         plateau)
                     if cfg.train.ckpt_clean:
                         checkpoint.clean_ckpt(run_dir, epoch)
             log.info("epoch %d lr %.2e %s=%.5f (best %.5f @ %d) epoch_time "
                      "%.2fs", epoch, lr, metric, cur, best_val, best_epoch,
                      epoch_s)
         if ckpt and not cfg.train.ckpt_best and is_ckpt_epoch(cfg, epoch):
-            checkpoint.save_ckpt(run_dir, model, opt, epoch, gen)
+            checkpoint.save_ckpt(run_dir, model, opt, epoch, gen, plateau)
     log.info("best %s=%s @ epoch %d", metric, best_val, best_epoch)
     return history
 

@@ -1,5 +1,5 @@
-"""Carry a JAX GPSModel's or GraphormerNet's flax variables over to the
-port's state dict.
+"""Carry a JAX GPSModel's, SANTransformer's or GraphormerNet's flax
+variables over to the port's state dict.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the variables). The same mapping names a
@@ -15,8 +15,10 @@ running ``mean``/``var`` (biased) become ``weight``/``bias`` and
 (``GPSLayer_<i>``, or ``CheckpointGPSLayer_<i>`` under remat) or stacked on
 axis 0 under ``nn.scan`` (``...GPSScanBody_0/GPSLayer_0``). A GraphormerNet
 (``GraphormerLayer_<i>``, ``GraphormerGraphHead_0``) maps as
-``graphormer_layer_state_dict`` says; a flax ``LayerNorm``'s ``scale`` is
-the port's ``weight``.
+``graphormer_layer_state_dict`` says, a SANTransformer (``SANLayer_<i>``)
+as ``san_layer_state_dict`` says; a flax ``LayerNorm``'s ``scale`` is the
+port's ``weight``. A ``DenseGeneral`` kernel (in, H, Dh) is flattened to
+(in, H·Dh).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .models.gps_layer import merged_width
 
 _UNROLLED = re.compile(r"^(?:Checkpoint)?GPSLayer_(\d+)$")
 _GRAPHORMER = re.compile(r"^GraphormerLayer_(\d+)$")
+_SAN = re.compile(r"^SANLayer_(\d+)$")
 
 
 def _linear(out: dict, prefix: str, dense: dict) -> None:
@@ -113,6 +116,37 @@ def graphormer_layer_state_dict(p: dict, prefix: str = "") -> dict:
     return {k.lstrip("."): v for k, v in out.items()}
 
 
+def _flat(kernel) -> np.ndarray:
+    """A ``DenseGeneral`` kernel (in, H, Dh) or bias (H, Dh) with its heads
+    side by side: (in, H·Dh) or (H·Dh,)."""
+    k = np.asarray(kernel)
+    return k.reshape(k.shape[0], -1) if k.ndim == 3 else k.reshape(-1)
+
+
+def san_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
+    """One SANLayer's flax params/batch_stats → the port's ``SANLayer``
+    state dict (numpy values), keys prefixed with ``prefix``:
+    ``SANAttention_0``'s Q, K, V, E, Q2, K2, E2 → ``attn.w_q``.. (flattened,
+    no bias) and ``fake_edge_emb``; ``Dense_0..2`` → ``w_o``/``b_o``,
+    ``w_ffn1``.., ``w_ffn2``..; ``Norm_0``/``Norm_1`` → ``norm1``/``norm2``
+    (absent without BatchNorm). The kernel route and the plain route make the
+    same names. ``s=None`` maps the parameters only."""
+    out: dict = {}
+    a = p["SANAttention_0"]
+    for name in ("Q", "K", "V", "E", "Q2", "K2", "E2"):
+        if name in a:
+            out[f"{prefix}.attn.w_{name.lower()}"] = _flat(a[name]["kernel"])
+    if "fake_edge_emb" in a:
+        out[f"{prefix}.attn.fake_edge_emb"] = a["fake_edge_emb"]
+    for name, dense in (("o", 0), ("ffn1", 1), ("ffn2", 2)):
+        out[f"{prefix}.w_{name}"] = p[f"Dense_{dense}"]["kernel"]
+        out[f"{prefix}.b_{name}"] = p[f"Dense_{dense}"]["bias"]
+    for i in (0, 1):
+        if f"Norm_{i}" in p:
+            _norm(out, f"{prefix}.norm{i + 1}", p, s, f"Norm_{i}")
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -147,6 +181,12 @@ def state_dict_from_flax(params: dict, batch_stats=None,
                         if (m := _GRAPHORMER.match(k)))
     for i, k in graphormer:
         out.update(graphormer_layer_state_dict(params[k], f"layers.{i}"))
+    san = sorted((int(m.group(1)), k) for k in params
+                 if (m := _SAN.match(k)))
+    for i, k in san:
+        out.update(san_layer_state_dict(
+            params[k], None if batch_stats is None else batch_stats.get(k),
+            f"layers.{i}"))
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
         out.update(gps_layer_state_dict(p, s, f"layers.{i}", merged))
     if "GraphormerGraphHead_0" in params:
@@ -178,8 +218,8 @@ def _dense_list(out: dict, prefix: str, tree: dict, first: int = 0,
 
 def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
     """The FeatureEncoder's flax trees: embedding tables (Atom, Bond) or one
-    Dense (VOCNode/LinearNode, VOCEdge/LinearEdge), and RWSE or LapPE (its
-    DeepSet Denses, then one post Dense or the post ``MLP_0``)."""
+    Dense (VOCNode/LinearNode, VOCEdge/LinearEdge), and RWSE or LapPE (as a
+    DeepSet or a Transformer)."""
     def stats(name):
         return None if fs is None else fs[name]["MaskedBatchNorm_0"]
 
@@ -208,15 +248,51 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
         if "MaskedBatchNorm_0" in lap:
             _bn(out, "encoder.lap.raw_norm", lap["MaskedBatchNorm_0"],
                 stats("LapPENodeEncoder_0"))
-        n = sum(k.startswith("Dense_") for k in lap)
-        if "MLP_0" in lap:
-            _dense_list(out, "encoder.lap.post.layers", lap["MLP_0"])
-        elif n > 1 and _square(lap[f"Dense_{n - 1}"]):
-            # dim_pe → dim_pe: the one post layer (the DeepSet's own last
-            # Dense narrows 2·dim_pe to dim_pe)
-            _dense_list(out, "encoder.lap.post.layers", lap, n - 1, 1)
-            n -= 1
-        _dense_list(out, "encoder.lap.pre", lap, 0, n)
+        if "DenseGeneral_0" in lap:
+            _lappe_transformer_state_dict(out, lap)
+        else:
+            _lappe_deepset_state_dict(out, lap)
+
+
+def _lappe_deepset_state_dict(out: dict, lap: dict) -> None:
+    """LapPE's DeepSet form: its Denses, then one post Dense or the post
+    ``MLP_0``."""
+    n = sum(k.startswith("Dense_") for k in lap)
+    if "MLP_0" in lap:
+        _dense_list(out, "encoder.lap.post.layers", lap["MLP_0"])
+    elif n > 1 and _square(lap[f"Dense_{n - 1}"]):
+        # dim_pe → dim_pe: the one post layer (the DeepSet's own last Dense
+        # narrows 2·dim_pe to dim_pe)
+        _dense_list(out, "encoder.lap.post.layers", lap, n - 1, 1)
+        n -= 1
+    _dense_list(out, "encoder.lap.pre", lap, 0, n)
+
+
+def _lappe_transformer_state_dict(out: dict, lap: dict) -> None:
+    """LapPE's Transformer form. flax numbers in call order: ``Dense_0``
+    (``linear_a``); per layer l ``DenseGeneral_{3l..3l+2}`` (q, k, v, with
+    biases) → ``qkv``, ``Dense_{1+3l}`` → ``out``, ``LayerNorm_{2l}`` →
+    ``norm1``, ``Dense_{2+3l}``/``Dense_{3+3l}`` → ``ffn1``/``ffn2``,
+    ``LayerNorm_{2l+1}`` → ``norm2``; then the post layers (``Dense``s after
+    the stack, or ``MLP_0``)."""
+    layers = sum(k.startswith("DenseGeneral_") for k in lap) // 3
+    _linear(out, "encoder.lap.linear_a", lap["Dense_0"])
+    for li in range(layers):
+        pre = f"encoder.lap.transformer.{li}"
+        qkv = [lap[f"DenseGeneral_{3 * li + j}"] for j in range(3)]
+        out[f"{pre}.qkv.weight"] = np.concatenate(
+            [_flat(g["kernel"]) for g in qkv], axis=1).T
+        out[f"{pre}.qkv.bias"] = np.concatenate([_flat(g["bias"]) for g in qkv])
+        for name, dense in (("out", 1), ("ffn1", 2), ("ffn2", 3)):
+            _linear(out, f"{pre}.{name}", lap[f"Dense_{dense + 3 * li}"])
+        for j in (0, 1):
+            ln = lap[f"LayerNorm_{2 * li + j}"]
+            out[f"{pre}.norm{j + 1}.weight"] = ln["scale"]
+            out[f"{pre}.norm{j + 1}.bias"] = ln["bias"]
+    if "MLP_0" in lap:
+        _dense_list(out, "encoder.lap.post.layers", lap["MLP_0"])
+    else:
+        _dense_list(out, "encoder.lap.post.layers", lap, 1 + 3 * layers)
 
 
 def _graphormer_bias_state_dict(out: dict, gb: dict) -> None:

@@ -188,6 +188,6 @@ def test_optimizer_refuses_unported_settings():
     cfg.optim.optimizer = "sgd"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))])
-    cfg.optim.scheduler = "reduce_on_plateau"
+    cfg.optim.scheduler = "step"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_schedule(cfg)

@@ -285,15 +285,6 @@ def test_lappe_encoder_matches_jax(monkeypatch, loaders, raw_norm, layers,
                                        rtol=1e-5, atol=1e-6)
 
 
-def test_lappe_transformer_refused():
-    from graphgps_torch.models.networks import build_model
-
-    _, tcfg = small_cfgs("posenc_LapPE.model", "Transformer",
-                         cfg_path=VOC_CFG, small=VOC_SMALL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        build_model(tcfg, 5, 248)
-
-
 def _jax_model(jcfg, dim_out, jb):
     from graphgps_tpu.models.networks import build_model as jbuild
 

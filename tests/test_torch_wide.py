@@ -487,6 +487,6 @@ def test_layer_refuses_graphs_beyond_the_wide_kernel():
 
     batch, x, e, *_ = _blocked_batch(1, WIDE_MAX_NODES + 8, 8, 64, seed=1)
     layer = GPSLayer(64, 4).eval()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         layer(torch_batch(batch), torch.from_numpy(np.array(x)),
               torch.from_numpy(np.array(e)))
