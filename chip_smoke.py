@@ -50,17 +50,32 @@ one. Phases, each fatal on failure:
    computations' rounding puts on different sides must lie within rounding
    of 0); no single PyTorch call computes the norm apply and the FFN, so
    these rows have no ``library_ms``;
+3g. the GPS FFN block's kernel, ``ffn``, forward and backward, on layer
+   0's inputs of the sixth main path in training (wn-squirrel
+   GCN+Transformer: one graph of 5,201 nodes in 5,248 node slots, d=96; the
+   branch sum of its GCN and attention branches at the recipe's dropout) at
+   the recipe's rate 0.2 and at 0, with gelu (the recipe's) and relu, and
+   at the actor width on seeded inputs (R = 7,680, d=64) at 0.2, within
+   rtol 1e-5 and atol 1e-5 of each tensor's largest entry, with
+   bit-identical backward reruns, each kept fraction on the u8 grid, and
+   relu's derivative in the plain versions on the kernel's side of each
+   kink; no single PyTorch call computes the FFN block, so these rows have
+   no ``library_ms``;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
    32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, ZINC
-   Graphormer 12x80 with 8 heads and the graph token at batch 256, then
+   Graphormer 12x80 with 8 heads and the graph token at batch 256,
    ogbg-molhiv SAN 10x64 with 4 heads, LapPE's Transformer and the plateau
-   scheduler at batch 64), each with every launch count set to 0 just
-   before a run and read just after:
+   scheduler at batch 64, then wn-squirrel GCN+Transformer 3x96 with 4
+   heads on its one transductive graph, the chunked attention and the
+   split masks), each with every launch count set to 0 just before a run
+   and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
-   b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1): one
-      stats line per epoch and split with finite losses (``auc`` on
-      ogbg-molhiv, ``f1`` on VOC, ``mae`` otherwise), the launches per layer
+   b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1,
+      checkpoints on): one stats line per epoch and split (val and test at
+      the evaluated epochs: every ``eval_period`` and the last) with finite
+      losses (``auc`` on ogbg-molhiv, ``f1`` on VOC, ``accuracy`` on
+      wn-squirrel, ``mae`` otherwise), the launches per layer
       and training step (forward ones
       also per evaluated batch where evaluation runs them; the edge tail's
       backward in all layers but the last, whose edge output does not reach
@@ -68,23 +83,27 @@ one. Phases, each fatal on failure:
       with the same selection metric (and, under ``reduce_on_plateau``, the
       scheduler's state of that epoch);
    c. one training step on the card and on the CPU (the plain path) from the
-      same weights (calibrated BatchNorm statistics; the Graphormer has
-      none), batch and dropout seeds: loss, every gradient, the updated running statistics and the
-      updated parameters; the same step in float64 on the CPU is the
-      reference of a gradient behind an ill-conditioned norm;
+      same weights (calibrated BatchNorm statistics; the Graphormer and
+      wn-squirrel have none), batch and dropout seeds: loss, every
+      gradient, the updated running statistics and the updated parameters;
+      where a gradient is outside the tolerance, the same step in float64
+      on the CPU is the reference of a gradient behind an ill-conditioned
+      norm;
    d. one batch's predictions (logits) against the same model on the CPU
       with calibrated BatchNorm statistics; the inference rate in graphs/s
       over full batches, then a profile of the same loop for the device time
       by CUDA kernel and the device's idle share;
    e. the same for training steps (forward, backward, clipping, adamW),
-      with the peak device memory.
+      with the peak device memory (on wn-squirrel, whose epoch is one step,
+      over SQUIRREL_RATE_BATCHES repeats of its one batch).
 
-The line before the last is ``{"kernels": [...]}`` (the six kernels of the
-merged path at GPS-deep's shapes, the four of the unmerged path at
+A ``{"phase_done": ...}`` line gives the seconds since the start after each
+phase. The line before the last is ``{"kernels": [...]}`` (the six kernels
+of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
 Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
-ogbg-molhiv SAN's: eighteen); the last line is
-``{"ok": true, "device": {...}}``.
+ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's: twenty);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -105,6 +124,10 @@ PCQM_GPS_CFG = "configs/GPS/pcqm4m-GPS+RWSE.yaml"
 VOC_CFG = "configs/GPS/vocsuperpixels-GPS.yaml"
 ZINC_CFG = "configs/Graphormer/zinc-Graphormer.yaml"
 SAN_CFG = "configs/SAN/ogbg-molhiv-SAN.yaml"
+SQUIRREL_CFG = "configs/GPS/wn-squirrel-GPS.yaml"
+# the transductive stand-in at wn-squirrel's node count: one graph of 5,201
+# nodes (5,248 node slots), one batch per split
+SQUIRREL_OPTS = ["dataset.synth_num_graphs", "5201"]
 # the VOC stand-in at the real data's size: graphs of 400-500 nodes (512 node
 # slots), 21 classes; 160 graphs give 4 full training batches of 32 and one
 # half-filled batch each for val and test (graphs with no real node)
@@ -135,6 +158,11 @@ ZINC_LAUNCHES = {"ln_ffn": (1, 1), "ln_ffn_bwd": (1, 0)}
 # (d = 64, no multiple of 128) JAX takes the plain norm and FFN, and so does
 # the port: 0 launches per evaluated batch
 SAN_LAUNCHES = {"bn_ffn": (1, 0), "bn_ffn_bwd": (1, 0)}
+# wn-squirrel (GCN+Transformer): per layer and training step the FFN once
+# and the local and attention drop-adds; in evaluation (d = 96, no dropout)
+# JAX's plain FFN and plain adds, so no kernel
+SQUIRREL_LAUNCHES = {"ffn": (1, 0), "ffn_bwd": (1, 0), "drop_add": (2, 0),
+                     "drop_add_bwd": (2, 0)}
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (the kernels run f32 on CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -157,8 +185,10 @@ MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
 # the front's moment sums run over ~6e3 rows: error relative to the sum of
 # the terms' magnitudes (f32 sequential sums stay well inside n*eps ≈ 6e-4)
 MOMENT_RTOL = 1e-5
-# the rates: full batches per timed pass, and timed passes
-RATE_BATCHES = 40
+# the rates: full batches per timed pass (40 until the sixth path joined
+# the script: halved to keep it well inside its time limit), and timed
+# passes
+RATE_BATCHES = 20
 RATE_PASSES = 3
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
@@ -179,6 +209,14 @@ LN_FFN_RTOL, LN_FFN_ATOL = 1e-5, 1e-5
 # seeded inputs, 40 node slots a graph as the molhiv stand-in's
 BN_FFN_RTOL, BN_FFN_ATOL = 1e-5, 1e-5
 MOLPCBA_ROWS, MOLPCBA_DIM, MOLPCBA_RATE = 512 * 40, 304, 0.2
+# phase 3g: the FFN block at the actor width (configs/GPS/actor-GPS.yaml:
+# 7,600 nodes in 7,680 slots, d = 64) on seeded inputs, every row read; the
+# wn-squirrel rows take layer 0's inputs. The same tolerance as 3e and 3f
+FFN_RTOL, FFN_ATOL = 1e-5, 1e-5
+ACTOR_ROWS, ACTOR_DIM = 7680, 64
+# rate batches of the wn-squirrel recipe: one epoch is one step over the one
+# train batch, and a step runs ~20k launches of the chunked attention
+SQUIRREL_RATE_BATCHES = 5
 # a relu unit whose side of the kink the kernel's and the plain version's
 # rounding part lies within this much of the pre-activations' largest
 # entry from 0 (f32 sums of 64 to 304 products)
@@ -1207,6 +1245,123 @@ def check_bn_ffn(torch, cfg_path: str, opts, device):
     return rows, {k: v.clone() for k, v in model.state_dict().items()}
 
 
+def ffn_cases(torch, ins, rate: float, act: str, n_real: int,
+              shapes: dict, tag: str) -> list:
+    """The forward and backward rows of ``ffn`` on ``ins`` (h, W1, b1, W2,
+    b2) at dropout ``rate`` on both sites (the GPS layer's ``drop2``) and
+    activation ``act``, ``n_real`` of the R rows read. At relu the plain
+    version takes the kernel's side of each kink (its a1 > 0), and a unit
+    the two put on different sides must lie within KINK_RTOL of the
+    pre-activations' largest entry from 0 (``relu_kink_flips`` in the
+    rows)."""
+    from graphgps_torch.ops.kernels import ffn
+
+    conf = (DROP_SEED, rate, act, True)
+    R, d = ins[0].shape
+    dh = ins[1].shape[1]
+    src = "graphgps_torch/csrc/ffn.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_tail.py"
+    tol = (FFN_RTOL, FFN_ATOL)
+    cots_for = cotangents(torch, SEED + 12, ins[0].device)
+    mask, n_flips = None, 0
+    if act == "relu":
+        with torch.no_grad():
+            a1 = ffn._launch_forward(ins, *conf, keep_a1=True)[1]
+            a1_plain = ins[0] @ ins[1] + ins[2]
+            mask = (a1 > 0).float()
+            flips = (a1_plain > 0).float() != mask
+            n_flips = int(flips.sum())
+            far = float(a1_plain[flips].abs().max()) if n_flips else 0.0
+            top = float(a1_plain.abs().max())
+        print(json.dumps(dict(shape=tag, rate=rate, relu_kink_flips=n_flips,
+                              largest_flipped_preactivation=far,
+                              largest_preactivation=top)), flush=True)
+        if far > KINK_RTOL * top:
+            fail(f"ffn: a relu unit {far} from 0 takes another side in the "
+                 "kernel than in its plain version")
+
+    def run(cots=None):
+        out = ffn._launch_forward(ins, *conf)
+        cots = cots or cots_for([out])
+        return cots, lambda: ffn.ffn_backward(*ins, cots[0], *conf)
+
+    # the activation's operations per hidden unit, the bias and dropout's
+    act_ops = 8 if act == "gelu" else 1
+    fwd = dict(name="ffn", fn=ffn.fused_ffn,
+               plain=lambda *a: ffn.ffn_plain(*a, relu_mask=mask),
+               args=(*ins, *conf), tol=tol, source=src,
+               replaces=f"{tpu}:387",
+               # the two products on the rows that are read, the bias, act
+               # and dropout of the hidden units, the residual
+               flops=4 * n_real * d * dh + (act_ops + 2) * n_real * dh
+               + 3 * n_real * d)
+    bwd = dict(name="ffn_bwd", run=run,
+               plain=lambda c: ffn.ffn_backward_plain(
+                   *ins, c[0], *conf, relu_mask=mask),
+               inputs=ins, source=src, replaces=f"{tpu}:433",
+               sites=([("FFN inner", R, dh, 1), ("FFN outer", R, d, 2)]
+                      if rate > 0 else []), tol=tol,
+               # a1 = H W1 recomputed, dU = dA2 W2^T, dH = dA1 W1^T,
+               # dW1 = H^T dA1, dW2 = Z^T dA2; act', the masks, the sums
+               flops=10 * n_real * d * dh + (act_ops + 4) * n_real * dh
+               + 3 * n_real * d)
+    at = dict(shapes, rate=rate, act=act)
+    rows = [forward_case(torch, fwd, at), backward_case(torch, bwd, DROP_SEED,
+                                                        rate, at)]
+    for r in rows:
+        r.update(shape=tag, rate=rate, act=act, relu_kink_flips=n_flips)
+    return rows
+
+
+def check_ffn(torch, cfg_path: str, opts, device):
+    """Phase 3g: the GPS FFN block (``ffn``), forward and backward, kernel
+    against plain version, on layer 0's inputs of the recipe ``cfg_path``
+    (``opts`` on top) in training: the branch sum h of the seeded model's
+    first layer (the GCN and attention branches with their drop-adds at the
+    recipe's rates), at rate 0.2 and 0 with gelu and relu; then at the actor
+    width on seeded inputs. Returns (rows, the seeded model's state dict);
+    every row carries ``shape``, ``rate`` and ``act``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, infer_dims
+    from graphgps_torch.models.networks import build_model
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+    model = model.to(device).train()
+    layer = model.layers[0]
+    gen = torch.Generator().manual_seed(DROP_SEED)
+    with torch.no_grad():
+        x, e = model.encoder(batch, gen)
+        h, _ = layer.branch_sum(batch, x, e, [DROP_SEED + i for i in range(3)])
+    ins = tuple(t.detach().contiguous() for t in (
+        h, layer.w_ffn1, layer.b_ffn1, layer.w_ffn2, layer.b_ffn2))
+    n_real = int(batch.node_mask.sum())
+    R, d = h.shape
+    shapes = dict(B=batch.num_graphs, N=batch.max_nodes, R=R, d=d,
+                  dh=2 * d, real_rows=n_real)
+    rows = []
+    for act in ("gelu", "relu"):
+        for rate in (cfg.gt.dropout, 0.0):
+            rows += ffn_cases(torch, ins, rate, act, n_real, shapes,
+                              "wn-squirrel")
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    R, d = ACTOR_ROWS, ACTOR_DIM
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    actor = (rnd(R, d), rnd(d, 2 * d) / d ** 0.5, 0.1 * rnd(2 * d),
+             rnd(2 * d, d) / (2 * d) ** 0.5, 0.1 * rnd(d))
+    rows += ffn_cases(torch, actor, 0.2, "gelu", R,
+                      dict(B=1, N=R, R=R, d=d, dh=2 * d, real_rows=R),
+                      "actor width")
+    return rows, {k: v.clone() for k, v in model.state_dict().items()}
+
+
 def layers_of(cfg) -> int:
     """The recipe's layer count: the Graphormer's own, or the GPS layers."""
     if cfg.model.type == "Graphormer":
@@ -1246,20 +1401,22 @@ def check_training_run(torch, cfg, splits, run_dir, device, metric: str):
     from graphgps_torch.metrics import compute_task_metrics
     from graphgps_torch.models.networks import build_model
     from graphgps_torch.train import checkpoint
-    from graphgps_torch.train.loop import loss_mask
+    from graphgps_torch.train.loop import is_eval_epoch, loss_mask
 
+    evaluated = [i for i in range(TRAIN_EPOCHS) if is_eval_epoch(cfg, i)]
     for split in ("train", "val", "test"):
         path = os.path.join(run_dir, split, "stats.json")
         rows = [json.loads(line) for line in open(path).read().splitlines()]
-        if [r["epoch"] for r in rows] != list(range(TRAIN_EPOCHS)):
+        want = list(range(TRAIN_EPOCHS)) if split == "train" else evaluated
+        if [r["epoch"] for r in rows] != want:
             fail(f"{split}: stats.json epochs {[r['epoch'] for r in rows]}")
         if not all(math.isfinite(r["loss"]) and math.isfinite(r[metric])
                    for r in rows):
             fail(f"{split}: non-finite loss or no {metric} in {rows}")
         if split == "val":
-            val = rows
+            val = {r["epoch"]: r for r in rows}
     sign = 1.0 if metric == "mae" else -1.0
-    best = min(range(TRAIN_EPOCHS), key=lambda i: sign * val[i][metric])
+    best = min(evaluated, key=lambda i: sign * val[i][metric])
     saved = checkpoint.saved_epochs(run_dir)
     if saved != [best]:
         fail(f"checkpoints {saved}, expected the best epoch {best}")
@@ -1310,11 +1467,13 @@ def check_train_step(torch, cfg, splits, batch, device, state):
     loses four digits of its variance to cancellation, and the two summation
     orders then part by 1e-3.
 
-    The step also runs in float64 on the CPU, as the reference of the
-    gradients' precision. A norm column with a variance of 3e-5 against the
-    norm's eps of 1e-5 multiplies every rounding difference before it by
-    150, forward and backward, and two f32 runs then part by up to 1e-2 of a
-    gradient's scale, each as far from the f64 run. A gradient of the card
+    Where a gradient lies outside that tolerance, the step also runs in
+    float64 on the CPU, as the reference of the gradients' precision (only
+    then: an f64 step of a deep model takes long on the CPU). A norm column
+    with a variance of 3e-5 against the norm's eps of 1e-5 multiplies every
+    rounding difference before it by 150, forward and backward, and two f32
+    runs then part by up to 1e-2 of a gradient's scale, each as far from the
+    f64 run. A gradient of the card
     passes when it is within the tolerance of the CPU's f32 gradient, or,
     unless it is one of NO_NORM_BEHIND (its way back from the loss passes no
     norm), within F64_GRAD_TOL of its scale of the f64 gradient. One f32
@@ -1358,35 +1517,43 @@ def check_train_step(torch, cfg, splits, batch, device, state):
     # BatchNorm) holds rounding noise on both sides: its scale is floored
     # at 1e-2 of the largest gradient entry of the model
     floor = 1e-2 * max(float(g.abs().max()) for g in gc.values())
-    m = copy.deepcopy(model).double().train()
-    m.load_state_dict({k: v.double() for k, v in init.items()})
-    opt = build_optimizer(cfg, m.parameters())
-    set_lr(opt, lr)
-    train_step(cfg, m, opt, batch.to("cpu"),
-               torch.Generator().manual_seed(DROP_SEED))
-    g64 = {k: p.grad for k, p in m.named_parameters() if p.grad is not None}
-    scale = {k: max(floor, float(g64[k].abs().max())) for k in gc}
-    far = lambda g: {k: float((g[k].double() - g64[k]).abs().max())  # noqa
-                     / scale[k] for k in gc}
-    far_gpu, far_cpu = far(gg), far(gc)
     worst, g_err, g_rel = None, 0.0, 0.0
-    by_f64 = []
+    outside = []
     for k in gc:
         ok, e_, r_ = grads_close(torch, [gg[k]], [gc[k]], STEP_GRAD_RTOL,
                                  STEP_GRAD_ATOL, floor)
         if r_ >= g_rel:
             worst, g_err, g_rel = k, e_, r_
-        if not ok and not k.startswith(NO_NORM_BEHIND):
-            by_f64.append(k)
-            ok = far_gpu[k] <= F64_GRAD_TOL
-        if not ok:
+        if ok:
+            continue
+        if k.startswith(NO_NORM_BEHIND):
             problems.append(f"gradient of {k} differs: max {e_} ({r_} of "
-                            f"its scale); {far_gpu[k]} of it from f64, the "
-                            f"CPU's {far_cpu[k]}")
-    f64 = dict(grad_gpu_from_f64_over_scale=max(far_gpu.values()),
-               grad_cpu_f32_from_f64_over_scale=max(far_cpu.values()),
-               tensors_held_to_f64=len(by_f64), tensors=len(gc),
+                            "its scale)")
+        else:
+            outside.append((k, e_, r_))
+    f64 = dict(tensors_held_to_f64=len(outside), tensors=len(gc),
                f64_grad_tol=F64_GRAD_TOL)
+    if outside:
+        # the f64 step on the CPU, the reference of these gradients
+        m = copy.deepcopy(model).double().train()
+        m.load_state_dict({k: v.double() for k, v in init.items()})
+        opt = build_optimizer(cfg, m.parameters())
+        set_lr(opt, lr)
+        train_step(cfg, m, opt, batch.to("cpu"),
+                   torch.Generator().manual_seed(DROP_SEED))
+        g64 = {k: p.grad for k, p in m.named_parameters()
+               if p.grad is not None}
+        scale = {k: max(floor, float(g64[k].abs().max())) for k in gc}
+        far = lambda g: {k: float((g[k].double() - g64[k]).abs().max())  # noqa
+                         / scale[k] for k in gc}
+        far_gpu, far_cpu = far(gg), far(gc)
+        for k, e_, r_ in outside:
+            if far_gpu[k] > F64_GRAD_TOL:
+                problems.append(f"gradient of {k} differs: max {e_} ({r_} "
+                                f"of its scale); {far_gpu[k]} of it from f64, "
+                                f"the CPU's {far_cpu[k]}")
+        f64.update(grad_gpu_from_f64_over_scale=max(far_gpu.values()),
+                   grad_cpu_f32_from_f64_over_scale=max(far_cpu.values()))
     stat_err, p_err, moved, n_clean = 0.0, 0.0, 0.0, 0
     for k in sc:
         a, b = sg[k], sc[k]
@@ -1424,15 +1591,16 @@ def check_train_step(torch, cfg, splits, batch, device, state):
         fail("training step, card vs CPU: " + "; ".join(problems))
 
 
-def rate_loader(cfg, splits, loader, device):
-    """RATE_BATCHES full batches of the train split's graphs, repeated in
-    order, at the main path's shapes (the same N and edge block): the
-    stand-in's splits are small enough that partial batches, which do a
-    full batch's work, would otherwise weigh on the rate."""
+def rate_loader(cfg, splits, loader, device, batches: int = RATE_BATCHES):
+    """``batches`` full batches of the train split's graphs, repeated in
+    order, at the main path's shapes (the same batch size, N and edge
+    block): the stand-in's splits are small enough that partial batches,
+    which do a full batch's work, would otherwise weigh on the rate. A
+    transductive split's one batch is its one graph, repeated."""
     from graphgps_torch.data.loader import DeviceLoader
 
-    bs = cfg.train.batch_size
-    n = RATE_BATCHES * bs
+    bs = loader.batch_size
+    n = batches * bs
     graphs = (splits.train * -(-n // len(splits.train)))[:n]
     return DeviceLoader(graphs, bs, device, max_nodes=loader.max_nodes,
                         max_edges=bs * loader.arenas.edge_cap,
@@ -1500,18 +1668,24 @@ def measure(torch, step, loader, unit: str, top: int) -> dict:
 
 
 def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
-                 state: dict, device, card: str, extra=()):
+                 state: dict, device, card: str, extra=(),
+                 rate_batches: int = RATE_BATCHES):
     """Phase 4 for one main path: the entry point in evaluation and in
     training with the launch counts read around each run, one training step
-    card vs CPU, predictions card vs CPU, and both rates. ``state`` is the
-    calibrated state dict the evaluation runs and the training step of 4c
-    start from; ``extra`` are config overrides of every run. Returns the training run's launch counts."""
+    card vs CPU, predictions card vs CPU, and both rates over
+    ``rate_batches`` full batches a pass. ``state`` is the calibrated state
+    dict the evaluation runs and the training step of 4c start from;
+    ``extra`` are config overrides of every run. The training run keeps
+    checkpoints (``train.enable_ckpt``, which a recipe may turn off) to
+    check the best one's round trip. Returns the training run's launch
+    counts."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders, main as port_main
     from graphgps_torch.ops import kernels
     from graphgps_torch.optim import build_optimizer, set_lr
-    from graphgps_torch.train.loop import eval_step, loss_mask, train_step
+    from graphgps_torch.train.loop import (eval_step, is_eval_epoch,
+                                           loss_mask, train_step)
 
     def cfg_of(opts):
         cfg = new_cfg()
@@ -1519,21 +1693,28 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
         update_from_list(cfg, opts)
         return cfg
 
+    t_recipe = time.perf_counter()
+
+    def mark(sub: str) -> None:
+        print(json.dumps(dict(path=name, subphases_done=sub,
+                              elapsed_s=time.perf_counter() - t_recipe)),
+              flush=True)
+
     with tempfile.TemporaryDirectory() as out_dir:
         # a. the evaluation path through the entry point
         opts = [*extra, "train.mode", "inference-only", "seed", str(SEED),
                 "out_dir", out_dir]
         cfg = cfg_of(opts)
         splits = load_dataset(cfg)
-        bs, layers = cfg.train.batch_size, layers_of(cfg)
+        loaders = create_loaders(cfg, splits, device)
+        layers = layers_of(cfg)
         held = {}
 
         def prepare(model):
             model.load_state_dict(state)
             held["model"] = model
 
-        batches = sum(math.ceil(len(s) / bs)
-                      for s in (splits.train, splits.val, splits.test) if s)
+        batches = sum(len(v) for v in loaders.values())
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         hist = port_main(["--cfg", cfg_path, *opts], prepare_model=prepare)
@@ -1554,7 +1735,8 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
         train_opts = [*extra, "train.mode", "custom", "seed", str(SEED),
                       "optim.max_epoch", str(TRAIN_EPOCHS),
                       "optim.num_warmup_epochs", "1", "train.ckpt_best",
-                      "True", "out_dir", os.path.join(out_dir, "train")]
+                      "True", "train.enable_ckpt", "True",
+                      "out_dir", os.path.join(out_dir, "train")]
         tcfg = cfg_of(train_opts)
         trained = {}
         kernels.reset_launch_counts()
@@ -1564,9 +1746,9 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_counts = kernels.launch_counts()
-        steps = TRAIN_EPOCHS * math.ceil(len(splits.train) / bs)
-        evals = TRAIN_EPOCHS * sum(math.ceil(len(s) / bs)
-                                   for s in (splits.val, splits.test))
+        steps = TRAIN_EPOCHS * len(loaders["train"])
+        evals = sum(is_eval_epoch(tcfg, i) for i in range(TRAIN_EPOCHS)) * \
+            sum(len(loaders[s]) for s in ("val", "test") if s in loaders)
         check_launches(f"{name} training", train_counts,
                        expected_launches(table, layers, steps, evals,
                                          train_counts),
@@ -1576,11 +1758,12 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
                                os.path.splitext(os.path.basename(cfg_path))[0],
                                str(SEED))
         check_training_run(torch, tcfg, splits, run_dir, device, metric)
+        mark("a, b")
 
         # c. one training step, card vs CPU
-        loaders = create_loaders(cfg, splits, device)
         _real, train_batch = next(iter(loaders["train"]))
         check_train_step(torch, tcfg, splits, train_batch, device, state)
+        mark("c")
 
         # d. the evaluation model on the CPU, and the inference rate
         model = held["model"]
@@ -1602,7 +1785,9 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
         if not torch.allclose(pg, pc, rtol=MODEL_RTOL, atol=MODEL_ATOL):
             fail(f"{name}: GPU vs CPU predictions differ (max abs err {err})")
 
-        full = rate_loader(cfg, splits, loaders["train"], device)
+        mark("d")
+        full = rate_loader(cfg, splits, loaders["train"], device,
+                           rate_batches)
         rate = measure(torch, lambda b: eval_step(cfg, model, b), full,
                        "batch", 15)
         print(json.dumps(dict(path=name, mode="evaluation", **rate,
@@ -1618,6 +1803,7 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
                        "step", 30)
         print(json.dumps(dict(path=name, mode="training", **rate,
                               card=card)), flush=True)
+        mark("e")
     return train_counts
 
 
@@ -1637,10 +1823,17 @@ def main() -> None:
     except ImportError as e:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
-    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG, SAN_CFG):
+    for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG, SAN_CFG,
+                 SQUIRREL_CFG):
         if not os.path.exists(path):
             fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(json.dumps(dict(phase_done=name,
+                              elapsed_s=time.perf_counter() - t_start)),
+              flush=True)
 
     # 1. the card
     card = smi()
@@ -1665,6 +1858,7 @@ def main() -> None:
     rows, state, layer0 = check_kernels(torch, cfg, load_dataset(cfg), device)
     rows += check_backward(torch, layer0)
     del layer0
+    phase("3, 3b")
 
     # 3c. the unmerged path's kernels at ogbg-molhiv's shapes and at the
     # pcqm4m-GPS+RWSE width (layer 0 is all that shape needs)
@@ -1674,6 +1868,7 @@ def main() -> None:
                    ["seed", str(SEED), "gt.layers", "1"], device)
     new = ("gatedgcn", "gatedgcn_bwd", "drop_add", "drop_add_bwd")
     rows += [r for r in mol_rows if r["name"] in new]
+    phase("3c")
 
     # 3d. the long-graph rung's kernels at VOC's shapes; the kernels line
     # takes the rows at the recipe's attention dropout
@@ -1683,12 +1878,14 @@ def main() -> None:
     rows += [r for r in voc_rows if r["shape"] == "voc"
              and r.get("attn_rate", voc_cfg.gt.attn_dropout)
              == voc_cfg.gt.attn_dropout]
+    phase("3d")
 
     # 3e. the Graphormer MLP block's kernel at zinc-Graphormer's shapes; the
     # kernels line takes the rows at the recipe's training rates
     zinc_rows, zinc_state = check_ln_ffn(torch, ZINC_CFG,
                                          ["seed", str(SEED)], device)
     rows += [r for r in zinc_rows if r["rates"] == list(LN_FFN_RATES[1])]
+    phase("3e")
 
     # 3f. SAN's norm apply + FFN at ogbg-molhiv SAN's shapes and at the
     # molpcba-SAN width; the kernels line takes the rows at the recipe's rate
@@ -1696,18 +1893,37 @@ def main() -> None:
                                        device)
     rows += [r for r in san_rows
              if r["shape"] == "ogbg-molhiv-SAN" and r["rate"] > 0]
+    phase("3f")
 
-    # 4. the five main paths
+    # 3g. the GPS FFN block at wn-squirrel's shapes and at the actor width;
+    # the kernels line takes the rows at the recipe's rate and activation
+    sq_opts = [*SQUIRREL_OPTS, "seed", str(SEED)]
+    sq_rows, sq_state = check_ffn(torch, SQUIRREL_CFG, sq_opts, device)
+    rows += [r for r in sq_rows if r["shape"] == "wn-squirrel"
+             and r["rate"] > 0 and r["act"] == "gelu"]
+    phase("3g")
+
+    # 4. the six main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
+    phase("4 pcqm4m-GPSdeep")
     mol_counts = drive_recipe(torch, "ogbg-molhiv", MOLHIV_CFG,
                               MOLHIV_LAUNCHES, "auc", mol_state, device, card)
+    phase("4 ogbg-molhiv")
     voc_counts = drive_recipe(torch, "vocsuperpixels", VOC_CFG, VOC_LAUNCHES,
                               "f1", voc_state, device, card, extra=VOC_OPTS)
+    phase("4 vocsuperpixels")
     zinc_counts = drive_recipe(torch, "zinc-Graphormer", ZINC_CFG,
                                ZINC_LAUNCHES, "mae", zinc_state, device, card)
+    phase("4 zinc-Graphormer")
     san_counts = drive_recipe(torch, "ogbg-molhiv-SAN", SAN_CFG,
                               SAN_LAUNCHES, "auc", san_state, device, card)
+    phase("4 ogbg-molhiv-SAN")
+    sq_counts = drive_recipe(torch, "wn-squirrel", SQUIRREL_CFG,
+                             SQUIRREL_LAUNCHES, "accuracy", sq_state, device,
+                             card, extra=SQUIRREL_OPTS,
+                             rate_batches=SQUIRREL_RATE_BATCHES)
+    phase("4 wn-squirrel")
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
@@ -1718,12 +1934,15 @@ def main() -> None:
             path, counts = "zinc-Graphormer", zinc_counts
         elif r["name"] in SAN_LAUNCHES:
             path, counts = "ogbg-molhiv-SAN", san_counts
+        elif r["name"] in ("ffn", "ffn_bwd"):
+            path, counts = "wn-squirrel", sq_counts
         r["launches"] = counts[r["name"]]
         r["main_path"] = path
         r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
         r["launches_vocsuperpixels"] = voc_counts[r["name"]]
         r["launches_zinc_graphormer"] = zinc_counts[r["name"]]
         r["launches_ogbg_molhiv_san"] = san_counts[r["name"]]
+        r["launches_wn_squirrel"] = sq_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
@@ -1734,7 +1953,8 @@ def main() -> None:
                            "launches_ogbg_molhiv",
                            "launches_vocsuperpixels",
                            "launches_zinc_graphormer",
-                           "launches_ogbg_molhiv_san")} for r in rows])),
+                           "launches_ogbg_molhiv_san",
+                           "launches_wn_squirrel")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

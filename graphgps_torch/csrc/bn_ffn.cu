@@ -16,21 +16,16 @@
 // Bound on the H100: the two products (forward 4*R*d*dh f32 operations,
 // backward twice that), so operations; at SAN's d = 64 the bytes come close.
 // Design, in launches on the caller's stream. Forward: an elementwise pass
-// writes h; the shared GEMM (gemm.cuh) computes z = drop1(act(h W1 + b1))
-// with the activation and dropout in its epilogue, then out = drop2(z W2 +
-// b2) + h. With a backward to follow the forward keeps h, z and the
-// pre-activation a1 (recomputing them would cost the first product again).
-// Backward: da2 = drop2(g) with its column sum (db2); du = da2 W2^T (NT GEMM);
-// da1 = drop1(du) * act'(a1) with its column sum (db1); dh = g + da1 W1^T (NT
-// GEMM, residual epilogue); dW1 = h^T da1 and dW2 = z^T da2 (TN GEMMs split
-// over rows); then one column pass over dh gives ds = dh * inv * gamma and
-// per-chunk partials of the four norm-vector sums dmu = -sum ds,
-// dinv = sum dh * gamma * (s - mu), dgamma = sum dh * (s - mu) * inv,
-// dbeta = sum dh. Every column sum adds partials in a fixed order (no float
-// atomics), so two runs give the same bits. The (R, dh) intermediates make
-// round trips through device memory; keeping them on chip, as the TPU kernel
-// does in VMEM, is later work.
-#include "gemm.cuh"
+// writes h, then the shared FFN block (ffn_core.cuh) computes
+// out = h + drop2(W2 drop1(act(W1 h + b1)) + b2). With a backward to follow
+// the forward keeps h, z and the pre-activation a1 (recomputing them would
+// cost the first product again). Backward: the FFN block's backward gives
+// dh, dW1, db1, dW2, db2; then one column pass over dh gives
+// ds = dh * inv * gamma and per-chunk partials of the four norm-vector sums
+// dmu = -sum ds, dinv = sum dh * gamma * (s - mu), dgamma = sum dh * (s - mu)
+// * inv, dbeta = sum dh, added in a fixed order (no float atomics), so two
+// runs give the same bits.
+#include "ffn_core.cuh"
 
 namespace ggps {
 namespace {
@@ -94,27 +89,15 @@ extern "C" int bn_ffn_forward(const float* s, const float* mu, const float* inv,
                                                                    h, total, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  Epi e1;
-  e1.bias = b1;
-  e1.pre = a1;
-  e1.act = act;
-  e1.drop = make_drop(seed, 1, t1, scale);
-  if ((err = gemm_nn(h, w1, z, R, dh, d, e1, st)) != cudaSuccess) return err;
-  Epi e2;
-  e2.bias = b2;
-  e2.res = h;
-  e2.drop = make_drop(seed, 2, t2, scale);
-  return gemm_nn(z, w2, out, R, d, dh, e2, st);
+  return ffn_core_forward(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
+                          make_drop(seed, 1, t1, scale), make_drop(seed, 2, t2, scale), st);
 }
 
 // floats of scratch bn_ffn_backward needs (reused by its passes in turn)
 extern "C" long long bn_ffn_backward_scratch(int R, int d, int dh) {
-  const long long chunks = row_chunks(R);
-  long long s = 4 * chunks * d;
-  s = s > chunks * dh ? s : chunks * dh;
-  s = s > (long long)tn_scratch(d, dh, R) ? s : (long long)tn_scratch(d, dh, R);
-  s = s > (long long)tn_scratch(dh, d, R) ? s : (long long)tn_scratch(dh, d, R);
-  return s;
+  const long long part = 4 * (long long)row_chunks(R) * d;
+  const long long core = ffn_core_scratch(R, d, dh);
+  return part > core ? part : core;
 }
 
 // Inputs: s (R, d), mu, inv, gamma (d,), W1 (d, dh), W2 (dh, d), the
@@ -131,27 +114,13 @@ extern "C" int bn_ffn_backward(const float* s, const float* mu, const float* inv
                                unsigned int seed, int t1, int t2, float scale,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  cudaError_t err = ffn_core_backward(h, a1, z, g, w1, w2, dhh, dw1, db1, dw2, db2, da2,
+                                      da1, scratch, R, d, dh, act,
+                                      make_drop(seed, 1, t1, scale),
+                                      make_drop(seed, 2, t2, scale), st);
+  if (err != cudaSuccess) return err;
   const int chunks = row_chunks(R);
   const dim3 blk(COLS, ROW_WARPS);
-  // da2 = drop2(g), db2 = sum da2
-  drop_grad_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
-      g, nullptr, da2, scratch, R, d, act, make_drop(seed, 2, t2, scale));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
-  // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
-  if ((err = gemm_nt(da2, w2, da1, R, dh, d, Epi(), st)) != cudaSuccess) return err;
-  drop_grad_kernel<<<dim3(cdiv(dh, COLS), chunks), blk, 0, st>>>(
-      da1, a1, da1, scratch, R, dh, act, make_drop(seed, 1, t1, scale));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db1, 1, chunks, dh, st)) != cudaSuccess) return err;
-  // dh = g + da1 W1^T: the residual rides h
-  Epi eres;
-  eres.res = g;
-  if ((err = gemm_nt(da1, w1, dhh, R, d, dh, eres, st)) != cudaSuccess) return err;
-  // weight gradients over all R rows
-  if ((err = gemm_tn(h, da1, dw1, d, dh, R, scratch, st)) != cudaSuccess) return err;
-  if ((err = gemm_tn(z, da2, dw2, dh, d, R, scratch, st)) != cudaSuccess) return err;
   // through the norm's apply: ds per element, the four vector sums per column
   bn_bwd_col_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(dhh, s, mu, inv, ga,
                                                                 ds, scratch, R, d);

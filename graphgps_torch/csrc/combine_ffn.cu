@@ -12,20 +12,15 @@
 //
 // Bound on the H100: the FFN's products (forward 4*R*d*dh f32 operations,
 // backward twice that), so operations. Design, in launches on the caller's
-// stream. Forward: an elementwise prologue forms h; the shared GEMM (gemm.cuh)
-// computes z = drop1(act(h W1 + b1)) with activation and dropout in its
-// epilogue, then out = drop2(z W2 + b2) + h. When a backward will follow, the
-// forward keeps h, the pre-activation a1 = h W1 + b1 and z (saving them costs
-// 2*R*dh + R*d floats a layer; recomputing would cost a third product).
-// Backward: da2 = drop2(g) with its column sum (db2); du = da2 W2^T (NT GEMM);
-// da1 = drop1(du) * act'(a1) with its column sum (db1); dh = g + da1 W1^T (NT
-// GEMM, residual epilogue); dW1 = h^T da1 and dW2 = z^T da2 (TN GEMMs split
-// over rows); then one pass over dh gives ds_attn, dv_loc and per-chunk
-// partials of the eight norm-vector sums. Every column sum adds per-chunk
-// partials in a fixed order (no float atomics), so two runs give the same
-// bits. The (R, dh) intermediates make round trips through device memory;
-// keeping them on chip, as the TPU kernel does in VMEM, is later work.
-#include "gemm.cuh"
+// stream. Forward: an elementwise prologue forms h, then the shared FFN block
+// (ffn_core.cuh) computes out = h + drop2(W2 drop1(act(W1 h + b1)) + b2).
+// When a backward will follow, the forward keeps h, the pre-activation
+// a1 = h W1 + b1 and z (saving them costs 2*R*dh + R*d floats a layer;
+// recomputing would cost a third product). Backward: the FFN block's
+// backward gives dh, dW1, db1, dW2, db2; then one pass over dh gives
+// ds_attn, dv_loc and per-chunk partials of the eight norm-vector sums,
+// added in a fixed order (no float atomics), so two runs give the same bits.
+#include "ffn_core.cuh"
 
 namespace ggps {
 namespace {
@@ -113,27 +108,15 @@ extern "C" int combine_ffn_forward(
       make_drop(seed, 0, t, scale));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  Epi e1;
-  e1.bias = b1;
-  e1.pre = a1;
-  e1.act = act;
-  e1.drop = make_drop(seed, 1, t, scale);
-  if ((err = gemm_nn(h, w1, z, R, dh, d, e1, st)) != cudaSuccess) return err;
-  Epi e2;
-  e2.bias = b2;
-  e2.res = h;
-  e2.drop = make_drop(seed, 2, t, scale);
-  return gemm_nn(z, w2, out, R, d, dh, e2, st);
+  return ffn_core_forward(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
+                          make_drop(seed, 1, t, scale), make_drop(seed, 2, t, scale), st);
 }
 
 // floats of scratch combine_ffn_backward needs (reused by its passes in turn)
 extern "C" long long combine_ffn_backward_scratch(int R, int d, int dh) {
-  const long long chunks = row_chunks(R);
-  long long s = 8 * chunks * d;
-  s = s > chunks * dh ? s : chunks * dh;
-  s = s > (long long)tn_scratch(d, dh, R) ? s : (long long)tn_scratch(d, dh, R);
-  s = s > (long long)tn_scratch(dh, d, R) ? s : (long long)tn_scratch(dh, d, R);
-  return s;
+  const long long part = 8 * (long long)row_chunks(R) * d;
+  const long long core = ffn_core_scratch(R, d, dh);
+  return part > core ? part : core;
 }
 
 // Inputs: the forward's operands, its saved h (R, d), a1 (R, dh), z (R, dh),
@@ -150,28 +133,13 @@ extern "C" int combine_ffn_backward(
     float* scratch, int R, int d, int dhid, int act, unsigned int seed, int t,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  cudaError_t err = ffn_core_backward(h, a1, z, g, w1, w2, dh, dw1, db1, dw2, db2, da2,
+                                      da1, scratch, R, d, dhid, act,
+                                      make_drop(seed, 1, t, scale),
+                                      make_drop(seed, 2, t, scale), st);
+  if (err != cudaSuccess) return err;
   const int chunks = row_chunks(R);
   const dim3 blk(COLS, ROW_WARPS);
-  // da2 = drop2(g), db2 = sum da2
-  drop_grad_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
-      g, nullptr, da2, scratch, R, d, act, make_drop(seed, 2, t, scale));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
-  // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
-  if ((err = gemm_nt(da2, w2, da1, R, dhid, d, Epi(), st)) != cudaSuccess) return err;
-  drop_grad_kernel<<<dim3(cdiv(dhid, COLS), chunks), blk, 0, st>>>(
-      da1, a1, da1, scratch, R, dhid, act, make_drop(seed, 1, t, scale));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db1, 1, chunks, dhid, st)) != cudaSuccess)
-    return err;
-  // dh = g + da1 W1^T
-  Epi eres;
-  eres.res = g;
-  if ((err = gemm_nt(da1, w1, dh, R, d, dhid, eres, st)) != cudaSuccess) return err;
-  // weight gradients over all R rows
-  if ((err = gemm_tn(h, da1, dw1, d, dhid, R, scratch, st)) != cudaSuccess) return err;
-  if ((err = gemm_tn(z, da2, dw2, dhid, d, R, scratch, st)) != cudaSuccess) return err;
   // both branches' elementwise backward and the eight norm-vector sums
   combine_tail_bwd_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
       dh, v, mux, ivx, gax, bex, sa, mua, iva, gaa, dv, dsa, scratch, R, d, act,

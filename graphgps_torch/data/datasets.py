@@ -1,12 +1,14 @@
 """Dataset loading for the port's paths: PCQM4Mv2, the OGB molecule sets
-(``ogbg-mol*``), ZINC and the VOC superpixels, and the synthetic families
-they fall back to.
+(``ogbg-mol*``), ZINC, the VOC superpixels and the transductive node sets
+(Actor, WebKB, WikipediaNetwork), and the synthetic families they fall back
+to.
 
 Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like`` and
 ``voc_like``, the same generators and the same random streams, so both
 packages see the same graphs for one seed), ``data/datasets/real.py`` (the
-PCQM4Mv2, ``ogbg-*``, ``PyG-ZINC`` and ``PyG-VOCSuperpixels`` → synthetic
-fallbacks, :73-84, :87-96, :106-112, :189-209 and :225-240) and
+PCQM4Mv2, ``ogbg-*``, ``PyG-ZINC``, ``PyG-VOCSuperpixels`` and transductive
+→ synthetic fallbacks, :73-84, :87-96, :106-112, :189-209, :225-240 and
+:277-330) and
 ``data/datasets/base.py``
 (``DatasetSplits``, ``load_dataset`` with the PE precompute).
 """
@@ -23,6 +25,9 @@ from ..pe.host import compute_posenc
 from .graph import Graph
 
 log = logging.getLogger("graphgps_torch")
+
+# the transductive node formats: one graph, per-split node masks
+TRANSDUCTIVE_FORMATS = ("PyG-Actor", "PyG-WebKB", "PyG-WikipediaNetwork")
 
 
 @dataclasses.dataclass
@@ -128,6 +133,50 @@ def voc_like(cfg) -> DatasetSplits:
     return _split(graphs)
 
 
+def transductive_like(cfg) -> DatasetSplits:
+    """One random graph shared by three splits, as the JAX loader's
+    transductive fallback draws it (``real.py:305-324``, the same draws in
+    the same order): n = max(64, ``synth_num_graphs``) nodes, 4n random
+    pairs without self-pairs in both directions (repeats stay, as
+    multi-edges), float features (n, 16), five classes, and a random 60/20/20
+    node split as ``split_mask`` extras of three views of the graph."""
+    rng = np.random.default_rng(cfg.dataset.synth_seed)
+    n = max(64, cfg.dataset.synth_num_graphs)
+    s = rng.integers(0, n, 4 * n)
+    r = rng.integers(0, n, 4 * n)
+    keep = s != r
+    ei = np.stack([np.concatenate([s[keep], r[keep]]),
+                   np.concatenate([r[keep], s[keep]])])
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    y = (np.abs(x @ rng.normal(size=(16,))) * 2).astype(np.int64) % 5
+    g = Graph(node_feat=x, edge_index=ei, y=y)
+    order = rng.permutation(n)
+    cuts = (0, int(0.6 * n), int(0.8 * n), n)
+    views = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        mask = np.zeros(n, bool)
+        mask[order[a:b]] = True
+        views.append([g.view_with_extras(split_mask=mask)])
+    return DatasetSplits(*views)
+
+
+def _transductive(cfg) -> DatasetSplits:
+    """``PyG-Actor``, ``PyG-WebKB`` and ``PyG-WikipediaNetwork``
+    (``real.py:289`` ``load_transductive_node``): geom-gcn raw files under
+    ``<dir>/<family>/<name>`` (``film`` for Actor) raise, since reading them
+    is not ported; the stand-in otherwise."""
+    fam = cfg.dataset.format.replace("PyG-", "")
+    name = cfg.dataset.name
+    stem = "film" if name.lower() in ("actor", "film", "none") else name
+    present = any(
+        os.path.exists(os.path.join(root, sub, "out1_graph_edges.txt"))
+        for root in (os.path.join(cfg.dataset.dir, fam), cfg.dataset.dir)
+        for sub in (os.path.join(stem, "raw"), os.path.join(name, "raw"),
+                    stem))
+    return _fallback(cfg, os.path.join(cfg.dataset.dir, fam), present,
+                     "transductive")
+
+
 def _fallback(cfg, root: str, present: bool,
               kind: str = "zinc-like") -> DatasetSplits:
     """The real files are not in the repository, so the run takes the same
@@ -144,7 +193,8 @@ def _fallback(cfg, root: str, present: bool,
     log.warning("dataset %s/%s not cached under %s — substituting synthetic "
                 "%s", cfg.dataset.format, cfg.dataset.name, cfg.dataset.dir,
                 kind)
-    return voc_like(cfg) if kind == "voc-like" else zinc_like(cfg)
+    return {"voc-like": voc_like, "transductive": transductive_like}.get(
+        kind, zinc_like)(cfg)
 
 
 def _pcqm4mv2(cfg) -> DatasetSplits:
@@ -194,6 +244,8 @@ def load_dataset(cfg) -> DatasetSplits:
         splits = _pcqm4mv2(cfg)
     elif fmt == "OGB" and name.replace("_", "-").startswith("ogbg-mol"):
         splits = _ogb_graph(cfg, name.replace("_", "-"))
+    elif fmt in TRANSDUCTIVE_FORMATS:
+        splits = _transductive(cfg)
     else:
         raise NotImplementedError(
             f"dataset {fmt}/{name} is not ported yet (ROADMAP Queue 1 "

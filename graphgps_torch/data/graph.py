@@ -32,7 +32,9 @@ class Graph:
     edge_feat: Optional[np.ndarray] = None  # (E, Fe)
     y: Optional[np.ndarray] = None  # graph-level (T,), or node-level (N,)
     pe: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
-    # per-graph arrays that are no node rows (LapPE's EigVals (1, K))
+    # per-graph arrays: LapPE's EigVals (1, K), and node-sized ones
+    # (``loader.NODE_SIZED_AXES``) such as a transductive split's
+    # ``split_mask`` (N,)
     extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     @property
@@ -42,6 +44,13 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return int(self.edge_index.shape[1])
+
+    def view_with_extras(self, **extras) -> "Graph":
+        """A view sharing the arrays, with its own ``pe`` and ``extras``
+        dicts plus the given entries (``clone_with_extras`` of the JAX
+        package): one graph behind the splits of a transductive task."""
+        return dataclasses.replace(self, pe=dict(self.pe),
+                                   extras={**self.extras, **extras})
 
 
 @dataclasses.dataclass(frozen=True)

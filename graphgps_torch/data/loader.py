@@ -21,9 +21,11 @@ layout is the same, array for array:
 - ``extras`` (per-graph arrays such as LapPE's ``EigVals``) are stacked per
   graph and gathered by graph index (:140-152, :217-222). Node-sized extras
   (the Graphormer ``spatial_types`` (N, N) and ``shortest_path_types``
-  (N, N, D), ``batching.py`` :24-45) are zero-padded to the node cap on
-  their node axes and zero for a padded graph, as the host ``collate``
-  gives them (:120-131); they keep their host dtype (the path types uint8);
+  (N, N, D), ``batching.py`` :24-45, and a transductive split's
+  ``split_mask`` (N,)) are zero-padded to the node cap on their node axes
+  and zero for a padded graph, as the host ``collate`` gives them
+  (:120-131); they keep their host dtype (the path types uint8, the split
+  mask bool);
 - ``pe`` columns keep their kind too: the Graphormer degrees stay integers.
 """
 from __future__ import annotations
@@ -53,7 +55,8 @@ def choose_caps(graphs: Sequence[Graph], node_multiple: int = 8,
 
 
 # node-sized extras: which axes pad to the node cap (``batching.py`` :33)
-NODE_SIZED_AXES = {"spatial_types": (0, 1), "shortest_path_types": (0, 1)}
+NODE_SIZED_AXES = {"spatial_types": (0, 1), "shortest_path_types": (0, 1),
+                   "split_mask": (0,)}
 
 
 def _stack_extras(key: str, arrays, node_cap: int) -> np.ndarray:
@@ -189,7 +192,8 @@ class DeviceArenas:
     def _extra(key: str, arena, sel, gmask):
         v = arena[sel]
         if key in NODE_SIZED_AXES:
-            v = torch.where(gmask.reshape(-1, *[1] * (v.ndim - 1)), v, 0)
+            v = torch.where(gmask.reshape(-1, *[1] * (v.ndim - 1)), v,
+                            torch.zeros((), dtype=v.dtype, device=v.device))
         return v
 
 

@@ -92,19 +92,26 @@ def infer_dims(cfg: CfgNode, splits: DatasetSplits) -> int:
 def create_loaders(cfg: CfgNode, splits: DatasetSplits,
                    device) -> Dict[str, DeviceLoader]:
     """Per-split loaders sharing one (max_nodes, edge block) cap; a node
-    task's loaders carry one label per node."""
+    task's loaders carry one label per node. A transductive split (its
+    graphs carry a ``split_mask``) is one batch of the graphs it has: the
+    JAX driver collates it into ``train.batch_size`` graph slots on the host
+    (``graphgps_tpu/driver.py:113-121``), all but one of them empty; every
+    real node gets the same values either way (masked loss, no norm across
+    graphs), for a B-fold smaller attention and node tensors."""
     if cfg.dataset.task not in ("graph", "node"):
         raise NotImplementedError(
             f"dataset.task={cfg.dataset.task!r}: the port runs graph and "
             "node tasks (edge and link tasks: ROADMAP Queue 1 item 17)")
     n_cap, e_cap = choose_caps(splits.all_graphs)
     max_nodes = cfg.dataset.max_nodes or n_cap
-    bs = cfg.train.batch_size
-    max_edges = cfg.dataset.max_edges or round_up(bs * e_cap, 128)
     out = {}
     for name, graphs in (("train", splits.train), ("val", splits.val),
                          ("test", splits.test)):
         if graphs:
+            bs = cfg.train.batch_size
+            if "split_mask" in graphs[0].extras:
+                bs = len(graphs)
+            max_edges = cfg.dataset.max_edges or round_up(bs * e_cap, 128)
             out[name] = DeviceLoader(graphs, bs, device, max_nodes=max_nodes,
                                      max_edges=max_edges,
                                      shuffle=(name == "train"), seed=cfg.seed,

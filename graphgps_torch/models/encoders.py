@@ -345,10 +345,14 @@ class FeatureEncoder(nn.Module):
     ``dataset.edge_encoder_name``: ``Atom+RWSE``/``Bond`` on the molecule
     recipes (modules ``atom``, ``rwse``, ``bond``), ``VOCNode+LapPE``/
     ``VOCEdge`` on the superpixels (``node_lin``, ``lap``, ``edge_lin``);
-    ``TypeDictNode+GraphormerBias`` and no edge encoder on the Graphormer
-    recipe (``type_dict``, ``graphormer``: the degree embeddings added in
-    place; the network reads the attention bias and the graph token from
-    ``graphormer``)."""
+    an encoding's name alone (``LapPE`` on the transductive node recipes)
+    projects the raw float features to ``dim_h - dim_pe`` with one Linear
+    (``node_lin``, JAX ``networks.py:105-112``) before the encoding is
+    appended; with ``edge_encoder`` off there is no edge encoder and e is
+    None; ``TypeDictNode+GraphormerBias`` and no edge encoder on the
+    Graphormer recipe (``type_dict``, ``graphormer``: the degree embeddings
+    added in place; the network reads the attention bias and the graph
+    token from ``graphormer``)."""
 
     def __init__(self, cfg, dim_h: int):
         super().__init__()
@@ -358,22 +362,29 @@ class FeatureEncoder(nn.Module):
         if pe == "GraphormerBias":
             self._init_graphormer(cfg, dim_h, node)
             return
-        if not (ds.node_encoder and ds.edge_encoder
-                and node in NODE_ENCODERS and pe in PE_ENCODERS
-                and ds.edge_encoder_name in EDGE_ENCODERS
+        pe_only = node in PE_ENCODERS and not pe
+        if pe_only:
+            node, pe = None, node
+        if not (ds.node_encoder and (pe_only or node in NODE_ENCODERS)
+                and pe in PE_ENCODERS
+                and (not ds.edge_encoder
+                     or ds.edge_encoder_name in EDGE_ENCODERS)
                 and not ds.node_encoder_bn and not ds.edge_encoder_bn
                 and (pe != "RWSE" or cfg.posenc_RWSE.model == "Linear")):
             raise NotImplementedError(
                 f"encoders {ds.node_encoder_name!r}/{ds.edge_encoder_name!r}: "
                 f"the port has one of {NODE_ENCODERS} with one of "
                 f"{PE_ENCODERS} (RWSE with a Linear model, LapPE as a "
-                f"DeepSet or a Transformer), one of {EDGE_ENCODERS}, and no "
-                "encoder BatchNorm "
+                "DeepSet or a Transformer), or one of those encodings alone, "
+                f"one of {EDGE_ENCODERS} or none, and no encoder BatchNorm "
                 "(ROADMAP Queue 1 items 12 and 16)")
         p = cfg[f"posenc_{pe}"]
         if node == "Atom":
             self.atom = AtomEncoder(dim_h - p.dim_pe)
         else:
+            if pe_only and not cfg.share.dim_in:
+                raise ValueError("the raw features' width cfg.share.dim_in "
+                                 "is unset (driver.infer_dims sets it)")
             self.node_lin = LinearEncoder(cfg.share.dim_in or VOC_NODE_DIM,
                                           dim_h - p.dim_pe)
         if pe == "RWSE":
@@ -385,13 +396,15 @@ class FeatureEncoder(nn.Module):
                 model=p.model if p.model != "none" else "DeepSet",
                 layers=p.layers, post_layers=p.post_layers,
                 raw_norm_type=p.raw_norm_type, n_heads=p.n_heads)
-        if ds.edge_encoder_name == "Bond":
+        self.edge_name = None
+        if ds.edge_encoder and ds.edge_encoder_name == "Bond":
             self.bond = BondEncoder(dim_h)
-        else:
+            self.edge_name = "bond"
+        elif ds.edge_encoder:
             self.edge_lin = LinearEncoder(VOC_EDGE_DIM, dim_h)
+            self.edge_name = "edge_lin"
         self.node_name = "atom" if node == "Atom" else "node_lin"
         self.pe_name = "rwse" if pe == "RWSE" else "lap"
-        self.edge_name = "bond" if ds.edge_encoder_name == "Bond" else "edge_lin"
 
     def _init_graphormer(self, cfg, dim_h: int, node: str) -> None:
         ds = cfg.dataset
@@ -420,6 +433,8 @@ class FeatureEncoder(nn.Module):
             return torch.where(batch.node_mask[:, None], x, 0.0), None
         x = getattr(self, self.node_name)(batch.node_feat)
         x = getattr(self, self.pe_name)(batch, x, gen)
-        e = getattr(self, self.edge_name)(batch.edge_feat)
+        e = None
+        if self.edge_name is not None:
+            e = getattr(self, self.edge_name)(batch.edge_feat)
         x = torch.where(batch.node_mask[:, None], x, 0.0)
         return x, e

@@ -1,41 +1,58 @@
-"""The GPS layer: CustomGatedGCN local ∥ Transformer global, BatchNorm
-(counterpart of ``graphgps_tpu/models/gps_layer.py`` ``GPSLayer`` :37-531).
+"""The GPS layer: a local message-passing branch ∥ a Transformer global
+branch, then the FFN (counterpart of ``graphgps_tpu/models/gps_layer.py``
+``GPSLayer`` :37-531).
 
-Two paths, chosen by width and settings as the JAX package chooses them
-(its VMEM caps are the TPU's and are not kept):
+Three paths, chosen by the local layer, the width and the settings as the
+JAX package chooses them (its VMEM caps are the TPU's and are not kept):
 
-- **merged** (``dim_h % 128 == 0`` and at most 128 node slots per graph;
-  JAX :173-215 and :471-495). Three kernels per layer: the front (GatedGCN
-  core + attention + dropout and residual), the edge tail, and the
-  combine+FFN; three dropout seeds. The attention branch's norm takes its
-  statistics from the front's moment partials.
-- **unmerged** (any other width from 64 up; JAX :138-148, :250-268,
-  :316-392, :449-518). The standalone GatedGCN core kernel (on long graphs
-  the Linears and the edge gate, ``local_gnn.py``), then the Transformer
-  branch: for graphs of more than 128 node slots ``fused_wide_attention``
-  (QKV projection, attention with an online softmax over key tiles and
-  hashed dropout on the probabilities, out-projection, in one call; JAX
-  :316-354); up to 128 the same function in PyTorch ops with a dense
-  softmax, as the JAX package leaves it to XLA there; beyond 768 JAX's
-  chunked attention, not ported. When the tails are
-  deferred -- in training with
-  dropout on, or at a lane width -- the edge tail runs through
-  ``fused_pre_tail``, the attention branch's residual through
-  ``fused_drop_add`` (a plain add at rate 0), and the x-tail, the attention
-  norm's apply, the branch sum and the FFN through ``fused_combine_ffn``:
-  four dropout seeds (edge tail, attention, drop-add, combine). Otherwise
-  (evaluation, or training without dropout, at a width that is no multiple
-  of 128) the tails, the branch sum and the FFN are plain PyTorch.
+- **merged** (CustomGatedGCN, ``dim_h % 128 == 0`` and at most 128 node
+  slots per graph; JAX :173-215 and :471-495). Three kernels per layer: the
+  front (GatedGCN core + attention + dropout and residual), the edge tail,
+  and the combine+FFN; three dropout seeds. The attention branch's norm
+  takes its statistics from the front's moment partials.
+- **unmerged** (CustomGatedGCN at any other width from 64 up; JAX :138-148,
+  :250-268, :316-392, :449-518). The standalone GatedGCN core kernel (on
+  long graphs the Linears and the edge gate, ``local_gnn.py``), then the
+  Transformer branch (:meth:`GPSLayer.attention`). When the tails are
+  deferred -- in training with dropout on, or at a lane width -- the edge
+  tail runs through ``fused_pre_tail``, the attention branch's residual
+  through ``fused_drop_add`` (a plain add at rate 0), and the x-tail, the
+  attention norm's apply, the branch sum and the FFN through
+  ``fused_combine_ffn``: four dropout seeds (edge tail, attention,
+  drop-add, combine). Otherwise (evaluation, or training without dropout,
+  at a width that is no multiple of 128) the tails, the branch sum and the
+  FFN are plain PyTorch.
+- **GCN** (``local="GCN"``; JAX :218-243, :89-117 and :496-518). The GCN
+  layer (``local_gnn.py``), its residual ``x + drop(h_local)`` through
+  ``fused_drop_add`` (a plain add at rate 0) and its norm; the Transformer
+  branch, its residual through ``fused_drop_add`` and its norm; the branch
+  sum; the FFN through ``fused_ffn`` where JAX takes ``fused_ffn_padded``
+  (the tail envelope, and a width that is a multiple of 128 or training
+  with dropout), else plain PyTorch. Each norm is a full MaskedBatchNorm
+  with ``batch_norm``, else the identity (JAX's ``Norm`` with both norms
+  off). Four dropout seeds: local drop-add, attention, attention
+  drop-add, FFN.
 
-Both end in the final BatchNorm with the padded node slots zeroed. Weights
-are held in the kernels' (in, out) layout, with their flax counterparts:
+The Transformer branch of the unmerged and GCN paths goes through
+``fused_wide_attention`` (QKV projection, attention with an online softmax
+over key tiles and hashed dropout on the probabilities, out-projection, in
+one call; JAX :316-354) for graphs of more than 128 and at most 768 node
+slots, and through the JAX package's ``mha`` dispatch otherwise
+(``ops/mha.py`` ``mha_dispatch``: PyTorch ops with a dense softmax, or the
+chunked attention beyond 1,024 slots or 64 MB of scores, as JAX leaves
+both to XLA).
+
+All end in the final norm with the padded node slots zeroed. Weights are
+held in the kernels' (in, out) layout, with their flax counterparts:
 merged ``w_front``/``b_front`` the joint ``[A|D|E|B|Wq|Wk|Wv]``
 (``GatedGCNLayer_0/Dense_{0,3,4,1}`` and ``qkv_kernel``/``qkv_bias``);
 unmerged ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
 ``w_qkv``/``b_qkv``, each contiguous as the kernels need them; ``local``
-(``GatedGCNLayer_0``), ``w_out``/``b_out`` (``out_kernel``/``out_bias``),
-``norm_attn`` (``Norm_0``), ``w_ffn1``..``b_ffn2`` (``Dense_0``/``Dense_1``),
-``norm_out`` (``Norm_1``).
+(``GatedGCNLayer_0`` or ``GCNLayer_0``), ``w_out``/``b_out``
+(``out_kernel``/``out_bias``), ``w_ffn1``..``b_ffn2``
+(``Dense_0``/``Dense_1``) and the norms: ``norm_attn`` (``Norm_0``) and
+``norm_out`` (``Norm_1``); on GCN ``norm_local``, ``norm_attn`` and
+``norm_out`` (``Norm_0``..``Norm_2``, present with ``batch_norm``).
 """
 from __future__ import annotations
 
@@ -46,21 +63,23 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from ..ops.kernels import (build, fused_combine_ffn, fused_drop_add,
-                           fused_wide_attention)
-from ..ops.kernels.common import apply_dropout
-from ..ops.mha import merge_heads, mha, split_heads
+                           fused_ffn, fused_wide_attention)
+from ..ops.mha import merge_heads, mha_dispatch, split_heads
 from .common import MaskedBatchNorm, dense_params, get_act
-from .local_gnn import FrontPack, GatedGCNLayer
+from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer
 
 # dropout seeds per layer and step. Merged: front, edge tail, combine+FFN;
-# unmerged: edge tail, attention, drop-add, combine+FFN
+# unmerged: edge tail, attention, drop-add, combine+FFN; GCN: local
+# drop-add, attention, attention drop-add, FFN
 SEEDS_PER_LAYER = 3
 SEEDS_PER_LAYER_UNMERGED = 4
+# the local layers a GPSLayer takes
+LOCAL_TYPES = ("CustomGatedGCN", "GCN")
 # the merged front holds a graph's N x N scores in shared memory
 MERGED_MAX_NODES = 128
-# the unmerged path's attention: PyTorch ops up to WIDE_MIN_NODES node slots
-# per graph, fused_wide_attention above, up to the TPU kernel's own limit
-# (``wide_eligible``, fused_attn_wide.py :365)
+# the unmerged and GCN paths' attention: fused_wide_attention above
+# WIDE_MIN_NODES node slots per graph and up to the TPU kernel's own limit
+# (``wide_eligible``, fused_attn_wide.py :365), the mha dispatch elsewhere
 WIDE_MIN_NODES = 128
 WIDE_MAX_NODES = 768
 # below this width the JAX package runs no fused kernel (fused_gatedgcn.py
@@ -93,9 +112,13 @@ def draw_seeds(gen: Optional[torch.Generator], n: int):
 class GPSLayer(nn.Module):
     def __init__(self, dim_h: int, num_heads: int, act: str = "relu",
                  eps: float = 1e-5, dropout: float = 0.0,
-                 attn_dropout: float = 0.0, merged: Optional[bool] = None):
-        """``merged`` chooses the weight layout and the path; by default the
-        merged front at a multiple of 128."""
+                 attn_dropout: float = 0.0, merged: Optional[bool] = None,
+                 local: str = "CustomGatedGCN", batch_norm: bool = True):
+        """``merged`` chooses the weight layout and the path of a
+        CustomGatedGCN layer; by default the merged front at a multiple of
+        128. A ``local="GCN"`` layer takes the GCN path, with its three norms
+        MaskedBatchNorms under ``batch_norm`` and the identity otherwise (a
+        CustomGatedGCN layer always has BatchNorm)."""
         super().__init__()
         if dim_h % num_heads:
             raise ValueError(f"dim_h={dim_h} is not divisible by "
@@ -104,13 +127,19 @@ class GPSLayer(nn.Module):
             raise NotImplementedError(
                 f"dim_h={dim_h} < {MIN_DIM}: the layer's path without fused "
                 "kernels is not ported (ROADMAP Queue 1 item 5)")
+        if local not in LOCAL_TYPES:
+            raise NotImplementedError(
+                f"local GNN {local!r}: the port has {LOCAL_TYPES} (ROADMAP "
+                "Queue 1 item 13)")
         self.dim_h = dim_h
         self.num_heads = num_heads
         self.act = act
         self.eps = eps
         self.dropout = dropout
         self.attn_dropout = attn_dropout
-        self.merged = merged_width(dim_h) if merged is None else merged
+        self.gcn = local == "GCN"
+        self.merged = (not self.gcn and
+                       (merged_width(dim_h) if merged is None else merged))
         if self.merged:
             # A, D, E, B, Wq, Wk, Wv side by side, each drawn as a (d, d) Dense
             ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(7)))
@@ -120,13 +149,19 @@ class GPSLayer(nn.Module):
             ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(3)))
             self.w_qkv = nn.Parameter(torch.cat(ws, dim=1).detach())
             self.b_qkv = nn.Parameter(torch.cat(bs).detach())
-        self.local = GatedGCNLayer(dim_h, act, eps,
-                                   own_node_proj=not self.merged)
+        bn = batch_norm or not self.gcn
+        if self.gcn:
+            self.local = GCNLayer(dim_h)
+            self.norm_local = MaskedBatchNorm(dim_h, eps) if bn else None
+        else:
+            self.local = GatedGCNLayer(dim_h, act, eps,
+                                       own_node_proj=not self.merged)
         self.w_out, self.b_out = dense_params(dim_h, dim_h)
-        self.norm_attn = MaskedBatchNorm(dim_h, eps, stats_only=True)
+        self.norm_attn = (MaskedBatchNorm(dim_h, eps, stats_only=not self.gcn)
+                          if bn else None)
         self.w_ffn1, self.b_ffn1 = dense_params(dim_h, 2 * dim_h)
         self.w_ffn2, self.b_ffn2 = dense_params(2 * dim_h, dim_h)
-        self.norm_out = MaskedBatchNorm(dim_h, eps)
+        self.norm_out = MaskedBatchNorm(dim_h, eps) if bn else None
 
     @property
     def rates(self):
@@ -162,21 +197,14 @@ class GPSLayer(nn.Module):
                 self.rates[0], self.act)
 
     def attention(self, batch: GraphBatch, x, seed: int = 0):
-        """The unmerged Transformer branch up to the out-projection:
-        (B*N, d). Wide graphs go through ``fused_wide_attention``, the
-        others through PyTorch ops."""
+        """The Transformer branch of the unmerged and GCN paths up to the
+        out-projection: (B*N, d). Graphs of more than WIDE_MIN_NODES and at
+        most WIDE_MAX_NODES node slots go through ``fused_wide_attention``,
+        the others through the ``mha`` dispatch (PyTorch ops, dense or
+        chunked)."""
         d, H = self.dim_h, self.num_heads
         xd = batch.dense_view(x)
-        if batch.max_nodes > WIDE_MAX_NODES:
-            # JAX's "auto" dispatch takes chunked MHA there
-            # (graphgps_tpu/ops/pallas/flash_mha.py:121-135); flash only on
-            # request and never with attention dropout
-            raise NotImplementedError(
-                f"{batch.max_nodes} node slots per graph exceed the wide "
-                f"attention's {WIDE_MAX_NODES}: the chunked attention for "
-                "longer graphs (graphgps_tpu/ops/chunked_mha.py) is not "
-                "ported (ROADMAP Queue 1 item 14)")
-        if batch.max_nodes > WIDE_MIN_NODES:
+        if WIDE_MIN_NODES < batch.max_nodes <= WIDE_MAX_NODES:
             return fused_wide_attention(
                 xd, batch.counts, self.w_qkv, self.b_qkv, self.w_out,
                 self.b_out, seed, H, 1.0 / float(d // H) ** 0.5,
@@ -184,11 +212,8 @@ class GPSLayer(nn.Module):
         qkv = xd @ self.w_qkv + self.b_qkv
         q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H)
                    for i in range(3))
-        rate = self.rates[1]
-        drop = None
-        if rate > 0.0:
-            drop = lambda p: apply_dropout(p, seed, 0, rate)  # noqa: E731
-        o = mha(q, k, v, batch.dense_view(batch.node_mask), drop)
+        o = mha_dispatch(q, k, v, batch.dense_view(batch.node_mask), seed,
+                         self.rates[1])
         return merge_heads(o).reshape(-1, d) @ self.w_out + self.b_out
 
     def forward_merged(self, batch: GraphBatch, x, e, gen):
@@ -220,14 +245,52 @@ class GPSLayer(nn.Module):
         if defer:
             return fused_combine_ffn(*self.combine_args(
                 local, s_attn, seeds[3], mask=batch.node_mask)), e
-        h = local + self.norm_attn.normalize(s_attn, batch.node_mask)
+        return self.ffn(local + self.norm_attn.normalize(
+            s_attn, batch.node_mask)), e
+
+    def ffn(self, h, seed: int = 0):
+        """``h + FFN(h)``: ``fused_ffn`` where the JAX layer takes
+        ``fused_ffn_padded`` (:497-511: the tail envelope, and a width that
+        is a multiple of 128 or training with dropout), else plain PyTorch
+        (:512-518), reached only at rate 0: every width from 64 with a
+        multiple of 8 rows is in the envelope."""
+        rate = self.rates[0]
+        if (tail_eligible(h.shape[0], self.dim_h, self.act)
+                and (self.dim_h % 128 == 0 or rate > 0.0)):
+            return fused_ffn(h, self.w_ffn1, self.b_ffn1, self.w_ffn2,
+                             self.b_ffn2, seed, rate, self.act)
         h2 = get_act(self.act)(h @ self.w_ffn1 + self.b_ffn1)
-        return h + (h2 @ self.w_ffn2 + self.b_ffn2), e
+        return h + (h2 @ self.w_ffn2 + self.b_ffn2)
+
+    def branch_sum(self, batch: GraphBatch, x, e, seeds):
+        """The GCN path up to the FFN: ``norm(x + drop(GCN(x))) + norm(x +
+        drop(attention(x)))`` and e, from the first three of the layer's
+        ``seeds`` (local drop-add, attention, attention drop-add)."""
+        rate, mask = self.rates[0], batch.node_mask
+
+        def tail(norm, v, seed):
+            s = fused_drop_add(x, v, seed, rate) if rate > 0.0 else x + v
+            return s if norm is None else norm(s, mask)
+
+        h_local, e = self.local(batch, x, e)
+        h = tail(self.norm_local, h_local, seeds[0])
+        return h + tail(self.norm_attn, self.attention(batch, x, seeds[1]),
+                        seeds[2]), e
+
+    def forward_gcn(self, batch: GraphBatch, x, e, gen):
+        # seeds: local drop-add, attention, attention drop-add, FFN
+        seeds = [0] * SEEDS_PER_LAYER_UNMERGED
+        if any(self.rates):
+            seeds = draw_seeds(gen, SEEDS_PER_LAYER_UNMERGED)
+        h, e = self.branch_sum(batch, x, e, seeds)
+        return self.ffn(h, seeds[3]), e
 
     def forward(self, batch: GraphBatch, x, e,
                 gen: Optional[torch.Generator] = None):
         """``gen`` draws the layer's dropout seeds in training."""
-        if self.merged:
+        if self.gcn:
+            h, e = self.forward_gcn(batch, x, e, gen)
+        elif self.merged:
             if batch.max_nodes > MERGED_MAX_NODES:
                 raise ValueError(
                     f"{batch.max_nodes} node slots per graph exceed the "
@@ -236,7 +299,8 @@ class GPSLayer(nn.Module):
             h, e = self.forward_merged(batch, x, e, gen)
         else:
             h, e = self.forward_unmerged(batch, x, e, gen)
-        h = self.norm_out(h, batch.node_mask)
+        if self.norm_out is not None:
+            h = self.norm_out(h, batch.node_mask)
         # zero padded slots so they never leak into aggregations
         h = torch.where(batch.node_mask[:, None], h, 0.0)
         return h, e

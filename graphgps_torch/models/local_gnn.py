@@ -1,7 +1,8 @@
-"""GatedGCN local layer (counterpart of ``graphgps_tpu/models/local_gnn.py``
-``GatedGCNLayer`` :74-329: the merged dispatch :106-149, the standalone
-fused core :150-184, the long-graph rung :185-233, the fused tails :258-316
-and the plain tails :318-329).
+"""The local message-passing layers: GatedGCN (counterpart of
+``graphgps_tpu/models/local_gnn.py`` ``GatedGCNLayer`` :74-329: the merged
+dispatch :106-149, the standalone fused core :150-184, the long-graph rung
+:185-233, the fused tails :258-316 and the plain tails :318-329) and GCN
+(``GCNLayer`` :386-403, at the end of this file).
 
 Two paths. On the merged path (:meth:`GatedGCNLayer.forward`) the front
 kernel takes the node projections A, D, E, B (flax ``Dense_0``,
@@ -45,6 +46,7 @@ from ..data.graph import GraphBatch
 from ..ops.kernels import (fused_edge_gate, fused_gatedgcn, fused_gps_front,
                            fused_pre_tail)
 from ..ops.kernels.gatedgcn import MAX_NODES as CORE_MAX_NODES
+from ..ops.segment import gather, segment_sum
 from .common import MaskedBatchNorm, dense_params, get_act
 
 
@@ -192,3 +194,25 @@ class GatedGCNLayer(nn.Module):
         e_new = fused_pre_tail(*self.edge_tail_args(
             e, gate, seed_e, rate, mom_e, batch.edge_mask))
         return self.x_tail_args(x, xo, mom_x, batch.node_mask), e_new
+
+
+class GCNLayer(nn.Module):
+    """GCN with the symmetric degree norm and an implicit self-loop:
+    ``h = x W + b``, ``deg = (real in-edges) + 1``, and each node gets
+    ``sum over its in-edges of h[s] / sqrt(deg[s] deg[r]) + h / deg``.
+    ``w``/``b`` are flax's ``Dense_0`` in the (in, out) layout. The edge
+    features pass through untouched."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.w, self.b = dense_params(dim, dim)
+
+    def forward(self, batch: GraphBatch, x, e):
+        s, r = batch.senders, batch.receivers
+        h = x @ self.w + self.b
+        S = batch.num_node_slots
+        deg = segment_sum(batch.edge_mask.to(h.dtype), r, S) + 1.0
+        dinv = torch.rsqrt(deg)
+        msgs = gather(h, s) * (gather(dinv, s) * gather(dinv, r))[:, None]
+        agg = segment_sum(msgs, r, S, mask=batch.edge_mask)
+        return agg + h * (dinv * dinv)[:, None], e

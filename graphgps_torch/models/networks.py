@@ -1,4 +1,5 @@
-"""GPSModel: FeatureEncoder → L × GPSLayer → head, SANTransformer:
+"""GPSModel: FeatureEncoder → L × GPSLayer (CustomGatedGCN or GCN ∥
+Transformer) → head, SANTransformer:
 FeatureEncoder → L × SANLayer → head, and the dispatch to GraphormerNet
 (``models/graphormer.py``) (counterpart of
 ``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``,
@@ -14,7 +15,8 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
-from .gps_layer import MERGED_MAX_NODES, MIN_DIM, GPSLayer, merged_width
+from .gps_layer import (LOCAL_TYPES, MERGED_MAX_NODES, MIN_DIM, GPSLayer,
+                        merged_width)
 from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
 from .san import SANLayer
 
@@ -80,10 +82,16 @@ def check_stack_supported(cfg) -> None:
             "train.log_attn_weights is not ported (ROADMAP Queue 1 item 17)")
 
 
+# local GNNs of the JAX GPSLayer the port does not run yet (local_gnn.py
+# :332-519): ROADMAP Queue 1 item 13 brings them
+LOCAL_TODO = ("GINE", "GIN", "GAT", "GENConv", "PNA")
+
+
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
-    Transformer, BatchNorm, ``gt.attn_impl`` auto, the san_graph or the
-    inductive_node head, at a width of 64 or more; a SANTransformer,
+    Transformer with BatchNorm or GCN ∥ Transformer with BatchNorm or none,
+    no LayerNorm, ``gt.attn_impl`` auto, the san_graph, inductive_node or
+    node head, at a width of 64 or more; a SANTransformer,
     ``check_san_supported``; or a Graphormer,
     ``check_graphormer_supported``); anything else names the ROADMAP item
     that brings it."""
@@ -96,14 +104,22 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"model.type={cfg.model.type!r} is not ported (ROADMAP Queue 1 "
             "item 15)")
-    if gt.layer_type != "CustomGatedGCN+Transformer":
+    local, _, glob = gt.layer_type.partition("+")
+    if glob != "Transformer" or local not in LOCAL_TYPES:
+        item = "Queue 1 item 13" if local in LOCAL_TODO else \
+            "Queue 1 items 12-15"
         raise NotImplementedError(
             f"gt.layer_type={gt.layer_type!r}: the port runs "
-            "CustomGatedGCN+Transformer only (ROADMAP Queue 1 items 12-15)")
-    if not gt.batch_norm or gt.layer_norm:
+            f"{' and '.join(t + '+Transformer' for t in LOCAL_TYPES)} "
+            f"(ROADMAP {item})")
+    if gt.layer_norm:
         raise NotImplementedError(
-            "the port needs gt.batch_norm=true and gt.layer_norm=false "
+            "gt.layer_norm=true: GPSLayer's LayerNorm option is not ported "
             "(ROADMAP Queue 1 item 15)")
+    if local == "CustomGatedGCN" and not gt.batch_norm:
+        raise NotImplementedError(
+            "CustomGatedGCN+Transformer needs gt.batch_norm=true (ROADMAP "
+            "Queue 1 item 15)")
     if gt.dim_hidden < MIN_DIM:
         raise NotImplementedError(
             f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
@@ -116,7 +132,9 @@ def check_supported(cfg) -> None:
     check_stack_supported(cfg)
 
 
-HEADS = ("san_graph", "inductive_node")
+# "node" is JAX's transductive alias of inductive_node (heads.py:110): the
+# split masks ride the loss mask
+HEADS = ("san_graph", "inductive_node", "node")
 
 
 def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:
@@ -170,7 +188,8 @@ class GPSModel(nn.Module):
         self.layers = nn.ModuleList(
             GPSLayer(d, cfg.gt.n_heads, act=cfg.gnn.act,
                      dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout,
-                     merged=merged)
+                     merged=merged, local=cfg.gt.layer_type.split("+")[0],
+                     batch_norm=cfg.gt.batch_norm)
             for _ in range(cfg.gt.layers))
         self.head = make_head(cfg, d, dim_out)
 

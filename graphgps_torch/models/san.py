@@ -16,7 +16,8 @@ The layer: attention → dropout (flax ``nn.Dropout``, the exact-rate rule)
 dropout on (or at a width that is a multiple of 128) the norm's statistics
 come from ``MaskedBatchNorm`` in ``stats_only`` mode and the ``fused_bn_ffn``
 kernel applies them and runs the FFN, the residual riding the normed tensor
-and only the inner dropout on (the u8 rule); otherwise the norm, the FFN
+and only the inner dropout on (the u8 rule); without BatchNorm the
+``fused_ffn`` kernel runs the FFN the same way; otherwise the norm, the FFN
 (its hidden units under the exact-rate rule) and the residual are PyTorch
 ops. Then the last norm, and the padded rows zeroed. A layer draws two seeds
 per training step with dropout: the attention output's and the FFN's.
@@ -37,7 +38,7 @@ import torch
 from torch import nn
 
 from ..data.graph import GraphBatch
-from ..ops.kernels import fused_bn_ffn
+from ..ops.kernels import fused_bn_ffn, fused_ffn
 from ..ops.kernels.common import exact_dropout
 from .common import MaskedBatchNorm, dense_params, get_act
 from .gps_layer import draw_seeds, tail_eligible
@@ -144,8 +145,8 @@ class SANLayer(nn.Module):
         """Whether the FFN runs as one kernel (JAX ``san.py:146-149`` and
         :174-177): with the residual, inside the kernels' envelope, in
         training with dropout or at a width that is a multiple of 128. With
-        BatchNorm that is ``fused_bn_ffn``; without it, ``fused_ffn``, which
-        is not ported."""
+        BatchNorm that is ``fused_bn_ffn``; without it, ``fused_ffn`` with
+        the inner dropout only."""
         return (self.residual and tail_eligible(rows, self.dim_h, self.act)
                 and (self.dim_h % 128 == 0 or self.rate > 0.0))
 
@@ -153,10 +154,9 @@ class SANLayer(nn.Module):
         """The attention norm, the FFN and its residual over (R, d) rows."""
         if self.fused(h.shape[0]):
             if self.norm1 is None:
-                raise NotImplementedError(
-                    "SAN without BatchNorm takes the fused_ffn kernel here "
-                    "(graphgps_tpu/ops/pallas/fused_tail.py:387), which is "
-                    "not ported (ROADMAP Queue 2 item 1)")
+                return fused_ffn(h, self.w_ffn1, self.b_ffn1, self.w_ffn2,
+                                 self.b_ffn2, seed, self.rate, self.act,
+                                 drop2=False)
             mu, var, ga, be = self.norm1(h, mask)
             return fused_bn_ffn(h, mu, torch.rsqrt(var + self.eps), ga, be,
                                 self.w_ffn1, self.b_ffn1, self.w_ffn2,

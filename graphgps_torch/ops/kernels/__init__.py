@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: nine
-forward kernels and their nine backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: ten
+forward kernels and their ten backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -9,6 +9,7 @@ from .bn_ffn import bn_ffn_backward, fused_bn_ffn
 from .combine_ffn import combine_ffn_backward, fused_combine_ffn
 from .drop_add import drop_add_backward, fused_drop_add
 from .edge_gate import edge_gate_backward, fused_edge_gate
+from .ffn import ffn_backward, fused_ffn
 from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .ln_ffn import fused_ln_ffn, ln_ffn_backward
@@ -26,7 +27,8 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "wide_attention": fused_wide_attention,
             "wide_attention_bwd": wide_attention_backward,
             "ln_ffn": fused_ln_ffn, "ln_ffn_bwd": ln_ffn_backward,
-            "bn_ffn": fused_bn_ffn, "bn_ffn_bwd": bn_ffn_backward}
+            "bn_ffn": fused_bn_ffn, "bn_ffn_bwd": bn_ffn_backward,
+            "ffn": fused_ffn, "ffn_bwd": ffn_backward}
 
 
 def reset_launch_counts() -> None:

@@ -84,24 +84,30 @@ def keep_rule(rate: float) -> Tuple[int, float]:
 
 
 def drop_bits(seed: int, site: int, rows: int, cols: int, device=None,
-              row0: int = 0):
+              row0: int = 0, col0: int = 0, width: Optional[int] = None):
     """(rows, cols) int64 hash values in [0, 2^32) of view rows
-    ``row0 .. row0 + rows``."""
+    ``row0 .. row0 + rows`` and columns ``col0 .. col0 + cols`` of a view
+    ``width`` columns wide (by default ``cols``): a block of the view draws
+    what the whole view draws there."""
+    width = cols if width is None else width
     r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
-    idx = r[:, None] * cols + torch.arange(cols, dtype=torch.int64,
-                                           device=device)[None, :]
+    c = torch.arange(col0, col0 + cols, dtype=torch.int64, device=device)
+    idx = r[:, None] * width + c[None, :]
     hi = _mix32((idx >> 32) ^ drop_key(seed, site))
     return _mix32((idx & _M32) ^ hi)
 
 
 def dropout_mask(seed: int, site: int, rows: int, cols: int, rate: float,
-                 device=None) -> Optional[torch.Tensor]:
+                 device=None, col0: int = 0,
+                 width: Optional[int] = None) -> Optional[torch.Tensor]:
     """The f32 (rows, cols) multiplier of a site: 0 where dropped, the keep
-    scale where kept; None when rate is 0."""
+    scale where kept; None when rate is 0. ``col0`` and ``width`` place the
+    block in a wider view, as in :func:`drop_bits`."""
     t, scale = keep_rule(rate)
     if t == 0:
         return None
-    keep = (drop_bits(seed, site, rows, cols, device) & 255) >= t
+    keep = (drop_bits(seed, site, rows, cols, device, col0=col0,
+                      width=width) & 255) >= t
     return keep.to(torch.float32) * scale
 
 

@@ -1,9 +1,10 @@
-"""Dense masked multi-head attention for padded graph batches
-(counterpart of ``graphgps_tpu/ops/mha.py:21-75`` and of the dense rung of
-``graphgps_tpu/ops/pallas/flash_mha.py:87`` ``mha``). The plain version of
-the layer front uses :func:`mha_core`; the unmerged GPS layer's Transformer
-branch and the Graphormer layer, which the JAX package compute outside any
-Pallas kernel, use :func:`mha`."""
+"""Masked multi-head attention for padded graph batches (counterpart of
+``graphgps_tpu/ops/mha.py:21-75`` and of ``graphgps_tpu/ops/pallas/
+flash_mha.py:87-136`` ``mha``, the dispatch between its dense and chunked
+rungs). The plain version of the layer front uses :func:`mha_core`; the
+Graphormer layer, which the JAX package computes outside any Pallas kernel,
+uses :func:`mha`; the unmerged GPS layer's Transformer branch outside the
+wide attention's range takes :func:`mha_dispatch`."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -11,6 +12,11 @@ from typing import Callable, Optional
 import torch
 
 NEG_INF = -1e30
+# the dense rung while N <= DENSE_MAX_N and the (B, H, N, N) f32 scores fit
+# DENSE_MAX_BYTES; the chunked rung beyond (flash_mha.py:46-47, the JAX
+# package's defaults of GGPS_DENSE_MAX_N and GGPS_DENSE_MAX_BYTES)
+DENSE_MAX_N = 1024
+DENSE_MAX_BYTES = 64 << 20
 
 
 def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
@@ -57,6 +63,32 @@ def mha(q, k, v, key_mask, drop: Optional[Callable] = None, bias=None):
     a seed of its own)."""
     return mha_core(q, k, v, key_mask, drop=drop, grad_through_mask=False,
                     bias=bias)
+
+
+def takes_dense(B: int, H: int, N: int) -> bool:
+    """The rung JAX's "auto" dispatch takes off the TPU: dense while N is at
+    most DENSE_MAX_N and the f32 scores fit DENSE_MAX_BYTES. It depends on
+    the batch's graph count B, so at some sizes two layouts of the same
+    graphs take different (exact) rungs."""
+    return N <= DENSE_MAX_N and 4 * B * H * N * N <= DENSE_MAX_BYTES
+
+
+def mha_dispatch(q, k, v, key_mask, seed: int = 0, rate: float = 0.0,
+                 bias=None):
+    """Masked attention on the rung :func:`takes_dense` picks: :func:`mha`
+    with the attention dropout over the (B*H*N, N) view (site 0 of the
+    port's hash, ``seed``), or ``chunked_mha`` (keys in chunks of
+    ``chunked_mha.CHUNK``), which draws the same masks."""
+    from .chunked_mha import chunked_mha
+    from .kernels.common import apply_dropout
+
+    B, H, N, _ = q.shape
+    if takes_dense(B, H, N):
+        drop = None
+        if rate > 0.0:
+            drop = lambda p: apply_dropout(p, seed, 0, rate)  # noqa: E731
+        return mha(q, k, v, key_mask, drop, bias)
+    return chunked_mha(q, k, v, key_mask, bias, seed, rate)
 
 
 def split_heads(x, num_heads: int):

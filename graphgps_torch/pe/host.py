@@ -10,6 +10,8 @@ along each path, computed once per graph at load time.
 """
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,6 +86,29 @@ def lap_eig(g: Graph, max_freqs: int, laplacian_norm: str = "sym",
     out_vals[:k] = evals_k
     out_vecs[:, :k] = evects_k
     return out_vals, out_vecs
+
+
+# the eigenpairs of the last LAP_EIG_KEEP distinct graphs, by content
+LAP_EIG_KEEP = 8
+_LAP_EIG: "OrderedDict[tuple, Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
+
+
+def lap_eig_memo(g: Graph, max_freqs: int, laplacian_norm: str = "sym",
+                 eigvec_norm: str = "L2") -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`lap_eig`, computed once for a graph's node count and edge list
+    while it is among the last LAP_EIG_KEEP distinct graphs: the split views
+    of a transductive graph share both, a run loads its dataset more than
+    once, and a dense ``eigh`` of a 5,201-node Laplacian takes tens of
+    seconds. A repeat returns the arrays the one numpy call gave (a pure
+    function of the key: nothing can go stale; callers copy, never write)."""
+    key = (g.num_nodes, hashlib.sha1(
+        np.ascontiguousarray(g.edge_index).tobytes()).hexdigest(),
+        max_freqs, laplacian_norm, eigvec_norm)
+    if key not in _LAP_EIG:
+        _LAP_EIG[key] = lap_eig(g, max_freqs, laplacian_norm, eigvec_norm)
+        while len(_LAP_EIG) > LAP_EIG_KEEP:
+            _LAP_EIG.popitem(last=False)
+    return _LAP_EIG[key]
 
 
 def rwse(g: Graph, times: List[int]) -> np.ndarray:
@@ -220,9 +245,9 @@ def compute_posenc(graphs: List[Graph], cfg) -> None:
                 g.pe["pestat_RWSE"] = rwse(g, times)
         elif name == "LapPE":
             for g in graphs:
-                evals, evects = lap_eig(g, pcfg.eigen.max_freqs,
-                                        pcfg.eigen.laplacian_norm,
-                                        pcfg.eigen.eigvec_norm)
+                evals, evects = lap_eig_memo(g, pcfg.eigen.max_freqs,
+                                             pcfg.eigen.laplacian_norm,
+                                             pcfg.eigen.eigvec_norm)
                 g.pe["EigVecs"] = evects
                 g.extras["EigVals"] = evals[None, :].copy()
         elif name == "GraphormerBias":

@@ -118,10 +118,15 @@ def compute_loss(cfg, pred, true, mask):
 
 def loss_mask(batch, pred):
     """The padding mask at the predictions' level: the graph mask for one
-    row per graph, the node mask for one row per node slot."""
+    row per graph, the node mask for one row per node slot, and on a
+    transductive split the node mask AND the split's node mask (JAX
+    ``_loss_mask``): the loss and the metrics cover the split's nodes."""
     if pred.shape[0] == batch.num_graphs:
         return batch.graph_mask
     if pred.shape[0] == batch.num_node_slots:
+        split = batch.extras.get("split_mask")
+        if split is not None:
+            return batch.node_mask & split.reshape(-1).bool()
         return batch.node_mask
     raise ValueError(f"predictions of {pred.shape[0]} rows match neither the "
                      f"{batch.num_graphs} graphs nor the "

@@ -1,5 +1,5 @@
-"""Carry a JAX GPSModel's, SANTransformer's or GraphormerNet's flax
-variables over to the port's state dict.
+"""Carry a JAX GPSModel's (CustomGatedGCN or GCN layers), SANTransformer's
+or GraphormerNet's flax variables over to the port's state dict.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the variables). The same mapping names a
@@ -64,6 +64,8 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "",
     names are the same on both paths, in training and in evaluation
     (``Norm_0`` the attention norm, ``Norm_1`` the final norm). ``s=None``
     maps the parameters only."""
+    if "GCNLayer_0" in p:
+        return gcn_layer_state_dict(p, s, prefix)
     out: dict = {}
     g = p["GatedGCNLayer_0"]
     gs = None if s is None else s["GatedGCNLayer_0"]
@@ -92,6 +94,30 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "",
         out[f"{prefix}.w_ffn{i}"] = p[f"Dense_{i - 1}"]["kernel"]
         out[f"{prefix}.b_ffn{i}"] = p[f"Dense_{i - 1}"]["bias"]
     _norm(out, f"{prefix}.norm_out", p, s, "Norm_1")
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
+def gcn_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
+    """One GCN+Transformer GPSLayer's flax params/batch_stats → the port's
+    ``GPSLayer`` state dict: ``GCNLayer_0/Dense_0`` → ``local.w``/
+    ``local.b``, ``qkv_*`` → ``w_qkv``/``b_qkv``, ``out_*``, the FFN's
+    ``Dense_0``/``Dense_1``, and with BatchNorm ``Norm_0``/``Norm_1``/
+    ``Norm_2`` → ``norm_local``/``norm_attn``/``norm_out`` (without it the
+    norms hold no variables)."""
+    out: dict = {}
+    d = p["qkv_kernel"].shape[0]
+    out[f"{prefix}.local.w"] = p["GCNLayer_0"]["Dense_0"]["kernel"]
+    out[f"{prefix}.local.b"] = p["GCNLayer_0"]["Dense_0"]["bias"]
+    out[f"{prefix}.w_qkv"] = np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)
+    out[f"{prefix}.b_qkv"] = np.asarray(p["qkv_bias"]).reshape(3 * d)
+    out[f"{prefix}.w_out"] = p["out_kernel"]
+    out[f"{prefix}.b_out"] = p["out_bias"]
+    for i in (1, 2):
+        out[f"{prefix}.w_ffn{i}"] = p[f"Dense_{i - 1}"]["kernel"]
+        out[f"{prefix}.b_ffn{i}"] = p[f"Dense_{i - 1}"]["bias"]
+    for i, name in enumerate(("norm_local", "norm_attn", "norm_out")):
+        if f"Norm_{i}" in p:
+            _norm(out, f"{prefix}.{name}", p, s, f"Norm_{i}")
     return {k.lstrip("."): v for k, v in out.items()}
 
 
@@ -164,7 +190,8 @@ def _layer_trees(params: dict, stats):
                 for i in range(n)]
     found = sorted((int(m.group(1)), k) for k in params
                    if (m := _UNROLLED.match(k)))
-    return [(params[k], None if stats is None else stats[k])
+    # a layer without norms holds no batch_stats
+    return [(params[k], None if stats is None else stats.get(k, {}))
             for _, k in found]
 
 
@@ -232,6 +259,9 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
             fe["TypeDictNodeEncoder_0"]["Embed_0"]["embedding"]
     if "GraphormerBiasEncoder_0" in fe:
         _graphormer_bias_state_dict(out, fe["GraphormerBiasEncoder_0"])
+    if "Dense_0" in fe:
+        # an encoding's name alone: the raw features' projection
+        _linear(out, "encoder.node_lin.proj", fe["Dense_0"])
     for enc, names in (("node_lin", ("VOCNodeEncoder_0", "LinearNodeEncoder_0")),
                        ("edge_lin", ("LinearEdgeEncoder_0",))):
         for name in names:

@@ -725,12 +725,23 @@ def test_san_refuses_unported_settings(opts, match):
         build_model(tcfg, 1, 14)
 
 
-def test_san_without_batchnorm_refuses_fused_ffn(loaders):
+def test_san_without_batchnorm_refuses_fused_ffn(monkeypatch, loaders):
     """Without BatchNorm, in training with dropout, JAX takes ``fused_ffn``
-    (``san.py:174-193``), which is not ported: the port raises there; in
-    evaluation the plain route runs."""
+    (``san.py:174-193``) with the inner dropout only; the port no longer
+    refuses there: its SAN layer calls ``fused_ffn`` with ``drop2=False``
+    once per layer, and the predictions are finite. In evaluation the plain
+    route runs."""
+    from graphgps_torch.models import san
     from graphgps_torch.models.networks import build_model
 
+    calls = []
+    real = san.fused_ffn
+
+    def counted(*a, **k):
+        calls.append(k.get("drop2"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(san, "fused_ffn", counted)
     *_, tl = loaders
     _, tcfg = small_cfgs("gt.batch_norm", "False", cfg_path=SAN_CFG,
                          small=SAN_SMALL)
@@ -738,9 +749,10 @@ def test_san_without_batchnorm_refuses_fused_ffn(loaders):
     _, tb = next(iter(tl["train"]))
     with torch.no_grad():
         pred, _ = model.eval()(tb)
-        assert torch.isfinite(pred).all()
-        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-            model.train()(tb, torch.Generator())
+        assert torch.isfinite(pred).all() and calls == []
+        pred, _ = model.train()(tb, torch.Generator().manual_seed(0))
+    assert torch.isfinite(pred).all()
+    assert calls == [False] * len(model.layers)
 
 
 @pytest.mark.parametrize("impl", ["ring", "dense", "chunked", "flash",

@@ -480,13 +480,31 @@ def test_wide_layer_matches_jax(monkeypatch, N, train):
             _close(got_s[k], want_s[k], k, 1e-4, 1e-4)
 
 
-def test_layer_refuses_graphs_beyond_the_wide_kernel():
+def test_layer_refuses_graphs_beyond_the_wide_kernel(monkeypatch):
+    """Beyond the wide kernel's 768 node slots the layer no longer refuses:
+    it takes JAX's mha dispatch (``ops/mha.py`` ``mha_dispatch``). At 776
+    slots that is the dense rung, and the chunked rung forced in its place
+    (a ragged last chunk of 8 keys) gives the same output."""
     from graphgps_torch.models.gps_layer import WIDE_MAX_NODES, GPSLayer
+    from graphgps_torch.ops import chunked_mha, mha
     from tests.test_fused_gatedgcn import _blocked_batch
     from tests.test_torch_layer import torch_batch
 
     batch, x, e, *_ = _blocked_batch(1, WIDE_MAX_NODES + 8, 8, 64, seed=1)
+    args = (torch_batch(batch), torch.from_numpy(np.array(x)),
+            torch.from_numpy(np.array(e)))
+    calls = []
+    real = chunked_mha.chunked_mha
+    monkeypatch.setattr(chunked_mha, "chunked_mha",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    torch.manual_seed(0)
     layer = GPSLayer(64, 4).eval()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        layer(torch_batch(batch), torch.from_numpy(np.array(x)),
-              torch.from_numpy(np.array(e)))
+    with torch.no_grad():
+        dense = layer(*args)
+        assert calls == []
+        monkeypatch.setattr(mha, "DENSE_MAX_N", 0)
+        chunked = layer(*args)
+    assert calls == [1]
+    for a, b in zip(chunked, dense):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
