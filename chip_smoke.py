@@ -61,14 +61,33 @@ one. Phases, each fatal on failure:
    relu's derivative in the plain versions on the kernel's side of each
    kink; no single PyTorch call computes the FFN block, so these rows have
    no ``library_ms``;
+3h. the GPS layer's fused attention rung, ``gps_attention``, forward and
+   backward, on layer 0's inputs of the first main path (GPS-deep: batch
+   256, 40 node slots, d=256, 8 heads) at the recipe's attention dropout
+   0.1 and at 0, at the pcqm4m-GPS width (d=304, 4 heads, rate 0.5) and at
+   the edge of JAX's envelope (64 graphs of 128 node slots, d=256, 4 heads
+   of 64, rate 0.1) on seeded inputs, at 3d's attention tolerances, with bit-identical backward
+   reruns and the mask's kept fraction on the u8 grid;
+   ``F.multi_head_attention_forward`` with the padded keys' mask is held
+   against the kernel at rate 0 and timed as ``library_ms``;
+3i. the flash attention, ``flash_mha``, forward and backward, on layer 0's
+   q, k, v of the third main path (VOC superpixels: batch 32, 512 node
+   slots, 400-500 real, 4 heads of 24) without a bias and with a seeded
+   one, and at wn-squirrel's one graph (5,248 slots, 5,201 real) on seeded
+   inputs; ``F.scaled_dot_product_attention`` with the same-segment mask
+   (and the bias folded into a float mask) is held against the kernel and
+   timed as ``library_ms``;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
    32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, ZINC
    Graphormer 12x80 with 8 heads and the graph token at batch 256,
    ogbg-molhiv SAN 10x64 with 4 heads, LapPE's Transformer and the plateau
-   scheduler at batch 64, then wn-squirrel GCN+Transformer 3x96 with 4
-   heads on its one transductive graph, the chunked attention and the
-   split masks), each with every launch count set to 0 just before a run
-   and read just after:
+   scheduler at batch 64, wn-squirrel GCN+Transformer 3x96 with 4 heads on
+   its one transductive graph, the chunked attention and the split masks,
+   then GPS-deep with the JAX package's switch ``GGPS_FUSED_FRONT=0`` (the
+   unmerged path at d=256 and the fused attention rung) and VOC
+   superpixels under ``gt.attn_impl flash`` (training at attention dropout
+   0, which flash requires)), each with every launch count set to 0 just
+   before a run and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
    b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1,
@@ -95,18 +114,25 @@ one. Phases, each fatal on failure:
       by CUDA kernel and the device's idle share;
    e. the same for training steps (forward, backward, clipping, adamW),
       with the peak device memory (on wn-squirrel, whose epoch is one step,
-      over SQUIRREL_RATE_BATCHES repeats of its one batch).
+      over SQUIRREL_RATE_BATCHES repeats of its one batch);
+   and after the last two paths, one calibrated model's evaluation
+   predictions on one val batch on both sides of the switch (merged front
+   vs the fused rung; auto's wide attention vs flash, on the real nodes),
+   with each side's launches.
 
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
 phase. The line before the last is ``{"kernels": [...]}`` (the six kernels
 of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
 Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
-ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's: twenty);
+ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's, the two
+of the fused attention rung at GPS-deep's and the two of the flash attention
+at VOC's: twenty-four);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -158,6 +184,24 @@ ZINC_LAUNCHES = {"ln_ffn": (1, 1), "ln_ffn_bwd": (1, 0)}
 # (d = 64, no multiple of 128) JAX takes the plain norm and FFN, and so does
 # the port: 0 launches per evaluated batch
 SAN_LAUNCHES = {"bn_ffn": (1, 0), "bn_ffn_bwd": (1, 0)}
+# GPS-deep with the merged front off (GGPS_FUSED_FRONT=0): the unmerged path
+# at a multiple of 128, its tails deferred in training and evaluation; the
+# fused attention rung (B*N = 10,240 >= 8,192); the drop-add in training
+GPSDEEP_UNMERGED_LAUNCHES = {
+    "gatedgcn": (1, 1), "gatedgcn_bwd": (1, 0), "pre_tail": (1, 1),
+    "pre_tail_bwd": (1, 0), "gps_attention": (1, 1),
+    "gps_attention_bwd": (1, 0), "drop_add": (1, 0), "drop_add_bwd": (1, 0),
+    "combine_ffn": (1, 1), "combine_ffn_bwd": (1, 0)}
+# VOC under gt.attn_impl flash: the long-graph rung's edge gate, and the
+# flash attention in place of the wide one
+VOC_FLASH_LAUNCHES = {
+    "edge_gate": (1, 1), "edge_gate_bwd": (1, 0), "flash_mha": (1, 1),
+    "flash_mha_bwd": (1, 0)}
+# the switches of the two paths: the JAX package's merged-front switch, and
+# the attention rung (training at attention dropout 0: flash takes none)
+FRONT_OFF = ("GGPS_FUSED_FRONT", "0")
+VOC_FLASH_OPTS = ["gt.attn_impl", "flash"]
+VOC_FLASH_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
 # wn-squirrel (GCN+Transformer): per layer and training step the FFN once
 # and the local and attention drop-adds; in evaluation (d = 96, no dropout)
 # JAX's plain FFN and plain adds, so no kernel
@@ -217,6 +261,15 @@ ACTOR_ROWS, ACTOR_DIM = 7680, 64
 # rate batches of the wn-squirrel recipe: one epoch is one step over the one
 # train batch, and a step runs ~20k launches of the chunked attention
 SQUIRREL_RATE_BATCHES = 5
+# phase 3h: the fused attention rung at the pcqm4m-GPS+RWSE width (d 304, 4
+# heads, attention dropout 0.5) on seeded inputs
+PCQM_GPS_DIM, PCQM_GPS_HEADS, PCQM_GPS_ATTN_RATE = 304, 4, 0.5
+# and at the edge of JAX's envelope: 64 graphs of 128 node slots (64-128
+# real), d = 256 in 4 heads of 64 (two column chunks of the attention body)
+EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM, EDGE_HEADS = 64, 128, 256, 4
+# phase 3i: the flash attention at wn-squirrel's one graph under flash
+# (5,248 node slots, 5,201 real), 4 heads of 24, on seeded inputs
+SQUIRREL_SLOTS, SQUIRREL_NODES = 5248, 5201
 # a relu unit whose side of the kink the kernel's and the plain version's
 # rounding part lies within this much of the pre-activations' largest
 # entry from 0 (f32 sums of 64 to 304 products)
@@ -356,7 +409,7 @@ def branch_outputs(layer, batch, x, e):
     evaluation, on either path."""
     from graphgps_torch.ops.kernels import fused_gps_front
 
-    if layer.merged:
+    if layer.takes_merged(batch):
         return fused_gps_front(*front_args(layer, batch, x, e))[:3]
     xo, gate = layer.local.core(batch, x, e)[:2]
     return xo, gate, x + layer.attention(batch, x)
@@ -371,7 +424,7 @@ def seeded_model(torch, cfg, splits, batch):
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+        model = build_model(cfg, infer_dims(cfg, splits))
     g = torch.Generator().manual_seed(cfg.seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -779,7 +832,7 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
     _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
     model = calibrated_model(torch, cfg, splits, batch)
     layer = model.layers[0]
-    if layer.merged:
+    if layer.takes_merged(batch):
         fail(f"{tag}: expected the unmerged layer path at d={layer.dim_h}")
     gg = layer.local
     B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
@@ -1076,7 +1129,7 @@ def check_ln_ffn(torch, cfg_path: str, opts, device):
     _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+        model = build_model(cfg, infer_dims(cfg, splits))
     model = model.to(device).eval()
     layer, gb = model.layers[0], model.encoder.graphormer
     with torch.no_grad():
@@ -1333,7 +1386,7 @@ def check_ffn(torch, cfg_path: str, opts, device):
     _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+        model = build_model(cfg, infer_dims(cfg, splits))
     model = model.to(device).train()
     layer = model.layers[0]
     gen = torch.Generator().manual_seed(DROP_SEED)
@@ -1360,6 +1413,355 @@ def check_ffn(torch, cfg_path: str, opts, device):
                       dict(B=1, N=R, R=R, d=d, dh=2 * d, real_rows=R),
                       "actor width")
     return rows, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def library_mha_call(torch, x, counts, wqkv, bqkv, wo, bo, H: int):
+    """(call(rate, *leaves), its leaves, backward(rate)): one
+    ``F.multi_head_attention_forward`` that computes the QKV projection, the
+    key-masked attention, dropout on the probabilities and the
+    out-projection -- the yardstick of the GPS attention's rows. It takes
+    (N, B, d), (out, in) weights and a mask of the padded keys (a graph
+    with no real node attends over all its slots, as the kernels' does);
+    its dropout bits are its own, so at a rate above 0 only its time
+    compares. Timed here, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    B, N, d = x.shape
+    n_keys = torch.where(counts > 0, counts, N)
+    padded = torch.arange(N, device=x.device)[None, :] >= n_keys[:, None]
+    leaves = [t.contiguous() for t in (x.transpose(0, 1), wqkv.t(), bqkv,
+                                       wo.t(), bo)]
+
+    def call(rate, xt, w_in, b_in, w_out, b_out):
+        return F.multi_head_attention_forward(
+            xt, xt, xt, d, H, w_in, b_in, None, None, False, rate, w_out,
+            b_out, training=True, key_padding_mask=padded,
+            need_weights=False)[0]
+
+    def backward(rate):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        y = call(rate, *ls)
+        return lambda cots: lambda: torch.autograd.grad(
+            y, ls, cots[0].transpose(0, 1), retain_graph=True)
+
+    return call, leaves, backward
+
+
+def gps_attention_cases(torch, ins, H: int, rates, tag: str):
+    """The fused attention rung's rows on ``ins`` (x, kmask, wqkv, bqkv, wo,
+    bo) at each of ``rates``: forward and backward against the plain
+    version at phase 3d's tolerances for the attention rows, with
+    ``F.multi_head_attention_forward`` held against the kernel at rate 0
+    and timed as ``library_ms``. Every row carries ``shape=tag`` and
+    ``attn_rate``."""
+    from graphgps_torch.ops.kernels import gps_attention as ga
+
+    x, kmask = ins[:2]
+    B, N, d = x.shape
+    counts = kmask.sum(1).to(torch.int32)
+    n_real = int(counts.sum())
+    pairs = int((counts.long() ** 2).sum())   # real (query, key) pairs
+    call, lib_in, lib_backward = library_mha_call(torch, x, counts, *ins[2:],
+                                                  H)
+    cots_for = cotangents(torch, SEED + 14, x.device)
+    src = "graphgps_torch/csrc/gps_attention.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_gps_attn.py"
+    tol = (LONG_RTOL, LONG_ATOL)
+    shapes = dict(B=B, N=N, d=d, H=H, real_nodes=n_real)
+    rows = []
+    for rate in rates:
+        conf = (DROP_SEED, H, rate)
+
+        def run(cots=None, conf=conf):
+            y, kept = ga._launch_forward(ins, *conf)
+            cots = cots or cots_for([y])
+            return cots, lambda: ga.gps_attention_backward(
+                *ins, *conf, cots[0], kept=kept)
+
+        fwd = dict(name="gps_attention", fn=ga.fused_gps_attention,
+                   plain=ga.gps_attention_plain, args=(*ins, *conf), tol=tol,
+                   source=src, replaces=f"{tpu}:279",
+                   library=lambda rate=rate: call(rate, *lib_in),
+                   # the two projections on the real rows, q k^T and P v
+                   # over the real (query, key) pairs per head
+                   flops=8 * n_real * d * d + 4 * pairs * d)
+        bwd = dict(name="gps_attention_bwd", run=run,
+                   plain=lambda c, conf=conf: ga.gps_attention_backward_plain(
+                       *ins, *conf, c[0]),
+                   inputs=ins, source=src, replaces=f"{tpu}:330",
+                   sites=[("attention P", B * H * N, N)] if rate > 0 else [],
+                   library=lib_backward(rate),
+                   # dO, dWo, dx, dWqkv on the real rows (qkv and o kept),
+                   # and per head the logits again, dP, dq, dk, dv
+                   flops=16 * n_real * d * d + 10 * pairs * d)
+        at = dict(shapes, attn_rate=rate)
+        rows += [dict(forward_case(torch, fwd, at), attn_rate=rate),
+                 dict(backward_case(torch, bwd, DROP_SEED, rate, at),
+                      attn_rate=rate)]
+    with torch.no_grad():
+        y = ga.fused_gps_attention(*ins, DROP_SEED, H, 0.0)
+        y_lib = call(0.0, *lib_in).transpose(0, 1)
+        lib_err = float((y - y_lib).abs().max())
+    print(json.dumps(dict(
+        note="F.multi_head_attention_forward against gps_attention at rate "
+             "0; not used in the port", library_vs_kernel_max_abs_err=lib_err,
+        rtol=LIBRARY_RTOL, atol=f"{LIBRARY_ATOL} x max|entry|", shape=tag,
+        shapes=shapes)), flush=True)
+    if not grads_close(torch, [y_lib], [y], LIBRARY_RTOL, LIBRARY_ATOL,
+                       0.0)[0]:
+        fail("F.multi_head_attention_forward does not compute the GPS "
+             f"attention's function at rate 0 on {tag} (max abs err "
+             f"{lib_err})")
+    for r in rows:
+        r["shape"] = tag
+    return rows
+
+
+def check_gps_attention(torch, layer0, device):
+    """Phase 3h: the GPS layer's fused attention rung (``gps_attention``),
+    forward and backward, kernel against plain version, on layer 0's inputs
+    of the first main path (GPS-deep: batch 256, 40 node slots, d=256, 8
+    heads; the calibrated model's weights, the ``[Wq|Wk|Wv]`` columns of its
+    joint front weight) at the recipe's attention dropout 0.1 and at 0; then
+    at the pcqm4m-GPS width (d=304, 4 heads, its attention dropout 0.5) on
+    seeded inputs with the same node masks, a shape the kernel takes and
+    JAX's envelope (d % 128 == 0) keeps off the rung; then at the edge of
+    that envelope (128 node slots, heads of 64) at 0.1. Returns the rows."""
+    L = layer0
+    d, H = L["d"], L["H"]
+    front = L["front"]
+    x, nmask, wnq, bnq, wo, bo = (front[i] for i in (0, 5, 9, 10, 13, 14))
+    ins = (x, nmask, wnq[:, 4 * d:].contiguous(), bnq[4 * d:].contiguous(),
+           wo, bo)
+    rows = gps_attention_cases(torch, ins, H, (DROP_RATE, 0.0),
+                               "pcqm4m-GPSdeep")
+    g = torch.Generator(device=device).manual_seed(SEED + 17)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    dp = PCQM_GPS_DIM
+    wide = (rnd(*x.shape[:2], dp), nmask, rnd(dp, 3 * dp) / dp ** 0.5,
+            0.1 * rnd(3 * dp), rnd(dp, dp) / dp ** 0.5, 0.1 * rnd(dp))
+    rows += gps_attention_cases(torch, wide, PCQM_GPS_HEADS,
+                                (PCQM_GPS_ATTN_RATE,), "pcqm4m-GPS width")
+    Bn, Nn, de = EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM
+    counts = torch.randint(Nn // 2, Nn + 1, (Bn,), generator=g,
+                           device=device)
+    emask = (torch.arange(Nn, device=device)[None] < counts[:, None]).float()
+    edge = (rnd(Bn, Nn, de), emask, rnd(de, 3 * de) / de ** 0.5,
+            0.1 * rnd(3 * de), rnd(de, de) / de ** 0.5, 0.1 * rnd(de))
+    return rows + gps_attention_cases(torch, edge, EDGE_HEADS, (DROP_RATE,),
+                                      "128 slots, heads of 64")
+
+
+def flash_cases(torch, q, k, v, mask, bias, tag: str):
+    """The flash attention's rows on (q, k, v, mask, bias): forward and
+    backward against the plain version, and
+    ``F.scaled_dot_product_attention`` with the same logits' mask (the
+    boolean same-segment mask; with a bias, the float mask bias·scale plus
+    the library's mask value across segments) held against the kernel and
+    timed as ``library_ms`` (used nowhere in the port)."""
+    import torch.nn.functional as F
+    from graphgps_torch.ops.kernels.flash_mha import (
+        MASK_VALUE, _launch_forward, flash_mha, flash_mha_backward,
+        flash_mha_backward_plain, flash_mha_plain)
+
+    B, H, N, Dh = q.shape
+    scale = 1.0 / float(Dh) ** 0.5
+    ids = mask.to(torch.int32)
+    same = (ids[:, :, None] == ids[:, None, :])[:, None]
+    attn_mask = same if bias is None else (
+        bias * scale + torch.where(same, 0.0, MASK_VALUE))
+    # (query, key) pairs with weight: the same segment
+    n = mask.sum(1).double()
+    pairs = int((n ** 2 + (N - n) ** 2).sum()) * H
+    src = "graphgps_torch/csrc/flash_mha.cu"
+    tpu = "graphgps_tpu/ops/pallas/flash_mha.py"
+    tol = (LONG_RTOL, LONG_ATOL)
+    cots_for = cotangents(torch, SEED + 15, q.device)
+    ins = (q, k, v, mask, bias)
+    grads = lambda g: tuple(t for t in g if t is not None)  # noqa: E731
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                              scale=scale)
+
+    def library_backward(cots):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lm = attn_mask
+        if bias is not None:
+            lm = attn_mask.clone().requires_grad_()
+            leaves.append(lm)
+        y = F.scaled_dot_product_attention(*leaves[:3], attn_mask=lm,
+                                           scale=scale)
+        return lambda: torch.autograd.grad(y, leaves, cots[0],
+                                           retain_graph=True)
+
+    def run(cots=None):
+        o, kept = _launch_forward(*ins)
+        cots = cots or cots_for([o])
+        return cots, lambda: grads(flash_mha_backward(*ins, o, cots[0],
+                                                      kept=kept))
+
+    fwd = dict(name="flash_mha", fn=flash_mha, plain=flash_mha_plain,
+               args=ins, tol=tol, source=src, replaces=f"{tpu}:67",
+               library=library,
+               # q k^T and P v over the pairs with weight
+               flops=4 * pairs * Dh)
+    bwd = dict(name="flash_mha_bwd", run=run,
+               plain=lambda c: grads(flash_mha_backward_plain(*ins, c[0])),
+               inputs=[t for t in ins if t is not None], source=src,
+               replaces=f"{tpu}:67 (the library's backward)", sites=[],
+               library=lambda cots: library_backward(cots),
+               # the logits again, dP, dv, dq, dk over the pairs
+               flops=10 * pairs * Dh)
+    at = dict(B=B, H=H, N=N, Dh=Dh, real_nodes=int(mask.sum()),
+              bias=bias is not None)
+    rows = [forward_case(torch, fwd, at),
+            backward_case(torch, bwd, DROP_SEED, 0.0, at)]
+    with torch.no_grad():
+        y = flash_mha(*ins)
+        y_lib = library()
+        lib_err = float((y - y_lib).abs().max())
+    print(json.dumps(dict(
+        note="F.scaled_dot_product_attention against flash_mha; not used in "
+             "the port", library_vs_kernel_max_abs_err=lib_err,
+        rtol=LIBRARY_RTOL, atol=f"{LIBRARY_ATOL} x max|entry|", shape=tag,
+        shapes=at)), flush=True)
+    if not grads_close(torch, [y_lib], [y], LIBRARY_RTOL, LIBRARY_ATOL,
+                       0.0)[0]:
+        fail("F.scaled_dot_product_attention does not compute the flash "
+             f"attention's function on {tag} (max abs err {lib_err})")
+    for r in rows:
+        r.update(shape=tag, bias=bias is not None)
+    return rows
+
+
+def check_flash(torch, cfg_path: str, opts, state, device):
+    """Phase 3i: the flash attention (``flash_mha``), forward and backward,
+    kernel against plain version, on layer 0's q, k, v of the recipe
+    ``cfg_path`` (``opts`` on top; VOC superpixels: batch 32, 512 node slots
+    with 400-500 real, 4 heads of 24; the calibrated model ``state``)
+    without a bias (the GPS layer's use) and with a seeded one, then at
+    wn-squirrel's one graph (5,248 slots, 5,201 real, 4 heads of 24) on
+    seeded inputs. Returns the rows; every row carries ``shape`` and
+    ``bias``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+    from graphgps_torch.ops.mha import split_heads
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = seeded_model(torch, cfg, splits, batch)
+    model.load_state_dict(state)
+    layer = model.layers[0]
+    d, H = layer.dim_h, layer.num_heads
+    with torch.no_grad():
+        x, _ = model.encoder(batch)
+        w, b = layer.qkv_proj()
+        qkv = batch.dense_view(x) @ w + b
+        q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H).contiguous()
+                   for i in range(3))
+    mask = batch.dense_view(batch.node_mask)
+    if bool(mask.all()):
+        fail("phase 3i: the VOC batch holds no padded node slot")
+    g = torch.Generator(device=device).manual_seed(SEED + 16)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    rows = flash_cases(torch, q, k, v, mask, None, "voc")
+    rows += flash_cases(torch, q, k, v, mask, rnd(*q.shape[:3], q.shape[2]),
+                        "voc")
+    N, Dh = SQUIRREL_SLOTS, d // H
+    sq_mask = torch.arange(N, device=device)[None, :] < SQUIRREL_NODES
+    rows += flash_cases(torch, *(rnd(1, H, N, Dh) for _ in range(3)),
+                        sq_mask, None, "wn-squirrel")
+    return rows
+
+
+def check_rung_switch(torch, name: str, cfg_path: str, opts, state, device,
+                      settings, tables):
+    """One calibrated model's evaluation predictions on one val batch under
+    each of two ``settings`` (callables that switch the model's path), with
+    the launches of each: equal on every real row (graph or node) within
+    MODEL_RTOL and MODEL_ATOL, and each run's launches per layer what its
+    table in ``tables`` says."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+    from graphgps_torch.ops import kernels
+    from graphgps_torch.train.loop import loss_mask
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["val"]))
+    model = seeded_model(torch, cfg, splits, batch)
+    model.load_state_dict(state)
+    preds = []
+    for setting, table in zip(settings, tables):
+        kernels.reset_launch_counts()
+        with setting(model), torch.no_grad():
+            preds.append(model(batch)[0])
+        counts = kernels.launch_counts()
+        check_launches(f"{name} evaluation, {setting.__name__}", counts,
+                       expected_launches(table, layers_of(cfg), 0, 1,
+                                         counts))
+    m = loss_mask(batch, preds[0])
+    a, b = preds[0][m], preds[1][m]
+    err = float((a - b).abs().max())
+    print(json.dumps(dict(path=name, rung_switch=[s.__name__ for s in
+                                                  settings],
+                          max_abs_err=err, rtol=MODEL_RTOL, atol=MODEL_ATOL,
+                          rows=int(m.sum()))), flush=True)
+    if not (torch.isfinite(a).all() and torch.allclose(
+            b, a, rtol=MODEL_RTOL, atol=MODEL_ATOL)):
+        fail(f"{name}: the predictions of {settings[0].__name__} and "
+             f"{settings[1].__name__} differ (max abs err {err})")
+
+
+@contextlib.contextmanager
+def env_set(key: str, value: str):
+    """``os.environ[key] = value`` for the duration (the JAX package's
+    switches are read per call)."""
+    old = os.environ.get(key)
+    os.environ[key] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(key)
+        else:
+            os.environ[key] = old
+
+
+def merged_front(model):
+    return contextlib.nullcontext()
+
+
+def front_off(model):
+    return env_set(*FRONT_OFF)
+
+
+@contextlib.contextmanager
+def attn_impl(model, impl: str):
+    old = [layer.attn_impl for layer in model.layers]
+    for layer in model.layers:
+        layer.attn_impl = impl
+    try:
+        yield
+    finally:
+        for layer, o in zip(model.layers, old):
+            layer.attn_impl = o
+
+
+def attn_auto(model):
+    return attn_impl(model, "auto")
+
+
+def attn_flash(model):
+    return attn_impl(model, "flash")
 
 
 def layers_of(cfg) -> int:
@@ -1423,7 +1825,7 @@ def check_training_run(torch, cfg, splits, run_dir, device, metric: str):
     loader = create_loaders(cfg, splits, device)["val"]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed + 7)
-        model = build_model(cfg, infer_dims(cfg, splits), loader.max_nodes)
+        model = build_model(cfg, infer_dims(cfg, splits))
     model = model.to(device).eval()
     plateau = None
     if cfg.optim.scheduler == "reduce_on_plateau":
@@ -1494,7 +1896,7 @@ def check_train_step(torch, cfg, splits, batch, device, state):
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits), batch.max_nodes)
+        model = build_model(cfg, infer_dims(cfg, splits))
     model.load_state_dict(state)
     lr = cfg.optim.base_lr
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1668,14 +2070,15 @@ def measure(torch, step, loader, unit: str, top: int) -> dict:
 
 
 def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
-                 state: dict, device, card: str, extra=(),
+                 state: dict, device, card: str, extra=(), train_extra=(),
                  rate_batches: int = RATE_BATCHES):
     """Phase 4 for one main path: the entry point in evaluation and in
     training with the launch counts read around each run, one training step
     card vs CPU, predictions card vs CPU, and both rates over
     ``rate_batches`` full batches a pass. ``state`` is the calibrated state
     dict the evaluation runs and the training step of 4c start from;
-    ``extra`` are config overrides of every run. The training run keeps
+    ``extra`` are config overrides of every run, ``train_extra`` those of
+    the training run, the training step and the training rate. The training run keeps
     checkpoints (``train.enable_ckpt``, which a recipe may turn off) to
     check the best one's round trip. Returns the training run's launch
     counts."""
@@ -1732,7 +2135,8 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
                      f"{h[0]}")
 
         # b. the training path through the entry point
-        train_opts = [*extra, "train.mode", "custom", "seed", str(SEED),
+        train_opts = [*extra, *train_extra, "train.mode", "custom", "seed",
+                      str(SEED),
                       "optim.max_epoch", str(TRAIN_EPOCHS),
                       "optim.num_warmup_epochs", "1", "train.ckpt_best",
                       "True", "train.enable_ckpt", "True",
@@ -1857,7 +2261,6 @@ def main() -> None:
     update_from_list(cfg, ["seed", str(SEED)])
     rows, state, layer0 = check_kernels(torch, cfg, load_dataset(cfg), device)
     rows += check_backward(torch, layer0)
-    del layer0
     phase("3, 3b")
 
     # 3c. the unmerged path's kernels at ogbg-molhiv's shapes and at the
@@ -1903,6 +2306,20 @@ def main() -> None:
              and r["rate"] > 0 and r["act"] == "gelu"]
     phase("3g")
 
+    # 3h. the fused attention rung at GPS-deep's shapes; the kernels line
+    # takes the rows at the recipe's attention dropout
+    ga_rows = check_gps_attention(torch, layer0, device)
+    rows += [r for r in ga_rows if r["shape"] == "pcqm4m-GPSdeep"
+             and r["attn_rate"] == cfg.gt.attn_dropout]
+    del layer0
+    phase("3h")
+
+    # 3i. the flash attention at VOC's shapes, with and without a bias, and
+    # at wn-squirrel's; the kernels line takes VOC's rows without a bias
+    fl_rows = check_flash(torch, VOC_CFG, voc_opts, voc_state, device)
+    rows += [r for r in fl_rows if r["shape"] == "voc" and not r["bias"]]
+    phase("3i")
+
     # 4. the six main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
@@ -1924,6 +2341,25 @@ def main() -> None:
                              card, extra=SQUIRREL_OPTS,
                              rate_batches=SQUIRREL_RATE_BATCHES)
     phase("4 wn-squirrel")
+    # the GPS layer's other attention rungs: GPS-deep with the JAX package's
+    # merged-front switch off, VOC under gt.attn_impl flash; each against
+    # the default path's predictions from one calibrated model
+    with env_set(*FRONT_OFF):
+        off_counts = drive_recipe(torch, "pcqm4m-GPSdeep front-off", CFG,
+                                  GPSDEEP_UNMERGED_LAUNCHES, "mae", state,
+                                  device, card)
+    check_rung_switch(torch, "pcqm4m-GPSdeep", CFG, ["seed", str(SEED)],
+                      state, device, (merged_front, front_off),
+                      (GPSDEEP_LAUNCHES, GPSDEEP_UNMERGED_LAUNCHES))
+    phase("4 pcqm4m-GPSdeep front-off")
+    flash_counts = drive_recipe(torch, "vocsuperpixels flash", VOC_CFG,
+                                VOC_FLASH_LAUNCHES, "f1", voc_state, device,
+                                card, extra=VOC_OPTS + VOC_FLASH_OPTS,
+                                train_extra=VOC_FLASH_TRAIN_OPTS)
+    check_rung_switch(torch, "vocsuperpixels", VOC_CFG, voc_opts, voc_state,
+                      device, (attn_auto, attn_flash),
+                      (VOC_LAUNCHES, VOC_FLASH_LAUNCHES))
+    phase("4 vocsuperpixels flash")
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
@@ -1936,6 +2372,10 @@ def main() -> None:
             path, counts = "ogbg-molhiv-SAN", san_counts
         elif r["name"] in ("ffn", "ffn_bwd"):
             path, counts = "wn-squirrel", sq_counts
+        elif r["name"] in ("gps_attention", "gps_attention_bwd"):
+            path, counts = "pcqm4m-GPSdeep front-off", off_counts
+        elif r["name"] in ("flash_mha", "flash_mha_bwd"):
+            path, counts = "vocsuperpixels flash", flash_counts
         r["launches"] = counts[r["name"]]
         r["main_path"] = path
         r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
@@ -1943,6 +2383,8 @@ def main() -> None:
         r["launches_zinc_graphormer"] = zinc_counts[r["name"]]
         r["launches_ogbg_molhiv_san"] = san_counts[r["name"]]
         r["launches_wn_squirrel"] = sq_counts[r["name"]]
+        r["launches_gpsdeep_front_off"] = off_counts[r["name"]]
+        r["launches_voc_flash"] = flash_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
@@ -1954,7 +2396,9 @@ def main() -> None:
                            "launches_vocsuperpixels",
                            "launches_zinc_graphormer",
                            "launches_ogbg_molhiv_san",
-                           "launches_wn_squirrel")} for r in rows])),
+                           "launches_wn_squirrel",
+                           "launches_gpsdeep_front_off",
+                           "launches_voc_flash")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -33,9 +33,10 @@
 //        by index (no one-hot matmuls: Hopper indexes directly), forms gate and
 //        sigma, and accumulates num/den for the N receivers in shared memory
 //        (the thread owns its column, so no atomics and a fixed order);
-//   4.   mha_kernel: one block per (graph, head), q/k/v and the N x N scores
-//        in shared memory (N <= 128), masked keys at -1e30 so a graph with no
-//        real node still gives finite, uniform weights;
+//   4.   mha_kernel (mha_core.cuh, shared with gps_attention.cu): one block
+//        per (graph, head), the N x N scores and q/k/v in chunks of head
+//        columns in shared memory (N <= 128), masked keys at -1e30 so a graph with no real node still
+//        gives finite, uniform weights;
 //   5.   the out-projection through the GEMM, dropout and the residual x in
 //        its epilogue;
 //   6.   per-graph moment partials, then a second pass that sums them over the
@@ -55,104 +56,22 @@
 //        per column folds x_new's and gate's moment cotangents, recomputes
 //        num/den, and walks the edges in order twice, scattering dD by
 //        receiver and dE/dB by sender into shared memory (no atomics);
-//   4.   mha_bwd_kernel: one block per (graph, head) recomputes P, replays
-//        the site-0 mask on P (for dv) and on dP, and forms dq, dk, dv;
+//   4.   mha_bwd_kernel (mha_core.cuh): one block per (graph, head)
+//        recomputes P, replays the site-0 mask on P (for dv) and on dP, and
+//        forms dq, dk, dv;
 //   5.   dx = dprojall Wnq^T + gsa, de = dgate C^T (NT GEMMs), and the weight
 //        gradients x^T dprojall, e^T dgate, attn^T dy as TN GEMMs split over
 //        rows, the bias gradients as column sums -- every sum in a fixed
 //        order, so two runs give the same bits.
 #include "gemm.cuh"
 #include "ggcn_core.cuh"
+#include "mha_core.cuh"
 
 namespace ggps {
 namespace {
 
-constexpr int MHA_THREADS = 128;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// q/k/v of head h of graph g from projall into padded shared rows, then the
-// masked scores and their row softmax into S (N x N). When Pd is non-null the
-// site-0 mask is applied to the probabilities in place.
-__device__ __forceinline__ void attn_probs(const float* __restrict__ proj,
-                                           const float* __restrict__ nmask, float* q,
-                                           float* k, float* v, float* S, int g, int h,
-                                           int N, int d, int H, float scale,
-                                           const Drop* dropP) {
-  const int Dh = d / H;
-  const int ld = Dh + 1;                // padded rows: conflict-free column reads
-  const size_t P = 7 * (size_t)d;
-  const float* base = proj + (size_t)g * N * P + 4 * d + h * Dh;
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int n = i / Dh, j = i % Dh;
-    const float* row = base + (size_t)n * P;
-    q[n * ld + j] = row[j];
-    k[n * ld + j] = row[d + j];
-    v[n * ld + j] = row[2 * d + j];
-  }
-  __syncthreads();
-
-  const float* nm = nmask + (size_t)g * N;
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i % N;
-    float acc = 0.0f;
-    for (int j = 0; j < Dh; ++j) acc = fmaf(q[n * ld + j], k[m * ld + j], acc);
-    S[n * N + m] = nm[m] > 0.0f ? acc * scale : -1e30f;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  const unsigned long long row0 = ((unsigned long long)g * H + h) * N;
-  for (int n = warp; n < N; n += nwarps) {
-    float* row = S + n * N;
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int m = lane; m < N; m += 32) {
-      const float ex = expf(row[m] - mx);
-      row[m] = ex;
-      sum += ex;
-    }
-    sum = warp_sum(sum);
-    for (int m = lane; m < N; m += 32) {
-      const float p = row[m] / sum;
-      row[m] = dropP != nullptr ? drop_apply(*dropP, (row0 + n) * N + m, p) : p;
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(MHA_THREADS)
-mha_kernel(const float* __restrict__ proj, const float* __restrict__ nmask,
-           float* __restrict__ out, int N, int d, int H, float scale, Drop drop) {
-  extern __shared__ float smem[];
-  const int Dh = d / H;
-  const int ld = Dh + 1;
-  float* q = smem;
-  float* k = q + N * ld;
-  float* v = k + N * ld;
-  float* S = v + N * ld;                // [N][N] scores, then probabilities
-  const int g = blockIdx.x, h = blockIdx.y;
-  attn_probs(proj, nmask, q, k, v, S, g, h, N, d, H, scale, &drop);
-
-  float* o = out + (size_t)g * N * d + h * Dh;
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int n = i / Dh, j = i % Dh;
-    float acc = 0.0f;
-    for (int m = 0; m < N; ++m) acc = fmaf(S[n * N + m], v[m * ld + j], acc);
-    o[(size_t)n * d + j] = acc;
-  }
-}
+// q, k, v sit at columns 4d, 5d, 6d of the joint (B*N, 7d) projection
+inline QkvLayout front_qkv(int d) { return QkvLayout{7 * d, 4 * d, 5 * d, 6 * d}; }
 
 // Per-graph masked moment partials of a (B, R, d) tensor: one thread per
 // column, rows in order.
@@ -202,81 +121,6 @@ fold_sa_kernel(const float* __restrict__ gsa, const float* __restrict__ sa,
   store_col_partials<1>(acc, part, gridDim.y, d, c);
 }
 
-__global__ void __launch_bounds__(MHA_THREADS)
-mha_bwd_kernel(const float* __restrict__ proj, const float* __restrict__ nmask,
-               const float* __restrict__ dO, float* __restrict__ dproj, int N, int d,
-               int H, float scale, Drop drop) {
-  extern __shared__ float smem[];
-  const int Dh = d / H;
-  const int ld = Dh + 1;
-  float* q = smem;
-  float* k = q + N * ld;
-  float* v = k + N * ld;
-  float* o = v + N * ld;                // dO of this head
-  float* Pm = o + N * ld;               // [N][N] probabilities before dropout
-  float* dP = Pm + N * N;               // [N][N] dP, then dS
-  float* rs = dP + N * N;               // [N] row sums of dP * P
-  unsigned char* kp = reinterpret_cast<unsigned char*>(rs + N);  // [N][N] keep
-  const int g = blockIdx.x, h = blockIdx.y;
-  const size_t P7 = 7 * (size_t)d;
-  const float* dob = dO + (size_t)g * N * d + h * Dh;
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int n = i / Dh, j = i % Dh;
-    o[n * ld + j] = dob[(size_t)n * d + j];
-  }
-  attn_probs(proj, nmask, q, k, v, Pm, g, h, N, d, H, scale, nullptr);
-
-  const bool dropping = drop.t > 0;
-  const unsigned long long row0 = ((unsigned long long)g * H + h) * N;
-  if (dropping)
-    for (int i = threadIdx.x; i < N * N; i += blockDim.x)
-      kp[i] = drop_keep(drop, row0 * N + i) ? 1 : 0;
-  __syncthreads();
-
-  float* dpg = dproj + (size_t)g * N * P7 + h * Dh;
-  // dv[m, j] = sum_n drop0(P)[n, m] dO[n, j]
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int m = i / Dh, j = i % Dh;
-    float acc = 0.0f;
-    for (int n = 0; n < N; ++n) {
-      float p = Pm[n * N + m];
-      if (dropping) p = kp[n * N + m] ? p * drop.scale : 0.0f;
-      acc = fmaf(p, o[n * ld + j], acc);
-    }
-    dpg[(size_t)m * P7 + 6 * d + j] = acc;
-  }
-  // dP[n, m] = drop0(sum_j dO[n, j] v[m, j])
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i % N;
-    float acc = 0.0f;
-    for (int j = 0; j < Dh; ++j) acc = fmaf(o[n * ld + j], v[m * ld + j], acc);
-    if (dropping) acc = kp[i] ? acc * drop.scale : 0.0f;
-    dP[i] = acc;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int n = warp; n < N; n += blockDim.x / 32) {
-    float s = 0.0f;
-    for (int m = lane; m < N; m += 32) s += dP[n * N + m] * Pm[n * N + m];
-    s = warp_sum(s);
-    if (lane == 0) rs[n] = s;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x)
-    dP[i] = Pm[i] * (dP[i] - rs[i / N]);   // dS
-  __syncthreads();
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int n = i / Dh, j = i % Dh;
-    float aq = 0.0f, ak = 0.0f;
-    for (int m = 0; m < N; ++m) {
-      aq = fmaf(dP[n * N + m], k[m * ld + j], aq);
-      ak = fmaf(dP[m * N + n], q[m * ld + j], ak);
-    }
-    dpg[(size_t)n * P7 + 4 * d + j] = aq * scale;
-    dpg[(size_t)n * P7 + 5 * d + j] = ak * scale;
-  }
-}
-
 }  // namespace
 }  // namespace ggps
 
@@ -287,8 +131,7 @@ extern "C" size_t gps_front_core_smem(int N) {
 }
 
 extern "C" size_t gps_front_mha_smem(int N, int d, int H) {
-  const size_t Dh = d / H;
-  return (3 * (size_t)N * (Dh + 1) + (size_t)N * N) * sizeof(float);
+  return mha_smem(N, d, H);
 }
 
 extern "C" size_t gps_front_core_bwd_smem(int N) {
@@ -296,9 +139,7 @@ extern "C" size_t gps_front_core_bwd_smem(int N) {
 }
 
 extern "C" size_t gps_front_mha_bwd_smem(int N, int d, int H) {
-  const size_t Dh = d / H;
-  return (4 * (size_t)N * (Dh + 1) + 2 * (size_t)N * N + N) * sizeof(float)
-         + (size_t)N * N;
+  return mha_bwd_smem(N, d, H);
 }
 
 // Scratch the caller allocates: proj (B*N, 7d), attn (B*N, d),
@@ -330,10 +171,11 @@ extern "C" int gps_front_forward(
       N, E, d, 7 * d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t mha_smem = gps_front_mha_smem(N, d, H);
-  if ((err = allow_smem(mha_kernel, mha_smem)) != cudaSuccess) return err;
-  mha_kernel<<<dim3(B, H), MHA_THREADS, mha_smem, st>>>(
-      proj, nmask, attn, N, d, H, scale, make_drop(seed, 0, t_attn, sc_attn));
+  const size_t attn_smem = gps_front_mha_smem(N, d, H);
+  if ((err = allow_smem(mha_kernel, attn_smem)) != cudaSuccess) return err;
+  mha_kernel<<<dim3(B, H), MHA_THREADS, attn_smem, st>>>(
+      proj, nmask, attn, N, d, H, scale, make_drop(seed, 0, t_attn, sc_attn),
+      front_qkv(d));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   Epi eo;
@@ -396,10 +238,11 @@ extern "C" int gps_front_backward(
                                7 * d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t mha_smem = gps_front_mha_bwd_smem(N, d, H);
-  if ((err = allow_smem(mha_bwd_kernel, mha_smem)) != cudaSuccess) return err;
-  mha_bwd_kernel<<<dim3(B, H), MHA_THREADS, mha_smem, st>>>(
-      proj, nmask, dO, dproj, N, d, H, scale, make_drop(seed, 0, t_attn, sc_attn));
+  const size_t attn_smem = gps_front_mha_bwd_smem(N, d, H);
+  if ((err = allow_smem(mha_bwd_kernel, attn_smem)) != cudaSuccess) return err;
+  mha_bwd_kernel<<<dim3(B, H), MHA_THREADS, attn_smem, st>>>(
+      proj, nmask, dO, dproj, N, d, H, scale, make_drop(seed, 0, t_attn, sc_attn),
+      front_qkv(d));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   Epi eres;

@@ -141,7 +141,7 @@ def run_single(cfg: CfgNode, run_dir: str, device: torch.device,
     loaders = create_loaders(cfg, splits, device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg, dim_out, loaders["train"].max_nodes)
+        model = build_model(cfg, dim_out)
     model = model.to(device).train(mode == "custom")
     cfg.share["params"] = sum(p.numel() for p in model.parameters())
     log.info("model %s params %d on %s", cfg.model.type, cfg.share.params,

@@ -5,13 +5,15 @@ branch, then the FFN (counterpart of ``graphgps_tpu/models/gps_layer.py``
 Three paths, chosen by the local layer, the width and the settings as the
 JAX package chooses them (its VMEM caps are the TPU's and are not kept):
 
-- **merged** (CustomGatedGCN, ``dim_h % 128 == 0`` and at most 128 node
-  slots per graph; JAX :173-215 and :471-495). Three kernels per layer: the
-  front (GatedGCN core + attention + dropout and residual), the edge tail,
-  and the combine+FFN; three dropout seeds. The attention branch's norm
-  takes its statistics from the front's moment partials.
-- **unmerged** (CustomGatedGCN at any other width from 64 up; JAX :138-148,
-  :250-268, :316-392, :449-518). The standalone GatedGCN core kernel (on
+- **merged** (CustomGatedGCN, ``dim_h % 128 == 0``, at most 128 node
+  slots per graph, ``gt.attn_impl`` auto or fused, and the JAX switch
+  ``GGPS_FUSED_FRONT`` not 0; JAX :144-215 and :471-495). Three kernels per
+  layer: the front (GatedGCN core + attention + dropout and residual), the
+  edge tail, and the combine+FFN; three dropout seeds. The attention
+  branch's norm takes its statistics from the front's moment partials.
+- **unmerged** (CustomGatedGCN at any other width from 64 up, or where the
+  merged front does not run; JAX :138-148, :250-268, :270-392, :449-518).
+  The standalone GatedGCN core kernel (on
   long graphs the Linears and the edge gate, ``local_gnn.py``), then the
   Transformer branch (:meth:`GPSLayer.attention`). When the tails are
   deferred -- in training with dropout on, or at a lane width -- the edge
@@ -33,20 +35,30 @@ JAX package chooses them (its VMEM caps are the TPU's and are not kept):
   off). Four dropout seeds: local drop-add, attention, attention
   drop-add, FFN.
 
-The Transformer branch of the unmerged and GCN paths goes through
-``fused_wide_attention`` (QKV projection, attention with an online softmax
-over key tiles and hashed dropout on the probabilities, out-projection, in
-one call; JAX :316-354) for graphs of more than 128 and at most 768 node
-slots, and through the JAX package's ``mha`` dispatch otherwise
-(``ops/mha.py`` ``mha_dispatch``: PyTorch ops with a dense softmax, or the
-chunked attention beyond 1,024 slots or 64 MB of scores, as JAX leaves
-both to XLA).
+The Transformer branch of the unmerged and GCN paths (:meth:`GPSLayer.
+attention`) takes JAX's rungs (:270-392) in JAX's order, by
+``gt.attn_impl``: ``fused_gps_attention`` (QKV projection, masked attention
+with hashed dropout on the probabilities, out-projection, in one call)
+under auto or fused within its envelope (:func:`fused_eligible`), under
+auto only from :func:`fused_auto_wins`' B·N on, and fused outside it
+raises; then, under auto, ``fused_wide_attention`` (the same in an online
+softmax over key tiles) for graphs of more than 128 and at most 768 node
+slots; then the ``mha`` dispatch (``ops/mha.py`` ``mha_dispatch``: PyTorch
+ops with a dense softmax, the chunked attention beyond 1,024 slots or
+64 MB of scores, as JAX leaves both to XLA, or, under flash, the
+``flash_mha`` kernel). dense and chunked force their rung.
 
 All end in the final norm with the padded node slots zeroed. Weights are
-held in the kernels' (in, out) layout, with their flax counterparts:
-merged ``w_front``/``b_front`` the joint ``[A|D|E|B|Wq|Wk|Wv]``
-(``GatedGCNLayer_0/Dense_{0,3,4,1}`` and ``qkv_kernel``/``qkv_bias``);
-unmerged ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
+held in the kernels' (in, out) layout, with their flax counterparts. The
+layout depends on the width alone, not on the path, so that one checkpoint
+serves both paths as one flax tree serves every rung in JAX (:254-267): at
+a multiple of 128 a CustomGatedGCN layer holds ``w_front``/``b_front``, the
+joint ``[A|D|E|B|Wq|Wk|Wv]`` (``GatedGCNLayer_0/Dense_{0,3,4,1}`` and
+``qkv_kernel``/``qkv_bias``), and its unmerged path takes contiguous copies
+of the ``[A|D|E|B]`` and ``[Wq|Wk|Wv]`` columns (:meth:`GPSLayer.node_proj`,
+:meth:`GPSLayer.qkv_proj`: 1 MB a layer at d = 256, against converting the
+model and its optimizer state when a checkpoint changes paths); at other
+widths it holds ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
 ``w_qkv``/``b_qkv``, each contiguous as the kernels need them; ``local``
 (``GatedGCNLayer_0`` or ``GCNLayer_0``), ``w_out``/``b_out``
 (``out_kernel``/``out_bias``), ``w_ffn1``..``b_ffn2``
@@ -56,6 +68,7 @@ unmerged ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -63,7 +76,8 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from ..ops.kernels import (build, fused_combine_ffn, fused_drop_add,
-                           fused_ffn, fused_wide_attention)
+                           fused_ffn, fused_gps_attention,
+                           fused_wide_attention)
 from ..ops.mha import merge_heads, mha_dispatch, split_heads
 from .common import MaskedBatchNorm, dense_params, get_act
 from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer
@@ -85,6 +99,34 @@ WIDE_MAX_NODES = 768
 # below this width the JAX package runs no fused kernel (fused_gatedgcn.py
 # :498, fused_tail.py :495)
 MIN_DIM = 64
+# the values of gt.attn_impl a GPSLayer takes (JAX's but ring)
+ATTN_IMPLS = ("auto", "dense", "chunked", "flash", "fused")
+# fused_gps_attention's auto threshold on B·N (fused_auto_wins,
+# fused_gps_attn.py:450)
+FUSED_AUTO_ROWS = 8192
+
+
+def fused_eligible(N: int, d: int, H: int) -> bool:
+    """The envelope of the fused attention rung (``fused_eligible``,
+    ``fused_gps_attn.py:438``): at most 128 node slots, a multiple of 8, a
+    lane-aligned width that H divides. The kernels take all of it."""
+    return N <= 128 and N % 8 == 0 and d % 128 == 0 and d % H == 0
+
+
+def fused_auto_wins(B: int, N: int) -> bool:
+    """Whether ``auto`` takes the fused rung of an eligible batch: from
+    FUSED_AUTO_ROWS of B·N on, or as ``GGPS_FUSED_AUTO`` (0 or 1) forces it
+    (``fused_auto_wins``, ``fused_gps_attn.py:450``, read per call)."""
+    env = os.environ.get("GGPS_FUSED_AUTO")
+    if env is not None:
+        return env == "1"
+    return B * N >= FUSED_AUTO_ROWS
+
+
+def front_switched_off() -> bool:
+    """The JAX package's switch of its merged front, ``GGPS_FUSED_FRONT=0``
+    (``fused_front_eligible``, ``fused_layer.py:456``, read per call)."""
+    return os.environ.get("GGPS_FUSED_FRONT", "1") == "0"
 
 
 def tail_eligible(rows: int, d: int, act: str) -> bool:
@@ -112,13 +154,15 @@ def draw_seeds(gen: Optional[torch.Generator], n: int):
 class GPSLayer(nn.Module):
     def __init__(self, dim_h: int, num_heads: int, act: str = "relu",
                  eps: float = 1e-5, dropout: float = 0.0,
-                 attn_dropout: float = 0.0, merged: Optional[bool] = None,
-                 local: str = "CustomGatedGCN", batch_norm: bool = True):
-        """``merged`` chooses the weight layout and the path of a
-        CustomGatedGCN layer; by default the merged front at a multiple of
-        128. A ``local="GCN"`` layer takes the GCN path, with its three norms
-        MaskedBatchNorms under ``batch_norm`` and the identity otherwise (a
-        CustomGatedGCN layer always has BatchNorm)."""
+                 attn_dropout: float = 0.0, local: str = "CustomGatedGCN",
+                 batch_norm: bool = True, attn_impl: str = "auto"):
+        """A CustomGatedGCN layer at a multiple of 128 takes the merged
+        front per batch wherever JAX does (:meth:`takes_merged`); its weight
+        layout follows the width alone. A ``local="GCN"`` layer takes
+        the GCN path, with its three norms MaskedBatchNorms under
+        ``batch_norm`` and the identity otherwise (a CustomGatedGCN layer
+        always has BatchNorm). ``attn_impl`` is ``gt.attn_impl``
+        (ATTN_IMPLS)."""
         super().__init__()
         if dim_h % num_heads:
             raise ValueError(f"dim_h={dim_h} is not divisible by "
@@ -131,16 +175,21 @@ class GPSLayer(nn.Module):
             raise NotImplementedError(
                 f"local GNN {local!r}: the port has {LOCAL_TYPES} (ROADMAP "
                 "Queue 1 item 13)")
+        if attn_impl not in ATTN_IMPLS:
+            raise NotImplementedError(
+                f"gt.attn_impl={attn_impl!r}: the port's GPSLayer takes "
+                f"{ATTN_IMPLS}")
         self.dim_h = dim_h
         self.num_heads = num_heads
         self.act = act
         self.eps = eps
         self.dropout = dropout
         self.attn_dropout = attn_dropout
+        self.attn_impl = attn_impl
         self.gcn = local == "GCN"
-        self.merged = (not self.gcn and
-                       (merged_width(dim_h) if merged is None else merged))
-        if self.merged:
+        # the joint front weight, held at a multiple of 128 on either path
+        self.holds_front = not self.gcn and merged_width(dim_h)
+        if self.holds_front:
             # A, D, E, B, Wq, Wk, Wv side by side, each drawn as a (d, d) Dense
             ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(7)))
             self.w_front = nn.Parameter(torch.cat(ws, dim=1).detach())
@@ -155,7 +204,7 @@ class GPSLayer(nn.Module):
             self.norm_local = MaskedBatchNorm(dim_h, eps) if bn else None
         else:
             self.local = GatedGCNLayer(dim_h, act, eps,
-                                       own_node_proj=not self.merged)
+                                       own_node_proj=not self.holds_front)
         self.w_out, self.b_out = dense_params(dim_h, dim_h)
         self.norm_attn = (MaskedBatchNorm(dim_h, eps, stats_only=not self.gcn)
                           if bn else None)
@@ -176,6 +225,47 @@ class GPSLayer(nn.Module):
         kernel (``want_defer``, JAX :144-148, and ``use_ft``,
         ``local_gnn.py`` :262-270)."""
         return self.dim_h % 128 == 0 or self.rates[0] > 0.0
+
+    def takes_merged(self, batch: GraphBatch) -> bool:
+        """Whether this batch takes the merged front (JAX :156-172): a
+        layer that holds the joint front weight, at most MERGED_MAX_NODES
+        node slots, ``attn_impl`` auto or fused, and ``GGPS_FUSED_FRONT``
+        not 0."""
+        return (self.holds_front and batch.max_nodes <= MERGED_MAX_NODES
+                and self.attn_impl in ("auto", "fused")
+                and not front_switched_off())
+
+    def node_proj(self):
+        """The GatedGCN's ``[A|D|E|B]`` (d, 4d) weight and (4d,) bias of the
+        unmerged path: the local layer's own, or at a multiple of 128 a
+        contiguous copy of the joint front weight's first 4d columns."""
+        if not self.holds_front:
+            return self.local.w_node, self.local.b_node
+        d = self.dim_h
+        return self.w_front[:, :4 * d].contiguous(), self.b_front[:4 * d]
+
+    def qkv_proj(self):
+        """``[Wq|Wk|Wv]`` (d, 3d) and its (3d,) bias, as :meth:`node_proj`
+        (the joint weight's last 3d columns at a multiple of 128)."""
+        if not self.holds_front:
+            return self.w_qkv, self.b_qkv
+        d = self.dim_h
+        return self.w_front[:, 4 * d:].contiguous(), self.b_front[4 * d:]
+
+    def takes_fused(self, B: int, N: int) -> bool:
+        """Whether the Transformer branch takes ``fused_gps_attention``
+        (JAX :280-294): ``attn_impl`` auto or fused, within
+        :func:`fused_eligible`, and under auto from :func:`fused_auto_wins`
+        on. fused outside the envelope raises JAX's ValueError."""
+        if self.attn_impl not in ("auto", "fused"):
+            return False
+        ok = fused_eligible(N, self.dim_h, self.num_heads)
+        if self.attn_impl == "fused" and not ok:
+            raise ValueError(
+                "gt.attn_impl='fused' needs Transformer global attention + "
+                f"N≤128, lane-aligned dims (got N={N}, d={self.dim_h}, "
+                "log_attn_weights=False)")
+        return ok and (self.attn_impl == "fused" or fused_auto_wins(B, N))
 
     def front_pack(self, seed: int = 0) -> FrontPack:
         drop, attn = self.rates
@@ -198,22 +288,30 @@ class GPSLayer(nn.Module):
 
     def attention(self, batch: GraphBatch, x, seed: int = 0):
         """The Transformer branch of the unmerged and GCN paths up to the
-        out-projection: (B*N, d). Graphs of more than WIDE_MIN_NODES and at
-        most WIDE_MAX_NODES node slots go through ``fused_wide_attention``,
-        the others through the ``mha`` dispatch (PyTorch ops, dense or
-        chunked)."""
+        out-projection: (B*N, d), on JAX's rungs in JAX's order (module
+        docstring): ``fused_gps_attention`` where :meth:`takes_fused`, under
+        auto ``fused_wide_attention`` for graphs of more than WIDE_MIN_NODES
+        and at most WIDE_MAX_NODES node slots, else the ``mha`` dispatch
+        (dense, chunked or flash)."""
         d, H = self.dim_h, self.num_heads
+        B, N = batch.num_graphs, batch.max_nodes
+        rate = self.rates[1]
+        w_qkv, b_qkv = self.qkv_proj()
         xd = batch.dense_view(x)
-        if WIDE_MIN_NODES < batch.max_nodes <= WIDE_MAX_NODES:
+        if self.takes_fused(B, N):
+            return fused_gps_attention(
+                xd, batch.front_index[3], w_qkv, b_qkv, self.w_out,
+                self.b_out, seed, H, rate).reshape(-1, d)
+        if (self.attn_impl == "auto"
+                and WIDE_MIN_NODES < N <= WIDE_MAX_NODES):
             return fused_wide_attention(
-                xd, batch.counts, self.w_qkv, self.b_qkv, self.w_out,
-                self.b_out, seed, H, 1.0 / float(d // H) ** 0.5,
-                self.rates[1]).reshape(-1, d)
-        qkv = xd @ self.w_qkv + self.b_qkv
+                xd, batch.counts, w_qkv, b_qkv, self.w_out, self.b_out, seed,
+                H, 1.0 / float(d // H) ** 0.5, rate).reshape(-1, d)
+        qkv = xd @ w_qkv + b_qkv
         q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H)
                    for i in range(3))
         o = mha_dispatch(q, k, v, batch.dense_view(batch.node_mask), seed,
-                         self.rates[1])
+                         rate, impl=self.attn_impl)
         return merge_heads(o).reshape(-1, d) @ self.w_out + self.b_out
 
     def forward_merged(self, batch: GraphBatch, x, e, gen):
@@ -236,7 +334,8 @@ class GPSLayer(nn.Module):
             seeds = draw_seeds(gen, SEEDS_PER_LAYER_UNMERGED)
         rate = self.rates[0]
         defer = self.defer
-        local, e = self.local.unmerged(batch, x, e, defer, seeds[0], rate)
+        local, e = self.local.unmerged(batch, x, e, defer, seeds[0], rate,
+                                       self.node_proj())
         h_attn = self.attention(batch, x, seeds[1])
         if rate > 0.0:
             s_attn = fused_drop_add(x, h_attn, seeds[2], rate)
@@ -290,12 +389,7 @@ class GPSLayer(nn.Module):
         """``gen`` draws the layer's dropout seeds in training."""
         if self.gcn:
             h, e = self.forward_gcn(batch, x, e, gen)
-        elif self.merged:
-            if batch.max_nodes > MERGED_MAX_NODES:
-                raise ValueError(
-                    f"{batch.max_nodes} node slots per graph exceed the "
-                    f"merged front's {MERGED_MAX_NODES}: build the layer with "
-                    "merged=False (build_model does, given max_nodes)")
+        elif self.takes_merged(batch):
             h, e = self.forward_merged(batch, x, e, gen)
         else:
             h, e = self.forward_unmerged(batch, x, e, gen)

@@ -16,9 +16,10 @@ the front's moment partials, with the running means the front used as
 shifts. The x-tail is handed back unapplied for the combine+FFN kernel, and
 the edge tail is applied here.
 
-On the unmerged path (:meth:`GatedGCNLayer.unmerged`; widths that are no
-multiple of 128) the layer holds ``[A|D|E|B]`` itself (``w_node``/``b_node``)
-and runs the standalone core kernel ``fused_gatedgcn``. With ``defer`` the
+On the unmerged path (:meth:`GatedGCNLayer.unmerged`) the layer holds
+``[A|D|E|B]`` itself (``w_node``/``b_node``) at widths that are no multiple
+of 128, and at a multiple of 128 takes it from the GPS layer's joint
+weight; it runs the standalone core kernel ``fused_gatedgcn``. With ``defer`` the
 tails are the merged path's (norm statistics from the kernel's moment
 partials, the edge tail through ``fused_pre_tail``, the x-tail handed back);
 without it both tails are plain PyTorch: ``x + act(bn(x_new))`` with the
@@ -132,23 +133,30 @@ class GatedGCNLayer(nn.Module):
         return (self.x_tail_args(x, xo.reshape(-1, d), mom_x),
                 sa.reshape(-1, d), e_new, pa)
 
-    def core_args(self, batch: GraphBatch, x, e) -> tuple:
-        """The arguments of :func:`fused_gatedgcn` for this layer (built
-        with ``own_node_proj``)."""
+    def node_proj(self, node=None):
+        """``node`` (the ``[A|D|E|B]`` weight and bias the GPS layer hands
+        over, from its joint front weight), or this layer's own (built with
+        ``own_node_proj``)."""
+        return node if node is not None else (self.w_node, self.b_node)
+
+    def core_args(self, batch: GraphBatch, x, e, node=None) -> tuple:
+        """The arguments of :func:`fused_gatedgcn` for this layer, with the
+        node projection of :meth:`node_proj`."""
         B, N, E, d = (batch.num_graphs, batch.max_nodes, batch.edge_block,
                       self.dim)
         s_loc, r_loc, emask, nmask = batch.front_index
         return (x.reshape(B, N, d), e.reshape(B, E, d), s_loc, r_loc, emask,
                 nmask, self.norm_x.running_mean, self.norm_e.running_mean,
-                self.w_node, self.b_node, self.w_c, self.b_c)
+                *self.node_proj(node), self.w_c, self.b_c)
 
-    def edge_gate_args(self, batch: GraphBatch, x, e) -> tuple:
+    def edge_gate_args(self, batch: GraphBatch, x, e, node=None) -> tuple:
         """(A x (B*N, d), the arguments of :func:`fused_edge_gate`): the five
-        Linears as ``torch.matmul`` products from ``[A|D|E|B]`` and C."""
+        Linears as ``torch.matmul`` products from ``[A|D|E|B]``
+        (:meth:`node_proj`) and C."""
         B, N, E, d = (batch.num_graphs, batch.max_nodes, batch.edge_block,
                       self.dim)
         s_loc, r_loc, emask, _ = batch.front_index
-        w, b = self.w_node, self.b_node
+        w, b = self.node_proj(node)
         ax = x @ w[:, :d] + b[:d]
         pd = x @ w[:, d:2 * d] + b[d:2 * d]
         peb = x @ w[:, 2 * d:] + b[2 * d:]
@@ -156,20 +164,20 @@ class GatedGCNLayer(nn.Module):
         return ax, (pd.reshape(B, N, d), peb.reshape(B, N, 2 * d),
                     ce.reshape(B, E, d), s_loc, r_loc, emask)
 
-    def core(self, batch: GraphBatch, x, e):
+    def core(self, batch: GraphBatch, x, e, node=None):
         """The unmerged path's pre-norm outputs (x_new (B*N, d), gate
         (B*E, d), mom_x, mom_e): through the core kernel, with the norms'
         moment sums in training; on long graphs through the Linears and the
         edge gate, with no moments (the norms then reduce x_new and gate
-        themselves)."""
+        themselves). ``node``: as :meth:`node_proj`."""
         d = self.dim
         if batch.max_nodes > CORE_MAX_NODES:
-            ax, args = self.edge_gate_args(batch, x, e)
+            ax, args = self.edge_gate_args(batch, x, e, node)
             gate, nd = fused_edge_gate(*args)
             nd = nd.reshape(-1, 2 * d)
             return (ax + nd[:, :d] / (nd[:, d:] + 1e-6), gate.reshape(-1, d),
                     None, None)
-        args = self.core_args(batch, x, e)
+        args = self.core_args(batch, x, e, node)
         cx, cg = args[6], args[7]
         xo, gate, px, pg = fused_gatedgcn(*args)
         mom_x = mom_e = None
@@ -180,11 +188,11 @@ class GatedGCNLayer(nn.Module):
         return xo.reshape(-1, d), gate.reshape(-1, d), mom_x, mom_e
 
     def unmerged(self, batch: GraphBatch, x, e, defer: bool,
-                 seed_e: int = 0, rate: float = 0.0):
-        """:meth:`core` and the tails. With ``defer`` returns (x-tail
-        arguments, e_new); otherwise (x_new, e_new), both tails applied in
-        plain PyTorch (``rate`` must be 0 then)."""
-        xo, gate, mom_x, mom_e = self.core(batch, x, e)
+                 seed_e: int = 0, rate: float = 0.0, node=None):
+        """:meth:`core` (with ``node``) and the tails. With ``defer``
+        returns (x-tail arguments, e_new); otherwise (x_new, e_new), both
+        tails applied in plain PyTorch (``rate`` must be 0 then)."""
+        xo, gate, mom_x, mom_e = self.core(batch, x, e, node)
         if not defer:
             if rate > 0.0:
                 raise ValueError("the plain tails carry no dropout")

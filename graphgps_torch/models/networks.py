@@ -15,17 +15,9 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
-from .gps_layer import (LOCAL_TYPES, MERGED_MAX_NODES, MIN_DIM, GPSLayer,
-                        merged_width)
+from .gps_layer import ATTN_IMPLS, LOCAL_TYPES, MIN_DIM, GPSLayer
 from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
 from .san import SANLayer
-
-# the ROADMAP item that brings each gt.attn_impl the JAX package honours
-# (graphgps_tpu/models/gps_layer.py:284-392) but the port does not: the
-# port's GPSLayer takes JAX's "auto" choice
-ATTN_IMPLS = {"dense": "Queue 1 item 14", "chunked": "Queue 1 item 14",
-              "flash": "Queue 2 item 9", "fused": "Queue 2 item 6",
-              "ring": "Queue 1 item 18"}
 
 
 def check_graphormer_supported(cfg) -> None:
@@ -90,8 +82,8 @@ LOCAL_TODO = ("GINE", "GIN", "GAT", "GENConv", "PNA")
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
     Transformer with BatchNorm or GCN ∥ Transformer with BatchNorm or none,
-    no LayerNorm, ``gt.attn_impl`` auto, the san_graph, inductive_node or
-    node head, at a width of 64 or more; a SANTransformer,
+    no LayerNorm, ``gt.attn_impl`` any of JAX's but ring, the san_graph,
+    inductive_node or node head, at a width of 64 or more; a SANTransformer,
     ``check_san_supported``; or a Graphormer,
     ``check_graphormer_supported``); anything else names the ROADMAP item
     that brings it."""
@@ -124,11 +116,12 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
             "without fused kernels is not ported (ROADMAP Queue 1 item 5)")
-    if gt.attn_impl != "auto":
+    if gt.attn_impl not in ATTN_IMPLS:
+        item = "Queue 1 item 18" if gt.attn_impl == "ring" else \
+            "Queue 1 item 14"
         raise NotImplementedError(
-            f"gt.attn_impl={gt.attn_impl!r}: the port runs the 'auto' "
-            "choice only (ROADMAP "
-            f"{ATTN_IMPLS.get(gt.attn_impl, 'Queue 1 item 14')})")
+            f"gt.attn_impl={gt.attn_impl!r}: the port runs {ATTN_IMPLS} "
+            f"(ROADMAP {item})")
     check_stack_supported(cfg)
 
 
@@ -176,20 +169,19 @@ class SANTransformer(nn.Module):
 
 
 class GPSModel(nn.Module):
-    def __init__(self, cfg, dim_out: int, max_nodes: Optional[int] = None):
-        """``max_nodes`` (the loaders' node slots per graph, when known)
-        decides the layer path with the width: the merged front at a
-        multiple of 128 and at most 128 slots, else the unmerged path."""
+    def __init__(self, cfg, dim_out: int):
+        """Each batch takes the merged front where its node slots, the
+        width and the settings allow (``GPSLayer.takes_merged``)."""
         super().__init__()
         check_supported(cfg)
         d = cfg.gt.dim_hidden
-        merged = merged_width(d) and (max_nodes or 0) <= MERGED_MAX_NODES
         self.encoder = FeatureEncoder(cfg, d)
         self.layers = nn.ModuleList(
             GPSLayer(d, cfg.gt.n_heads, act=cfg.gnn.act,
                      dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout,
-                     merged=merged, local=cfg.gt.layer_type.split("+")[0],
-                     batch_norm=cfg.gt.batch_norm)
+                     local=cfg.gt.layer_type.split("+")[0],
+                     batch_norm=cfg.gt.batch_norm,
+                     attn_impl=cfg.gt.attn_impl)
             for _ in range(cfg.gt.layers))
         self.head = make_head(cfg, d, dim_out)
 
@@ -205,7 +197,7 @@ class GPSModel(nn.Module):
         return self.head(batch, x)
 
 
-def build_model(cfg, dim_out: int, max_nodes: Optional[int] = None):
+def build_model(cfg, dim_out: int):
     """The network ``model.type`` names: GPSModel, SANTransformer or
     GraphormerNet."""
     check_supported(cfg)
@@ -215,4 +207,4 @@ def build_model(cfg, dim_out: int, max_nodes: Optional[int] = None):
         from .graphormer import GraphormerNet
 
         return GraphormerNet(cfg, dim_out)
-    return GPSModel(cfg, dim_out, max_nodes)
+    return GPSModel(cfg, dim_out)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: ten
-forward kernels and their ten backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each: twelve
+forward kernels and their twelve backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -10,6 +10,8 @@ from .combine_ffn import combine_ffn_backward, fused_combine_ffn
 from .drop_add import drop_add_backward, fused_drop_add
 from .edge_gate import edge_gate_backward, fused_edge_gate
 from .ffn import ffn_backward, fused_ffn
+from .flash_mha import flash_mha, flash_mha_backward
+from .gps_attention import fused_gps_attention, gps_attention_backward
 from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .ln_ffn import fused_ln_ffn, ln_ffn_backward
@@ -28,7 +30,10 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "wide_attention_bwd": wide_attention_backward,
             "ln_ffn": fused_ln_ffn, "ln_ffn_bwd": ln_ffn_backward,
             "bn_ffn": fused_bn_ffn, "bn_ffn_bwd": bn_ffn_backward,
-            "ffn": fused_ffn, "ffn_bwd": ffn_backward}
+            "ffn": fused_ffn, "ffn_bwd": ffn_backward,
+            "gps_attention": fused_gps_attention,
+            "gps_attention_bwd": gps_attention_backward,
+            "flash_mha": flash_mha, "flash_mha_bwd": flash_mha_backward}
 
 
 def reset_launch_counts() -> None:

@@ -1,10 +1,10 @@
 """Masked multi-head attention for padded graph batches (counterpart of
 ``graphgps_tpu/ops/mha.py:21-75`` and of ``graphgps_tpu/ops/pallas/
-flash_mha.py:87-136`` ``mha``, the dispatch between its dense and chunked
-rungs). The plain version of the layer front uses :func:`mha_core`; the
-Graphormer layer, which the JAX package computes outside any Pallas kernel,
-uses :func:`mha`; the unmerged GPS layer's Transformer branch outside the
-wide attention's range takes :func:`mha_dispatch`."""
+flash_mha.py:87-136`` ``mha``, the dispatch between its dense, chunked and
+flash rungs). The plain version of the layer front uses :func:`mha_core`;
+the Graphormer layer, which the JAX package computes outside any Pallas
+kernel, uses :func:`mha`; the unmerged GPS layer's Transformer branch
+outside the fused and wide attention's ranges takes :func:`mha_dispatch`."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -17,6 +17,11 @@ NEG_INF = -1e30
 # package's defaults of GGPS_DENSE_MAX_N and GGPS_DENSE_MAX_BYTES)
 DENSE_MAX_N = 1024
 DENSE_MAX_BYTES = 64 << 20
+# the flash rung takes N >= FLASH_MIN_N node slots, a multiple of
+# FLASH_LANE (flash_available, flash_mha.py:62, with GGPS_FLASH_MIN_N's
+# default; its TPU condition has no counterpart)
+FLASH_MIN_N = 256
+FLASH_LANE = 128
 
 
 def mha_core(q, k, v, key_mask, scale: Optional[float] = None,
@@ -73,17 +78,37 @@ def takes_dense(B: int, H: int, N: int) -> bool:
     return N <= DENSE_MAX_N and 4 * B * H * N * N <= DENSE_MAX_BYTES
 
 
+def flash_available(N: int) -> bool:
+    """Whether the flash rung takes N node slots (FLASH_MIN_N, FLASH_LANE)."""
+    return N >= FLASH_MIN_N and N % FLASH_LANE == 0
+
+
 def mha_dispatch(q, k, v, key_mask, seed: int = 0, rate: float = 0.0,
-                 bias=None):
-    """Masked attention on the rung :func:`takes_dense` picks: :func:`mha`
-    with the attention dropout over the (B*H*N, N) view (site 0 of the
-    port's hash, ``seed``), or ``chunked_mha`` (keys in chunks of
-    ``chunked_mha.CHUNK``), which draws the same masks."""
+                 bias=None, impl: str = "auto"):
+    """Masked attention on the rung ``impl`` names (``gt.attn_impl``): under
+    auto the one :func:`takes_dense` picks; dense is :func:`mha` with the
+    attention dropout over the (B*H*N, N) view (site 0 of the port's hash,
+    ``seed``), chunked is ``chunked_mha`` (keys in chunks of
+    ``chunked_mha.CHUNK``), which draws the same masks; flash is the
+    ``flash_mha`` kernel, which takes no dropout and only
+    :func:`flash_available` sizes (JAX's errors otherwise)."""
     from .chunked_mha import chunked_mha
     from .kernels.common import apply_dropout
 
     B, H, N, _ = q.shape
-    if takes_dense(B, H, N):
+    if impl == "flash":
+        from .kernels import flash_mha
+
+        if rate > 0.0:
+            raise ValueError("gt.attn_impl='flash' cannot apply attention "
+                             "dropout (weights are never materialized); use "
+                             "'chunked' or 'auto'")
+        if not flash_available(N):
+            raise ValueError(f"gt.attn_impl='flash' needs lane-aligned "
+                             f"N≥{FLASH_MIN_N} (got N={N})")
+        return flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
+                         key_mask, bias)
+    if impl == "dense" or (impl == "auto" and takes_dense(B, H, N)):
         drop = None
         if rate > 0.0:
             drop = lambda p: apply_dropout(p, seed, 0, rate)  # noqa: E731

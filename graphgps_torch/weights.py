@@ -53,14 +53,14 @@ def _norm(out: dict, prefix: str, params: dict, stats, name: str):
         None if stats is None else stats[name]["MaskedBatchNorm_0"])
 
 
-def gps_layer_state_dict(p: dict, s, prefix: str = "",
-                         merged: Optional[bool] = None) -> dict:
+def gps_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
     """One GPSLayer's flax params/batch_stats → the port's ``GPSLayer``
     state dict (numpy values), keys prefixed with ``prefix``. The port keeps
     flax's (in, out) layout here; the GatedGCN's Dense_0..4 are A..E. A
-    ``merged`` layer (by default at a width that is a multiple of 128) holds
-    the front's joint weight ``[A|D|E|B|Wq|Wk|Wv]``; an unmerged one holds
-    ``[A|D|E|B]`` in its local layer and ``[Wq|Wk|Wv]`` beside it. The flax
+    layer at a width that is a multiple of 128 holds the front's joint
+    weight ``[A|D|E|B|Wq|Wk|Wv]`` on either path (as one flax tree serves
+    every path in JAX); one at another width holds ``[A|D|E|B]`` in its
+    local layer and ``[Wq|Wk|Wv]`` beside it. The flax
     names are the same on both paths, in training and in evaluation
     (``Norm_0`` the attention norm, ``Norm_1`` the final norm). ``s=None``
     maps the parameters only."""
@@ -75,7 +75,7 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "",
     node_b = [np.asarray(dense[k]["bias"]) for k in "ADEB"]
     qkv_w = np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)
     qkv_b = np.asarray(p["qkv_bias"]).reshape(3 * d)
-    if merged_width(d) if merged is None else merged:
+    if merged_width(d):
         out[f"{prefix}.w_front"] = np.concatenate(node_w + [qkv_w], axis=1)
         out[f"{prefix}.b_front"] = np.concatenate(node_b + [qkv_b])
     else:
@@ -195,11 +195,10 @@ def _layer_trees(params: dict, stats):
             for _, k in found]
 
 
-def state_dict_from_flax(params: dict, batch_stats=None,
-                         merged: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: dict,
+                         batch_stats=None) -> Dict[str, torch.Tensor]:
     """The port's state dict from flax ``params`` and ``batch_stats``; with
-    ``batch_stats=None`` the parameters only (a gradient tree, say).
-    ``merged`` names the layers' path (``gps_layer_state_dict``)."""
+    ``batch_stats=None`` the parameters only (a gradient tree, say)."""
     out: dict = {}
     _encoder_state_dict(out, params["FeatureEncoder_0"],
                         None if batch_stats is None
@@ -215,7 +214,7 @@ def state_dict_from_flax(params: dict, batch_stats=None,
             params[k], None if batch_stats is None else batch_stats.get(k),
             f"layers.{i}"))
     for i, (p, s) in enumerate(_layer_trees(params, batch_stats)):
-        out.update(gps_layer_state_dict(p, s, f"layers.{i}", merged))
+        out.update(gps_layer_state_dict(p, s, f"layers.{i}"))
     if "GraphormerGraphHead_0" in params:
         head = params["GraphormerGraphHead_0"]
         out["head.norm.weight"] = head["LayerNorm_0"]["scale"]
@@ -360,8 +359,7 @@ def load_flax(model: torch.nn.Module, params: dict, batch_stats: dict) -> None:
     only port tensors allowed to stay as initialized are embedding tables for
     feature columns the JAX model never saw (it creates one per column of the
     data)."""
-    sd = state_dict_from_flax(params, batch_stats,
-                              getattr(model.layers[0], "merged", None))
+    sd = state_dict_from_flax(params, batch_stats)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     stray = [k for k in missing
              if not re.match(r"encoder\.(atom|bond)\.embeddings\.\d+\.weight$", k)]

@@ -586,7 +586,7 @@ def test_squirrel_model_eval_matches_jax(monkeypatch, loaders):
     assert dim_out == 5 and tcfg.share.dim_in == 16
     jb = _jax_batch(jl["val"])
     jmodel, (params, stats) = _jax_model(jcfg, dim_out, jb)
-    model = build_model(tcfg, dim_out, tl["train"].max_nodes).eval()
+    model = build_model(tcfg, dim_out).eval()
     assert model.layers[0].gcn and model.layers[0].norm_out is None
     load_flax(model, params, stats)
     for split in ("val", "test"):
@@ -642,7 +642,7 @@ def test_squirrel_train_step_matches_jax(monkeypatch):
     assert patches.chunk_calls > 0 and patches.tail.calls > 0
     assert patches.signs["jax"] == 2
 
-    model = build_model(tcfg, dim_out, tl["train"].max_nodes).train()
+    model = build_model(tcfg, dim_out).train()
     load_flax(model, params, stats)
     opt = build_optimizer(tcfg, model.parameters())
     named = dict(model.named_parameters())
@@ -687,7 +687,7 @@ def test_actor_recipe_builds_and_steps():
         cfg_path=ACTOR_CFG, small=["dataset.synth_num_graphs", "200"])
     dim_out = infer_dims(tcfg, tsplits)
     torch.manual_seed(0)
-    model = build_model(tcfg, dim_out, tl["train"].max_nodes).train()
+    model = build_model(tcfg, dim_out).train()
     assert len(model.layers) == 2 and model.layers[0].dim_h == 64
     assert model.layers[0].gcn and model.layers[0].attn_dropout == 0.0
     opt = build_optimizer(tcfg, model.parameters())
@@ -719,11 +719,11 @@ def test_gcn_recipe_refusals(opts, match):
     _, tcfg = small_cfgs(*opts, cfg_path=SQUIRREL_CFG, small=SMALL)
     tcfg.share.dim_in = 16
     with pytest.raises(NotImplementedError, match=match):
-        build_model(tcfg, 5, 384)
+        build_model(tcfg, 5)
     _, tcfg = small_cfgs("gt.batch_norm", "True", cfg_path=SQUIRREL_CFG,
                          small=SMALL)
     tcfg.share.dim_in = 16
-    assert build_model(tcfg, 5, 384).layers[0].norm_out is not None
+    assert build_model(tcfg, 5).layers[0].norm_out is not None
 
 
 def test_squirrel_cli_cpu_trains(tmp_path):

@@ -49,7 +49,7 @@ def test_graphormer_model_eval_matches_jax(loaders):
     jcfg, _, jl, tcfg, tsplits, _ = loaders
     assert infer_dims(tcfg, tsplits) == 1
     jmodel, params = _jax_model(jcfg, _batches(loaders, "val")[0])
-    model = build_model(tcfg, 1, 40).eval()
+    model = build_model(tcfg, 1).eval()
     assert isinstance(model, GraphormerNet)
     load_flax(model, params, {})
     for split in ("val", "train"):
@@ -104,7 +104,7 @@ def test_graphormer_two_train_steps_match_jax(monkeypatch, loaders):
                        step=jnp.asarray(0))
     rng = run_key(jcfg, 1)
 
-    model = build_model(tcfg, 1, 40).train()
+    model = build_model(tcfg, 1).train()
     load_flax(model, params, {})
     opt = build_optimizer(tcfg, model.parameters())
     set_lr(opt, lr)
@@ -214,7 +214,7 @@ def test_graphormer_cli_cpu_trains(tmp_path):
     update_from_list(cfg, opts)
     splits = load_dataset(cfg)
     loaders = create_loaders(cfg, splits, "cpu")
-    model = build_model(cfg, infer_dims(cfg, splits), 40)
+    model = build_model(cfg, infer_dims(cfg, splits))
     assert checkpoint.load_ckpt(str(run), model) == best + 1
     model.eval()
     preds, trues = [], []

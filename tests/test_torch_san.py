@@ -563,7 +563,7 @@ def test_san_model_eval_matches_jax(loaders):
     assert infer_dims(tcfg, tsplits) == 1
     _, jb = next(iter(jl["val"]))
     jmodel, (params, stats) = _jax_model(jcfg, jb)
-    model = build_model(tcfg, 1, tl["train"].max_nodes).eval()
+    model = build_model(tcfg, 1).eval()
     assert isinstance(model, SANTransformer)
     load_flax(model, params, stats)
     for split in ("val", "train"):
@@ -596,7 +596,7 @@ def off_kinks(tcfg, params, flax_stats, tb, margin=1e-5):
         tb, pe={k: v.double() for k, v in tb.pe.items()},
         extras={k: v.double() for k, v in tb.extras.items()})
     for _ in range(5):
-        model = build_model(tcfg, 1, tb.max_nodes)
+        model = build_model(tcfg, 1)
         load_flax(model, params, flax_stats)
         model = model.double().train()
         pre = []
@@ -667,7 +667,7 @@ def test_san_train_step_matches_jax(monkeypatch):
     assert patches.bits == 2 * tcfg.gt.layers
     assert patches.keep.calls == 2 * patches.bits
 
-    model = build_model(tcfg, 1, tl["train"].max_nodes).train()
+    model = build_model(tcfg, 1).train()
     load_flax(model, params, stats)
     opt = build_optimizer(tcfg, model.parameters())
     named = dict(model.named_parameters())
@@ -722,7 +722,7 @@ def test_san_refuses_unported_settings(opts, match):
 
     _, tcfg = small_cfgs(*opts, cfg_path=SAN_CFG, small=SAN_SMALL)
     with pytest.raises(NotImplementedError, match=match):
-        build_model(tcfg, 1, 14)
+        build_model(tcfg, 1)
 
 
 def test_san_without_batchnorm_refuses_fused_ffn(monkeypatch, loaders):
@@ -745,7 +745,7 @@ def test_san_without_batchnorm_refuses_fused_ffn(monkeypatch, loaders):
     *_, tl = loaders
     _, tcfg = small_cfgs("gt.batch_norm", "False", cfg_path=SAN_CFG,
                          small=SAN_SMALL)
-    model = build_model(tcfg, 1, 14)
+    model = build_model(tcfg, 1)
     _, tb = next(iter(tl["train"]))
     with torch.no_grad():
         pred, _ = model.eval()(tb)
@@ -757,16 +757,50 @@ def test_san_without_batchnorm_refuses_fused_ffn(monkeypatch, loaders):
 
 @pytest.mark.parametrize("impl", ["ring", "dense", "chunked", "flash",
                                   "fused"])
-def test_gps_refuses_attn_impl(impl):
-    """``gt.attn_impl`` other than auto raises through ``build_model``,
-    naming the ROADMAP item that brings it."""
+def test_gps_refuses_attn_impl(monkeypatch, impl):
+    """``gt.attn_impl`` at ogbg-molhiv's shapes (d = 64, 16 node slots):
+    ring raises through ``build_model``, naming the ROADMAP item that
+    brings it; dense and chunked build and take their rung in every layer;
+    fused (d = 64, not lane-aligned) and flash (N < 256) raise JAX's
+    ValueError when a batch arrives."""
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, infer_dims
     from graphgps_torch.models.networks import build_model
+    from graphgps_torch.ops import chunked_mha, mha
     from tests.test_torch_data import MOLHIV_CFG, MOLHIV_SMALL
 
     _, tcfg = small_cfgs("gt.attn_impl", impl, cfg_path=MOLHIV_CFG,
                          small=MOLHIV_SMALL)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue \d item"):
-        build_model(tcfg, 1, 14)
+    if impl == "ring":
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP Queue 1 item 18"):
+            build_model(tcfg, 1)
+        return
+    splits = load_dataset(tcfg)
+    loader = create_loaders(tcfg, splits, "cpu")["val"]
+    model = build_model(tcfg, infer_dims(tcfg, splits)).eval()
+    _, batch = next(iter(loader))
+    calls = {"dense": 0, "chunked": 0}
+
+    def spy(name, fn):
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return counted
+
+    monkeypatch.setattr(mha, "mha", spy("dense", mha.mha))
+    monkeypatch.setattr(chunked_mha, "chunked_mha",
+                        spy("chunked", chunked_mha.chunked_mha))
+    if impl in ("fused", "flash"):
+        with pytest.raises(ValueError, match=f"gt.attn_impl='{impl}' needs"):
+            with torch.no_grad():
+                model(batch)
+        return
+    with torch.no_grad():
+        pred, _ = model(batch)
+    assert torch.isfinite(pred).all()
+    assert calls == {name: (len(model.layers) if name == impl else 0)
+                     for name in calls}
 
 
 # ---------------------------------------------------------------------------

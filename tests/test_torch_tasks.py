@@ -193,8 +193,7 @@ def test_molhiv_cli_cpu_trains(tmp_path):
     splits = load_dataset(cfg)
     loaders = create_loaders(cfg, splits, "cpu")
     torch.manual_seed(123)
-    model = build_model(cfg, infer_dims(cfg, splits),
-                        loaders["train"].max_nodes)
+    model = build_model(cfg, infer_dims(cfg, splits))
     assert checkpoint.load_ckpt(str(run), model) == best + 1
     model.eval()
     preds, trues = [], []

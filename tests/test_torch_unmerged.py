@@ -133,13 +133,13 @@ def test_unmerged_layer_eval_matches_jax(monkeypatch, d, act):
     xo, eo = jl.apply({"params": params, "batch_stats": stats}, batch, x, e,
                       False)
 
-    layer = GPSLayer(d, 4, act=act, dropout=DROP, attn_dropout=ATTN_DROP,
-                     merged=False).eval()
-    assert not layer.merged and layer.defer == (d == 128)
-    layer.load_state_dict(to_torch(gps_layer_state_dict(params, stats,
-                                                        merged=False)))
+    layer = GPSLayer(d, 4, act=act, dropout=DROP,
+                     attn_dropout=ATTN_DROP).eval()
+    tb = torch_batch(batch)
+    assert not layer.takes_merged(tb) and layer.defer == (d == 128)
+    layer.load_state_dict(to_torch(gps_layer_state_dict(params, stats)))
     with torch.no_grad():
-        txo, teo = layer(torch_batch(batch), torch.from_numpy(np.array(x)),
+        txo, teo = layer(tb, torch.from_numpy(np.array(x)),
                          torch.from_numpy(np.array(e)))
     _close(txo, xo, "x")
     _close(teo, eo, "e")
@@ -267,8 +267,8 @@ def test_unmerged_model_eval_matches_jax(scan):
     var = jmodel.init({"params": key, "dropout": key, "signflip": key}, jb,
                       False)
     params, stats = randomize_norms(var["params"], var["batch_stats"], seed=9)
-    model = build_model(tcfg, dim_out, tloaders["train"].max_nodes).eval()
-    assert not model.layers[0].merged
+    model = build_model(tcfg, dim_out).eval()
+    assert not model.layers[0].holds_front
     load_flax(model, params, stats)
     for split in ("val", "train"):
         _, jb = next(iter(jloaders[split]))
@@ -328,7 +328,7 @@ def test_unmerged_two_train_steps_match_jax(monkeypatch):
                        opt_state=tx.init(params), step=jnp.asarray(0))
     rng = run_key(jcfg, 1)
 
-    model = build_model(tcfg, dim_out, tloaders["train"].max_nodes).train()
+    model = build_model(tcfg, dim_out).train()
     load_flax(model, params, stats)
     opt = build_optimizer(tcfg, model.parameters())
     named = dict(model.named_parameters())

@@ -310,9 +310,9 @@ def test_voc_model_eval_matches_jax(monkeypatch, loaders):
     assert dim_out == 5 and tcfg.share.dim_in == 14
     _, jb = next(iter(jl["val"]))
     jmodel, (params, stats) = _jax_model(jcfg, dim_out, jb)
-    model = build_model(tcfg, dim_out, tl["train"].max_nodes).eval()
+    model = build_model(tcfg, dim_out).eval()
     assert isinstance(model.head, InductiveNodeHead)
-    assert not model.layers[0].merged
+    assert not model.layers[0].holds_front
     load_flax(model, params, stats)
     for split in ("val", "train"):
         _, jb = next(iter(jl[split]))
@@ -366,7 +366,7 @@ def test_voc_two_train_steps_match_jax(monkeypatch):
                        opt_state=tx.init(params), step=jnp.asarray(0))
     rng = run_key(jcfg, 1)
 
-    model = build_model(tcfg, dim_out, tl["train"].max_nodes).train()
+    model = build_model(tcfg, dim_out).train()
     load_flax(model, params, stats)
     opt = build_optimizer(tcfg, model.parameters())
     named = dict(model.named_parameters())
@@ -452,7 +452,7 @@ def test_voc_cli_cpu_trains(tmp_path):
     dim_out = infer_dims(cfg, splits)
     loaders = create_loaders(cfg, splits, "cpu")
     torch.manual_seed(123)
-    model = build_model(cfg, dim_out, loaders["train"].max_nodes)
+    model = build_model(cfg, dim_out)
     assert checkpoint.load_ckpt(str(run), model) == best + 1
     model.eval()
     preds, trues = [], []

@@ -232,7 +232,7 @@ def test_wide_attention_plain_is_the_layers_branch():
     x, counts, *_ = _attn_inputs(B, N, d, 1)
     counts[0] = 5
     torch.manual_seed(0)
-    layer = GPSLayer(d, H, attn_dropout=0.5, merged=False).train()
+    layer = GPSLayer(d, H, attn_dropout=0.5).train()
     nm = torch.arange(N)[None, :] < torch.from_numpy(counts)[:, None]
     z = torch.zeros(0)
     batch = GraphBatch(node_feat=z, edge_feat=None, senders=z, receivers=z,
@@ -452,7 +452,7 @@ def test_wide_layer_matches_jax(monkeypatch, N, train):
 
     layer = GPSLayer(d, H, act="relu", dropout=0.0, attn_dropout=0.5)
     layer.train(train)
-    assert not layer.merged and not layer.defer
+    assert not layer.holds_front and not layer.defer
     assert (N > local_gnn.CORE_MAX_NODES) == (N == 256)
     layer.load_state_dict(to_torch(gps_layer_state_dict(params, stats)))
     tx, te = (torch.from_numpy(np.array(a)).requires_grad_() for a in (x, e))

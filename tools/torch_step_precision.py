@@ -76,8 +76,7 @@ def main() -> None:
         try:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(cfg.seed)
-                model = build_model(cfg, infer_dims(cfg, splits),
-                                    batch.max_nodes)
+                model = build_model(cfg, infer_dims(cfg, splits))
             model.load_state_dict(state)
             model = (model.double() if double else model).to(device).train()
             opt = build_optimizer(cfg, model.parameters())
