@@ -77,6 +77,23 @@ one. Phases, each fatal on failure:
    inputs; ``F.scaled_dot_product_attention`` with the same-segment mask
    (and the bias folded into a float mask) is held against the kernel and
    timed as ``library_ms``;
+3j. the segment sums, ``segment_csr`` and ``segment_tiled`` (one kernel
+   behind two wrappers, forward only: their backward is a gather), on
+   layer 0's GCN messages of the sixth main path (wn-squirrel: 5,248 node
+   slots, its edge slots, d=96) into the receivers, the tiled one also on a
+   cotangent into the senders (the gather's backward), then on seeded
+   inputs with hub segments (a power law over the same 5,248 segments) and
+   at MalNet's size (E 313,000, S 80,000, d 64), within rtol 1e-5 and atol
+   1e-5 of each tensor's largest entry, with bit-identical reruns;
+   ``Tensor.index_add``, the one PyTorch call for the same function, is
+   held against the kernel and timed as ``library_ms``;
+3k. BigBird's block-sparse attention, ``bigbird``, forward and backward, at
+   wn-squirrel's one graph (5,248 slots, 5,201 real, 4 heads of 24, block
+   3, 3 random blocks, the plans of its three layers) and at 4 graphs of
+   2,048 slots (1,900-2,048 real) on seeded inputs, at 3d's attention
+   tolerances with bit-identical backward reruns;
+   ``F.scaled_dot_product_attention`` with the boolean mask of allowed
+   pairs is held against the kernel and timed as ``library_ms``;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
    32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, ZINC
    Graphormer 12x80 with 8 heads and the graph token at batch 256,
@@ -86,8 +103,12 @@ one. Phases, each fatal on failure:
    then GPS-deep with the JAX package's switch ``GGPS_FUSED_FRONT=0`` (the
    unmerged path at d=256 and the fused attention rung) and VOC
    superpixels under ``gt.attn_impl flash`` (training at attention dropout
-   0, which flash requires)), each with every launch count set to 0 just
-   before a run and read just after:
+   0, which flash requires), then wn-squirrel under the JAX package's
+   switches ``GGPS_TILED_SEGMENT=1`` and ``GGPS_USE_CSR_KERNEL=1`` and as
+   ``gt.layer_type GCN+BigBird`` (training at attention dropout 0, which
+   the block-sparse kernel requires), these three over
+   SWITCH_RATE_BATCHES batches a pass), each with every launch count set to
+   0 just before a run and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
    b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1,
@@ -115,10 +136,12 @@ one. Phases, each fatal on failure:
    e. the same for training steps (forward, backward, clipping, adamW),
       with the peak device memory (on wn-squirrel, whose epoch is one step,
       over SQUIRREL_RATE_BATCHES repeats of its one batch);
-   and after the last two paths, one calibrated model's evaluation
-   predictions on one val batch on both sides of the switch (merged front
-   vs the fused rung; auto's wide attention vs flash, on the real nodes),
-   with each side's launches.
+   and after each of the last five paths, one model's evaluation
+   predictions on one val batch on both sides of its switch (merged front
+   vs the fused rung; auto's wide attention vs flash; index_add vs the
+   tiled and the CSR kernel; the block-sparse kernel vs BigBird's dense
+   path with ``GGPS_SPLASH_MIN_N`` raised; on the real nodes), with each
+   side's launches.
 
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
 phase. The line before the last is ``{"kernels": [...]}`` (the six kernels
@@ -126,8 +149,9 @@ of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
 Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
 ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's, the two
-of the fused attention rung at GPS-deep's and the two of the flash attention
-at VOC's: twenty-four);
+of the fused attention rung at GPS-deep's, the two of the flash attention
+at VOC's, the two segment sums at wn-squirrel's aggregation and BigBird's
+two at wn-squirrel's first layer: twenty-eight);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -207,6 +231,21 @@ VOC_FLASH_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
 # JAX's plain FFN and plain adds, so no kernel
 SQUIRREL_LAUNCHES = {"ffn": (1, 0), "ffn_bwd": (1, 0), "drop_add": (2, 0),
                      "drop_add_bwd": (2, 0)}
+# wn-squirrel under the JAX package's segment switches and as GCN+BigBird:
+# the same kernels, and per layer the aggregation's segment sum (the tiled
+# rung also the backward of the GCN's gather h[senders]) or the BigBird
+# attention (training at attention dropout 0, which the kernel requires)
+TILED_ON = ("GGPS_TILED_SEGMENT", "1")
+CSR_ON = ("GGPS_USE_CSR_KERNEL", "1")
+SQUIRREL_TILED_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_tiled": (2, 1)}
+SQUIRREL_CSR_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_csr": (1, 1)}
+BIGBIRD_OPTS = ["gt.layer_type", "GCN+BigBird"]
+BIGBIRD_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
+SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
+                             "bigbird_bwd": (1, 0)}
+# rate batches of those three paths: fewer than SQUIRREL_RATE_BATCHES, so
+# the script stays inside its time limit
+SWITCH_RATE_BATCHES = 1
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (the kernels run f32 on CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -270,6 +309,17 @@ EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM, EDGE_HEADS = 64, 128, 256, 4
 # phase 3i: the flash attention at wn-squirrel's one graph under flash
 # (5,248 node slots, 5,201 real), 4 heads of 24, on seeded inputs
 SQUIRREL_SLOTS, SQUIRREL_NODES = 5248, 5201
+# phase 3j: the segment sums (rtol, atol x each tensor's largest entry:
+# the same adds as index_add_ in another order), on a hub-skewed case at
+# wn-squirrel's size and at MalNet's (ogbg MalNet-Tiny's cut: E 313,000,
+# S 80,000 = 625 x 128, d 64) on seeded inputs
+SEGMENT_RTOL, SEGMENT_ATOL = 1e-5, 1e-5
+SKEW_EDGES = 41600
+MALNET_EDGES, MALNET_NODES, MALNET_DIM = 313000, 80000, 64
+# phase 3k: BigBird at wn-squirrel's graph (block 3, 3 random blocks, the
+# plans of layers 0-2) and at 4 graphs of 2,048 slots (1,900-2,048 real)
+BIGBIRD_BLOCK, BIGBIRD_RANDOM, BIGBIRD_SEEDS = 3, 3, (0, 1, 2)
+BIGBIRD_GRAPHS, BIGBIRD_SLOTS, BIGBIRD_MIN_REAL = 4, 2048, 1900
 # a relu unit whose side of the kink the kernel's and the plain version's
 # rounding part lies within this much of the pre-activations' largest
 # entry from 0 (f32 sums of 64 to 304 products)
@@ -1679,6 +1729,209 @@ def check_flash(torch, cfg_path: str, opts, state, device):
     return rows
 
 
+def segment_cases(torch, data, ids, S: int, tag: str,
+                  names=("segment_csr", "segment_tiled")):
+    """The segment sums' rows on (data (E, d), ids (E,)): the tiled wrapper
+    on ``ids`` as given, the CSR wrapper on them sorted (with the data rows
+    in the same order), each against its plain version and against
+    ``Tensor.index_add``, the one PyTorch call for the same function (its
+    ``library_ms``; used nowhere in the port), with two runs equal in every
+    bit."""
+    from graphgps_torch.ops.kernels import segment_sum as ks
+
+    E, d = data.shape
+    order = torch.argsort(ids, stable=True)
+    sids, sdata = ids[order].contiguous(), data[order].contiguous()
+    row_ptr = ks.row_ptr_from_sorted(sids, S)
+    src = "graphgps_torch/csrc/segment_sum.cu"
+    tpu = "graphgps_tpu/ops/pallas"
+    zeros = torch.zeros((S, d), device=data.device)
+    counts = torch.bincount(ids.long(), minlength=S)
+    at = dict(E=E, S=S, d=d, largest_segment=int(counts.max()),
+              empty_segments=int((counts == 0).sum()))
+    cases = [
+        dict(name="segment_csr", fn=ks.segment_sum_csr,
+             plain=ks.segment_sum_csr_plain, args=(sdata, sids, row_ptr, S),
+             source=src, replaces=f"{tpu}/segment_csr.py:155",
+             library=lambda: zeros.index_add(0, sids.long(), sdata)),
+        dict(name="segment_tiled", fn=ks.tiled_segment_sum,
+             plain=ks.tiled_segment_sum_plain, args=(data, ids, S),
+             source=src, replaces=f"{tpu}/segment_tiled.py:100",
+             library=lambda: zeros.index_add(0, ids.long(), data))]
+    rows = []
+    for c in (c for c in cases if c["name"] in names):
+        c.update(tol=(SEGMENT_RTOL, SEGMENT_ATOL), flops=E * d)   # one add
+        with torch.no_grad():
+            once, twice = c["fn"](*c["args"]), c["fn"](*c["args"])
+            lib = c["library"]()
+        same = bool(torch.equal(once, twice))
+        lib_ok, lib_err, _ = grads_close(torch, [lib], [once], SEGMENT_RTOL,
+                                         SEGMENT_ATOL, 0.0)
+        row = forward_case(torch, c, at)
+        row.update(shape=tag, bit_identical_reruns=same)
+        print(json.dumps(dict(name=c["name"], shape=tag,
+                              bit_identical_reruns=same,
+                              library_vs_kernel_max_abs_err=lib_err)),
+              flush=True)
+        if not same:
+            fail(f"{c['name']}: two runs on the same inputs differ ({tag})")
+        if not lib_ok:
+            fail(f"index_add does not compute {c['name']}'s function on "
+                 f"{tag} (max abs err {lib_err})")
+        rows.append(row)
+    return rows
+
+
+def check_segment(torch, cfg_path: str, opts, state, device):
+    """Phase 3j: the segment sums (``segment_csr``, ``segment_tiled``), one
+    CUDA kernel behind two wrappers, forward (their backward is a gather),
+    kernel against plain version and ``index_add``, on layer 0's GCN
+    messages of the recipe ``cfg_path`` (``opts`` on top; wn-squirrel: one
+    graph of 5,248 node slots, the edge slots of its ~41,600 edges, d=96;
+    the seeded model ``state``) into the receivers, and for the tiled one
+    also a cotangent of the messages into the senders (the gather's
+    backward); then on seeded inputs with hub segments (a power law over
+    S = 5,248) and at MalNet's size. Returns the rows; every row carries
+    ``shape``."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = seeded_model(torch, cfg, splits, batch)
+    model.load_state_dict(state)
+    gcn = model.layers[0].local
+    S = batch.num_node_slots
+    s, r = batch.senders, batch.receivers
+    with torch.no_grad():
+        x, _ = model.encoder(batch)
+        h = x @ gcn.w + gcn.b
+        deg = torch.zeros(S, device=device).index_add_(
+            0, r.long(), batch.edge_mask.float()) + 1.0
+        dinv = torch.rsqrt(deg)
+        msgs = h[s.long()] * dinv[s.long(), None] * dinv[r.long(), None]
+        msgs = torch.where(batch.edge_mask[:, None], msgs, 0.0).contiguous()
+    rows = segment_cases(torch, msgs, r, S, "wn-squirrel")
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    rows += segment_cases(torch, rnd(*msgs.shape), s, S,
+                          "wn-squirrel senders", names=("segment_tiled",))
+    p = 1.0 / torch.arange(1, S + 1, device=device, dtype=torch.float64)
+    hubs = torch.multinomial(p / p.sum(), SKEW_EDGES, replacement=True,
+                             generator=g).to(torch.int32)
+    rows += segment_cases(torch, rnd(SKEW_EDGES, msgs.shape[1]), hubs, S,
+                          "hub-skewed")
+    ids = torch.randint(0, MALNET_NODES, (MALNET_EDGES,), generator=g,
+                        device=device, dtype=torch.int32)
+    rows += segment_cases(torch, rnd(MALNET_EDGES, MALNET_DIM), ids,
+                          MALNET_NODES, "MalNet size")
+    return rows
+
+
+def bigbird_cases(torch, q, k, v, mask, seed: int, tag: str):
+    """BigBird's rows on (q, k, v, mask) with the plan of ``seed``: forward
+    and backward against the plain version, and
+    ``F.scaled_dot_product_attention`` with the boolean mask of allowed
+    pairs (the plan and the same segment) held against the kernel and timed
+    as ``library_ms`` (used nowhere in the port)."""
+    import torch.nn.functional as F
+    from graphgps_torch.ops.kernels import bigbird as kb
+
+    from graphgps_torch.ops.bigbird import plan_mask
+
+    B, H, N, Dh = q.shape
+    bs, rb = BIGBIRD_BLOCK, BIGBIRD_RANDOM
+    ids = mask.to(torch.int32)
+    allowed = plan_mask(N, bs, rb, seed, q.device)[None] & (
+        ids[:, :, None] == ids[:, None, :])
+    attn_mask = allowed[:, None]
+    pairs = int(allowed.sum()) * H          # allowed (query, key) pairs
+    scale = 1.0 / float(Dh) ** 0.5
+    ins = (q, k, v, mask, bs, rb, seed)
+    src = "graphgps_torch/csrc/bigbird.cu"
+    tpu = "graphgps_tpu/ops/pallas/splash_bigbird.py:87"
+    tol = (LONG_RTOL, LONG_ATOL)
+    cots_for = cotangents(torch, SEED + 19, q.device)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                              scale=scale)
+
+    def library_backward(cots):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                           scale=scale)
+        return lambda: torch.autograd.grad(y, leaves, cots[0],
+                                           retain_graph=True)
+
+    def run(cots=None):
+        o, kept = kb._launch_forward(*ins)
+        cots = cots or cots_for([o])
+        return cots, lambda: kb.bigbird_backward(*ins, o, cots[0], kept=kept)
+
+    fwd = dict(name="bigbird", fn=kb.bigbird_block_sparse,
+               plain=kb.bigbird_plain, args=ins, tol=tol, source=src,
+               replaces=tpu, library=library,
+               # q k^T and P v over the allowed pairs
+               flops=4 * pairs * Dh)
+    bwd = dict(name="bigbird_bwd", run=run,
+               plain=lambda c: kb.bigbird_backward_plain(*ins, c[0]),
+               inputs=[q, k, v, mask], source=src,
+               replaces=f"{tpu} (the library's backward)", sites=[], tol=tol,
+               library=library_backward,
+               # the logits again, dP, dv, dq, dk over the allowed pairs
+               flops=10 * pairs * Dh)
+    at = dict(B=B, H=H, N=N, Dh=Dh, real_nodes=int(mask.sum()), seed=seed,
+              block=bs, random_blocks=rb, allowed_pairs=pairs)
+    rows = [forward_case(torch, fwd, at),
+            backward_case(torch, bwd, DROP_SEED, 0.0, at)]
+    with torch.no_grad():
+        y = kb.bigbird_block_sparse(*ins)
+        y_lib = library()
+        lib_err = float((y - y_lib).abs().max())
+    print(json.dumps(dict(
+        note="F.scaled_dot_product_attention against bigbird; not used in "
+             "the port", library_vs_kernel_max_abs_err=lib_err,
+        rtol=LIBRARY_RTOL, atol=f"{LIBRARY_ATOL} x max|entry|", shape=tag,
+        shapes=at)), flush=True)
+    if not grads_close(torch, [y_lib], [y], LIBRARY_RTOL, LIBRARY_ATOL,
+                       0.0)[0]:
+        fail("F.scaled_dot_product_attention does not compute BigBird's "
+             f"function on {tag} (max abs err {lib_err})")
+    for r in rows:
+        r.update(shape=tag, seed=seed)
+    return rows
+
+
+def check_bigbird(torch, device, H: int, Dh: int):
+    """Phase 3k: BigBird's block-sparse attention (``bigbird``), forward and
+    backward, kernel against plain version, on seeded inputs at
+    wn-squirrel's one graph (5,248 slots, 5,201 real, ``H`` heads of ``Dh``,
+    block 3, 3 random blocks) with the plans of the recipe's three layers,
+    and at 4 graphs of 2,048 slots with 1,900-2,048 real. Returns the rows;
+    every row carries ``shape`` and ``seed``."""
+    g = torch.Generator(device=device).manual_seed(SEED + 20)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+    N = SQUIRREL_SLOTS
+    mask = torch.arange(N, device=device)[None, :] < SQUIRREL_NODES
+    rows = []
+    for seed in BIGBIRD_SEEDS:
+        rows += bigbird_cases(torch, *(rnd(1, H, N, Dh) for _ in range(3)),
+                              mask, seed, "wn-squirrel")
+    B, N = BIGBIRD_GRAPHS, BIGBIRD_SLOTS
+    counts = torch.randint(BIGBIRD_MIN_REAL, N + 1, (B,), generator=g,
+                           device=device)
+    counts[-1] = N
+    mask = torch.arange(N, device=device)[None, :] < counts[:, None]
+    rows += bigbird_cases(torch, *(rnd(B, H, N, Dh) for _ in range(3)),
+                          mask, 0, "4 graphs of 2,048 slots")
+    return rows
+
+
 def check_rung_switch(torch, name: str, cfg_path: str, opts, state, device,
                       settings, tables):
     """One calibrated model's evaluation predictions on one val batch under
@@ -1762,6 +2015,36 @@ def attn_auto(model):
 
 def attn_flash(model):
     return attn_impl(model, "flash")
+
+
+def segment_index_add(model):
+    return contextlib.nullcontext()
+
+
+def segment_tiled(model):
+    return env_set(*TILED_ON)
+
+
+def segment_csr(model):
+    return env_set(*CSR_ON)
+
+
+def bigbird_kernel(model):
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def bigbird_dense(model):
+    """BigBird's dense path on the card: the splash threshold
+    (``GGPS_SPLASH_MIN_N``, read at import) raised above any graph."""
+    from graphgps_torch.ops import bigbird
+
+    old = bigbird.SPLASH_MIN_N
+    bigbird.SPLASH_MIN_N = 1 << 30
+    try:
+        yield
+    finally:
+        bigbird.SPLASH_MIN_N = old
 
 
 def layers_of(cfg) -> int:
@@ -2320,6 +2603,23 @@ def main() -> None:
     rows += [r for r in fl_rows if r["shape"] == "voc" and not r["bias"]]
     phase("3i")
 
+    # 3j. the segment sums at wn-squirrel's aggregation, with hubs and at
+    # MalNet's size; the kernels line takes the aggregation's rows
+    seg_rows = check_segment(torch, SQUIRREL_CFG, sq_opts, sq_state, device)
+    rows += [r for r in seg_rows if r["shape"] == "wn-squirrel"]
+    phase("3j")
+
+    # 3k. BigBird at wn-squirrel's graph with the three layers' plans and at
+    # 4 graphs of 2,048 slots; the kernels line takes layer 0's
+    sq_cfg = new_cfg()
+    load_cfg(sq_cfg, SQUIRREL_CFG)
+    heads = sq_cfg.gt.n_heads
+    bb_rows = check_bigbird(torch, device, heads,
+                            sq_cfg.gt.dim_hidden // heads)
+    rows += [r for r in bb_rows if r["shape"] == "wn-squirrel"
+             and r["seed"] == 0]
+    phase("3k")
+
     # 4. the six main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
@@ -2360,6 +2660,38 @@ def main() -> None:
                       device, (attn_auto, attn_flash),
                       (VOC_LAUNCHES, VOC_FLASH_LAUNCHES))
     phase("4 vocsuperpixels flash")
+    # the last three TPU kernels: wn-squirrel under the JAX package's
+    # segment switches and as GCN+BigBird; each against the default path's
+    # predictions from one model
+    with env_set(*TILED_ON):
+        tiled_counts = drive_recipe(torch, "wn-squirrel tiled", SQUIRREL_CFG,
+                                    SQUIRREL_TILED_LAUNCHES, "accuracy",
+                                    sq_state, device, card,
+                                    extra=SQUIRREL_OPTS,
+                                    rate_batches=SWITCH_RATE_BATCHES)
+    check_rung_switch(torch, "wn-squirrel", SQUIRREL_CFG, sq_opts, sq_state,
+                      device, (segment_index_add, segment_tiled),
+                      (SQUIRREL_LAUNCHES, SQUIRREL_TILED_LAUNCHES))
+    phase("4 wn-squirrel tiled")
+    with env_set(*CSR_ON):
+        csr_counts = drive_recipe(torch, "wn-squirrel csr", SQUIRREL_CFG,
+                                  SQUIRREL_CSR_LAUNCHES, "accuracy", sq_state,
+                                  device, card, extra=SQUIRREL_OPTS,
+                                  rate_batches=SWITCH_RATE_BATCHES)
+    check_rung_switch(torch, "wn-squirrel", SQUIRREL_CFG, sq_opts, sq_state,
+                      device, (segment_index_add, segment_csr),
+                      (SQUIRREL_LAUNCHES, SQUIRREL_CSR_LAUNCHES))
+    phase("4 wn-squirrel csr")
+    bb_counts = drive_recipe(torch, "wn-squirrel bigbird", SQUIRREL_CFG,
+                             SQUIRREL_BIGBIRD_LAUNCHES, "accuracy", sq_state,
+                             device, card, extra=SQUIRREL_OPTS + BIGBIRD_OPTS,
+                             train_extra=BIGBIRD_TRAIN_OPTS,
+                             rate_batches=SWITCH_RATE_BATCHES)
+    check_rung_switch(torch, "wn-squirrel bigbird", SQUIRREL_CFG,
+                      sq_opts + BIGBIRD_OPTS, sq_state, device,
+                      (bigbird_kernel, bigbird_dense),
+                      (SQUIRREL_BIGBIRD_LAUNCHES, SQUIRREL_LAUNCHES))
+    phase("4 wn-squirrel bigbird")
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
@@ -2376,6 +2708,12 @@ def main() -> None:
             path, counts = "pcqm4m-GPSdeep front-off", off_counts
         elif r["name"] in ("flash_mha", "flash_mha_bwd"):
             path, counts = "vocsuperpixels flash", flash_counts
+        elif r["name"] == "segment_tiled":
+            path, counts = "wn-squirrel tiled", tiled_counts
+        elif r["name"] == "segment_csr":
+            path, counts = "wn-squirrel csr", csr_counts
+        elif r["name"] in ("bigbird", "bigbird_bwd"):
+            path, counts = "wn-squirrel bigbird", bb_counts
         r["launches"] = counts[r["name"]]
         r["main_path"] = path
         r["launches_ogbg_molhiv"] = mol_counts[r["name"]]
@@ -2385,6 +2723,9 @@ def main() -> None:
         r["launches_wn_squirrel"] = sq_counts[r["name"]]
         r["launches_gpsdeep_front_off"] = off_counts[r["name"]]
         r["launches_voc_flash"] = flash_counts[r["name"]]
+        r["launches_wn_squirrel_tiled"] = tiled_counts[r["name"]]
+        r["launches_wn_squirrel_csr"] = csr_counts[r["name"]]
+        r["launches_wn_squirrel_bigbird"] = bb_counts[r["name"]]
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
@@ -2398,7 +2739,10 @@ def main() -> None:
                            "launches_ogbg_molhiv_san",
                            "launches_wn_squirrel",
                            "launches_gpsdeep_front_off",
-                           "launches_voc_flash")} for r in rows])),
+                           "launches_voc_flash",
+                           "launches_wn_squirrel_tiled",
+                           "launches_wn_squirrel_csr",
+                           "launches_wn_squirrel_bigbird")} for r in rows])),
           flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -46,7 +46,17 @@ softmax over key tiles) for graphs of more than 128 and at most 768 node
 slots; then the ``mha`` dispatch (``ops/mha.py`` ``mha_dispatch``: PyTorch
 ops with a dense softmax, the chunked attention beyond 1,024 slots or
 64 MB of scores, as JAX leaves both to XLA, or, under flash, the
-``flash_mha`` kernel). dense and chunked force their rung.
+``flash_mha`` kernel). dense and chunked force their rung. With the BigBird
+global model (``gt.layer_type`` ``GCN+BigBird`` or
+``CustomGatedGCN+BigBird``; JAX :428-445) the branch is BigBird on the same
+QKV and out-projection weights instead, never the merged front or the fused
+and wide rungs: ``original_full`` the dense masked attention,
+``block_sparse`` the ``bigbird_attention`` dispatch (``ops/bigbird.py``:
+the block-sparse kernel on the card without attention dropout from
+``GGPS_SPLASH_MIN_N`` node slots on the 128 grid, the dense attention with
+the plan's bias otherwise), the plan drawn from the layer's index. (JAX on
+the TPU sends BigBird at 129-768 node slots under auto to its wide
+attention kernel, full attention; the port keeps BigBird there.)
 
 All end in the final norm with the padded node slots zeroed. Weights are
 held in the kernels' (in, out) layout, with their flax counterparts. The
@@ -78,7 +88,8 @@ from ..data.graph import GraphBatch
 from ..ops.kernels import (build, fused_combine_ffn, fused_drop_add,
                            fused_ffn, fused_gps_attention,
                            fused_wide_attention)
-from ..ops.mha import merge_heads, mha_dispatch, split_heads
+from ..ops.bigbird import ATTENTION_TYPES, bigbird_attention
+from ..ops.mha import merge_heads, mha, mha_dispatch, split_heads
 from .common import MaskedBatchNorm, dense_params, get_act
 from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer
 
@@ -87,8 +98,9 @@ from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer
 # drop-add, attention, attention drop-add, FFN
 SEEDS_PER_LAYER = 3
 SEEDS_PER_LAYER_UNMERGED = 4
-# the local layers a GPSLayer takes
+# the local layers and global models a GPSLayer takes
 LOCAL_TYPES = ("CustomGatedGCN", "GCN")
+GLOBAL_TYPES = ("Transformer", "BigBird")
 # the merged front holds a graph's N x N scores in shared memory
 MERGED_MAX_NODES = 128
 # the unmerged and GCN paths' attention: fused_wide_attention above
@@ -155,14 +167,19 @@ class GPSLayer(nn.Module):
     def __init__(self, dim_h: int, num_heads: int, act: str = "relu",
                  eps: float = 1e-5, dropout: float = 0.0,
                  attn_dropout: float = 0.0, local: str = "CustomGatedGCN",
-                 batch_norm: bool = True, attn_impl: str = "auto"):
+                 batch_norm: bool = True, attn_impl: str = "auto",
+                 global_type: str = "Transformer",
+                 bigbird: Optional[dict] = None, layer_index: int = 0):
         """A CustomGatedGCN layer at a multiple of 128 takes the merged
         front per batch wherever JAX does (:meth:`takes_merged`); its weight
         layout follows the width alone. A ``local="GCN"`` layer takes
         the GCN path, with its three norms MaskedBatchNorms under
         ``batch_norm`` and the identity otherwise (a CustomGatedGCN layer
         always has BatchNorm). ``attn_impl`` is ``gt.attn_impl``
-        (ATTN_IMPLS)."""
+        (ATTN_IMPLS). ``global_type`` BigBird takes ``bigbird``'s
+        ``attention_type``, ``block_size`` and ``num_random_blocks``
+        (``gt.bigbird``) and draws its plan from the seed ``layer_index``,
+        as JAX's layer does."""
         super().__init__()
         if dim_h % num_heads:
             raise ValueError(f"dim_h={dim_h} is not divisible by "
@@ -179,6 +196,20 @@ class GPSLayer(nn.Module):
             raise NotImplementedError(
                 f"gt.attn_impl={attn_impl!r}: the port's GPSLayer takes "
                 f"{ATTN_IMPLS}")
+        if global_type not in GLOBAL_TYPES:
+            raise NotImplementedError(
+                f"global model {global_type!r}: the port's GPSLayer takes "
+                f"{GLOBAL_TYPES} (ROADMAP Queue 1 item 15)")
+        bigbird = dict(bigbird or {})
+        self.bigbird_type = bigbird.get("attention_type", "block_sparse")
+        if global_type == "BigBird" and self.bigbird_type not in \
+                ATTENTION_TYPES:
+            raise ValueError(f"unknown bigbird attention_type "
+                             f"{self.bigbird_type!r}")
+        self.bigbird_block = int(bigbird.get("block_size", 3))
+        self.bigbird_random = int(bigbird.get("num_random_blocks", 3))
+        self.global_type = global_type
+        self.layer_index = layer_index
         self.dim_h = dim_h
         self.num_heads = num_heads
         self.act = act
@@ -232,6 +263,7 @@ class GPSLayer(nn.Module):
         node slots, ``attn_impl`` auto or fused, and ``GGPS_FUSED_FRONT``
         not 0."""
         return (self.holds_front and batch.max_nodes <= MERGED_MAX_NODES
+                and self.global_type == "Transformer"
                 and self.attn_impl in ("auto", "fused")
                 and not front_switched_off())
 
@@ -257,7 +289,8 @@ class GPSLayer(nn.Module):
         (JAX :280-294): ``attn_impl`` auto or fused, within
         :func:`fused_eligible`, and under auto from :func:`fused_auto_wins`
         on. fused outside the envelope raises JAX's ValueError."""
-        if self.attn_impl not in ("auto", "fused"):
+        if (self.attn_impl not in ("auto", "fused")
+                or self.global_type != "Transformer"):
             return False
         ok = fused_eligible(N, self.dim_h, self.num_heads)
         if self.attn_impl == "fused" and not ok:
@@ -298,6 +331,8 @@ class GPSLayer(nn.Module):
         rate = self.rates[1]
         w_qkv, b_qkv = self.qkv_proj()
         xd = batch.dense_view(x)
+        if self.global_type == "BigBird":
+            return self.bigbird_branch(batch, xd, w_qkv, b_qkv, seed)
         if self.takes_fused(B, N):
             return fused_gps_attention(
                 xd, batch.front_index[3], w_qkv, b_qkv, self.w_out,
@@ -312,6 +347,32 @@ class GPSLayer(nn.Module):
                    for i in range(3))
         o = mha_dispatch(q, k, v, batch.dense_view(batch.node_mask), seed,
                          rate, impl=self.attn_impl)
+        return merge_heads(o).reshape(-1, d) @ self.w_out + self.b_out
+
+    def bigbird_branch(self, batch: GraphBatch, xd, w_qkv, b_qkv, seed: int):
+        """The BigBird global branch up to the out-projection (JAX
+        :428-445): ``original_full`` is the dense masked attention
+        (``mha``), ``block_sparse`` the ``bigbird_attention`` dispatch (the
+        block-sparse kernel on the card without attention dropout from
+        ``GGPS_SPLASH_MIN_N`` node slots, the dense path with the plan's
+        bias otherwise), with the plan of seed ``layer_index``."""
+        d, H = self.dim_h, self.num_heads
+        rate = self.rates[1]
+        qkv = xd @ w_qkv + b_qkv
+        q, k, v = (split_heads(qkv[..., i * d:(i + 1) * d], H)
+                   for i in range(3))
+        key_mask = batch.dense_view(batch.node_mask)
+        if self.bigbird_type == "original_full":
+            from ..ops.kernels.common import apply_dropout
+
+            drop = None
+            if rate > 0.0:
+                drop = lambda p: apply_dropout(p, seed, 0, rate)  # noqa: E731
+            o = mha(q, k, v, key_mask, drop)
+        else:
+            o = bigbird_attention(q, k, v, key_mask, self.bigbird_block,
+                                  self.bigbird_random, self.layer_index, rate,
+                                  seed)
         return merge_heads(o).reshape(-1, d) @ self.w_out + self.b_out
 
     def forward_merged(self, batch: GraphBatch, x, e, gen):

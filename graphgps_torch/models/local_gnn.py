@@ -219,8 +219,11 @@ class GCNLayer(nn.Module):
         s, r = batch.senders, batch.receivers
         h = x @ self.w + self.b
         S = batch.num_node_slots
-        deg = segment_sum(batch.edge_mask.to(h.dtype), r, S) + 1.0
+        # the batch's layout picks the segment ops' rungs, as JAX's _seg_kw
+        kw = dict(edge_block=batch.edge_block, max_nodes=batch.max_nodes)
+        deg = segment_sum(batch.edge_mask.to(h.dtype), r, S, **kw) + 1.0
         dinv = torch.rsqrt(deg)
-        msgs = gather(h, s) * (gather(dinv, s) * gather(dinv, r))[:, None]
-        agg = segment_sum(msgs, r, S, mask=batch.edge_mask)
+        sl, rl = s.long(), r.long()
+        msgs = gather(h, s, **kw) * dinv[sl, None] * dinv[rl, None]
+        agg = segment_sum(msgs, r, S, mask=batch.edge_mask, **kw)
         return agg + h * (dinv * dinv)[:, None], e

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
-from .gps_layer import ATTN_IMPLS, LOCAL_TYPES, MIN_DIM, GPSLayer
+from .gps_layer import ATTN_IMPLS, GLOBAL_TYPES, LOCAL_TYPES, MIN_DIM, GPSLayer
 from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
 from .san import SANLayer
 
@@ -81,7 +81,8 @@ LOCAL_TODO = ("GINE", "GIN", "GAT", "GENConv", "PNA")
 
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
-    Transformer with BatchNorm or GCN ∥ Transformer with BatchNorm or none,
+    Transformer or BigBird with BatchNorm or GCN ∥ Transformer or BigBird
+    with BatchNorm or none,
     no LayerNorm, ``gt.attn_impl`` any of JAX's but ring, the san_graph,
     inductive_node or node head, at a width of 64 or more; a SANTransformer,
     ``check_san_supported``; or a Graphormer,
@@ -97,12 +98,12 @@ def check_supported(cfg) -> None:
             f"model.type={cfg.model.type!r} is not ported (ROADMAP Queue 1 "
             "item 15)")
     local, _, glob = gt.layer_type.partition("+")
-    if glob != "Transformer" or local not in LOCAL_TYPES:
+    if glob not in GLOBAL_TYPES or local not in LOCAL_TYPES:
         item = "Queue 1 item 13" if local in LOCAL_TODO else \
             "Queue 1 items 12-15"
         raise NotImplementedError(
             f"gt.layer_type={gt.layer_type!r}: the port runs "
-            f"{' and '.join(t + '+Transformer' for t in LOCAL_TYPES)} "
+            f"{' and '.join(LOCAL_TYPES)} with {' or '.join(GLOBAL_TYPES)} "
             f"(ROADMAP {item})")
     if gt.layer_norm:
         raise NotImplementedError(
@@ -181,8 +182,10 @@ class GPSModel(nn.Module):
                      dropout=cfg.gt.dropout, attn_dropout=cfg.gt.attn_dropout,
                      local=cfg.gt.layer_type.split("+")[0],
                      batch_norm=cfg.gt.batch_norm,
-                     attn_impl=cfg.gt.attn_impl)
-            for _ in range(cfg.gt.layers))
+                     attn_impl=cfg.gt.attn_impl,
+                     global_type=cfg.gt.layer_type.split("+")[1],
+                     bigbird=dict(cfg.gt.bigbird), layer_index=i)
+            for i in range(cfg.gt.layers))
         self.head = make_head(cfg, d, dim_out)
 
     def forward(self, batch: GraphBatch,

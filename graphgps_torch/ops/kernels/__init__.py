@@ -1,10 +1,12 @@
-"""The hand-written CUDA kernels of the ported paths, one wrapper each: twelve
-forward kernels and their twelve backward kernels.
+"""The hand-written CUDA kernels of the ported paths, one wrapper each:
+fifteen forward kernels (two of them, the segment sums, behind one source)
+and thirteen backward kernels.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.
 """
+from .bigbird import bigbird_backward, bigbird_block_sparse
 from .bn_ffn import bn_ffn_backward, fused_bn_ffn
 from .combine_ffn import combine_ffn_backward, fused_combine_ffn
 from .drop_add import drop_add_backward, fused_drop_add
@@ -16,6 +18,7 @@ from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .ln_ffn import fused_ln_ffn, ln_ffn_backward
 from .pre_tail import fused_pre_tail, pre_tail_backward
+from .segment_sum import segment_sum_csr, tiled_segment_sum
 from .wide_attention import fused_wide_attention, wide_attention_backward
 
 WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
@@ -33,7 +36,9 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "ffn": fused_ffn, "ffn_bwd": ffn_backward,
             "gps_attention": fused_gps_attention,
             "gps_attention_bwd": gps_attention_backward,
-            "flash_mha": flash_mha, "flash_mha_bwd": flash_mha_backward}
+            "flash_mha": flash_mha, "flash_mha_bwd": flash_mha_backward,
+            "segment_csr": segment_sum_csr, "segment_tiled": tiled_segment_sum,
+            "bigbird": bigbird_block_sparse, "bigbird_bwd": bigbird_backward}
 
 
 def reset_launch_counts() -> None:

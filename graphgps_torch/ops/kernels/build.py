@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gps_front", "pre_tail", "combine_ffn", "gatedgcn", "drop_add",
            "edge_gate", "wide_attention", "ln_ffn", "bn_ffn", "ffn",
-           "gps_attention", "flash_mha")
+           "gps_attention", "flash_mha", "segment_sum", "bigbird")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # activation codes of csrc/common.cuh
