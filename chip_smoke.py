@@ -78,15 +78,21 @@ one. Phases, each fatal on failure:
    (and the bias folded into a float mask) is held against the kernel and
    timed as ``library_ms``;
 3j. the segment sums, ``segment_csr`` and ``segment_tiled`` (one kernel
-   behind two wrappers, forward only: their backward is a gather), on
-   layer 0's GCN messages of the sixth main path (wn-squirrel: 5,248 node
-   slots, its edge slots, d=96) into the receivers, the tiled one also on a
-   cotangent into the senders (the gather's backward), then on seeded
-   inputs with hub segments (a power law over the same 5,248 segments) and
-   at MalNet's size (E 313,000, S 80,000, d 64), within rtol 1e-5 and atol
-   1e-5 of each tensor's largest entry, with bit-identical reruns;
-   ``Tensor.index_add``, the one PyTorch call for the same function, is
-   held against the kernel and timed as ``library_ms``;
+   behind two wrappers, forward only: their backward is a gather), each on
+   its id vector's plan built beforehand, on layer 0's GCN messages of the
+   sixth main path (wn-squirrel: 5,248 node slots, its edge slots, d=96)
+   into the receivers, the tiled one also on a cotangent into the senders
+   (the gather's backward), then on seeded inputs with hub segments (a
+   power law over the same 5,248 segments), with every edge in one segment,
+   and at MalNet's size (E 313,000, S 80,000, d 64) uniform and with hubs,
+   within rtol 1e-5 and atol 1e-5 of each tensor's largest entry, with
+   bit-identical reruns; each row also times the plan, a call with the plan
+   shared by a step's three calls, and the kernel and ``index_add`` with
+   the L2 cache flushed before each call; ``Tensor.index_add``, the one
+   PyTorch call for the same function, is held against the kernel and
+   timed as ``library_ms``; the plan kernel, ``segment_plan``, is held
+   against its plain version on every plan and timed on the receivers'
+   (``torch.searchsorted`` of the segment bounds as its ``library_ms``);
 3k. BigBird's block-sparse attention, ``bigbird``, forward and backward, at
    wn-squirrel's one graph (5,248 slots, 5,201 real, 4 heads of 24, block
    3, 3 random blocks, the plans of its three layers) and at 4 graphs of
@@ -150,8 +156,8 @@ ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
 Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
 ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's, the two
 of the fused attention rung at GPS-deep's, the two of the flash attention
-at VOC's, the two segment sums at wn-squirrel's aggregation and BigBird's
-two at wn-squirrel's first layer: twenty-eight);
+at VOC's, the two segment sums and their plan kernel at wn-squirrel's
+aggregation and BigBird's two at wn-squirrel's first layer: twenty-nine);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -237,8 +243,14 @@ SQUIRREL_LAUNCHES = {"ffn": (1, 0), "ffn_bwd": (1, 0), "drop_add": (2, 0),
 # attention (training at attention dropout 0, which the kernel requires)
 TILED_ON = ("GGPS_TILED_SEGMENT", "1")
 CSR_ON = ("GGPS_USE_CSR_KERNEL", "1")
-SQUIRREL_TILED_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_tiled": (2, 1)}
-SQUIRREL_CSR_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_csr": (1, 1)}
+# the plan kernel runs per batch, not per layer: one per id vector (the
+# tiled rung's receivers and, in the backward, senders; the CSR rung's
+# receivers)
+SQUIRREL_TILED_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_tiled": (2, 1),
+                           "segment_plan": (2, 1)}
+SQUIRREL_CSR_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_csr": (1, 1),
+                         "segment_plan": (1, 1)}
+PER_BATCH_KERNELS = ("segment_plan",)
 BIGBIRD_OPTS = ["gt.layer_type", "GCN+BigBird"]
 BIGBIRD_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
 SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
@@ -310,12 +322,18 @@ EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM, EDGE_HEADS = 64, 128, 256, 4
 # (5,248 node slots, 5,201 real), 4 heads of 24, on seeded inputs
 SQUIRREL_SLOTS, SQUIRREL_NODES = 5248, 5201
 # phase 3j: the segment sums (rtol, atol x each tensor's largest entry:
-# the same adds as index_add_ in another order), on a hub-skewed case at
-# wn-squirrel's size and at MalNet's (ogbg MalNet-Tiny's cut: E 313,000,
-# S 80,000 = 625 x 128, d 64) on seeded inputs
+# the same adds as index_add_ in another order -- the kernel adds four rows
+# at a time and a hub's pieces in order, index_add_ in its atomics' order),
+# on hub-skewed cases at wn-squirrel's size and at MalNet's (ogbg
+# MalNet-Tiny's cut: E 313,000, S 80,000 = 625 x 128, d 64), and with every
+# edge in one segment, on seeded inputs; the calls that share one plan in a
+# wn-squirrel step (its three layers' aggregations, or gather backwards);
+# the bytes written between L2-cold calls (more than the 50 MB L2)
 SEGMENT_RTOL, SEGMENT_ATOL = 1e-5, 1e-5
 SKEW_EDGES = 41600
 MALNET_EDGES, MALNET_NODES, MALNET_DIM = 313000, 80000, 64
+SEGMENT_CALLS_PER_PLAN = 3
+L2_FLUSH_BYTES = 64 << 20
 # phase 3k: BigBird at wn-squirrel's graph (block 3, 3 random blocks, the
 # plans of layers 0-2) and at 4 graphs of 2,048 slots (1,900-2,048 real)
 BIGBIRD_BLOCK, BIGBIRD_RANDOM, BIGBIRD_SEEDS = 3, 3, (0, 1, 2)
@@ -1729,14 +1747,58 @@ def check_flash(torch, cfg_path: str, opts, state, device):
     return rows
 
 
-def segment_cases(torch, data, ids, S: int, tag: str,
+def cold_device_ms(torch, fn, flush, iters: int = 20) -> float:
+    """Device ms of one call of ``fn`` with the L2 cache flushed before it
+    (``flush``, larger than the 50 MB L2, written between calls), as
+    ``device_ms`` counts it; the flush's own kernels are left out by
+    name."""
+    # a profile of one kernel can lose its one event: the flush, iters times
+    rows, _ = profiled_rows(torch, lambda: [flush.fill_(0.0)
+                                            for _ in range(iters)])
+    if rows is None:
+        fail(f"the profiler recorded no device time of the L2 flush in "
+             f"{PROFILER_TRIES} runs")
+    flush_names = {r[0] for r in rows}
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(iters):
+            flush.fill_(0.0)
+            fn()
+
+    rows, _ = profiled_rows(torch, body)
+    if rows is None:
+        fail(f"the profiler recorded no device time of L2-cold calls in "
+             f"{PROFILER_TRIES} runs")
+    return sum(total / seen * -(-seen // iters) for name, total, seen in rows
+               if name not in flush_names) / 1e3
+
+
+def plan_check(torch, ks, plan, ids, S: int, tiled: bool, what: str):
+    """The plan kernel's perm, ptr and chunk table equal to its plain
+    version's on the same ids, and its tickets at 0."""
+    for got, want in zip((plan.perm, plan.ptr, plan.chunk_seg),
+                         ks.plan_plain(ids, S, tiled, plan.task_len)):
+        if not ((got is None and want is None)
+                or (got is not None and torch.equal(got, want))):
+            fail(f"segment_plan disagrees with its plain version ({what})")
+    if bool(plan.tickets.any()):
+        fail(f"segment_plan: tickets not at 0 after the sums ({what})")
+
+
+def segment_cases(torch, data, ids, S: int, tag: str, flush,
                   names=("segment_csr", "segment_tiled")):
     """The segment sums' rows on (data (E, d), ids (E,)): the tiled wrapper
     on ``ids`` as given, the CSR wrapper on them sorted (with the data rows
-    in the same order), each against its plain version and against
-    ``Tensor.index_add``, the one PyTorch call for the same function (its
-    ``library_ms``; used nowhere in the port), with two runs equal in every
-    bit."""
+    in the same order), each on its plan built beforehand, against its plain
+    version and against ``Tensor.index_add``, the one PyTorch call for the
+    same function (its ``library_ms``; used nowhere in the port), with two
+    runs equal in every bit. Each row also carries the plan's ms, the ms a
+    call with the plan built once for SEGMENT_CALLS_PER_PLAN calls (as a
+    wn-squirrel step shares it across its layers), and the kernel's and
+    ``index_add``'s ms with the L2 cache flushed before each call; and the
+    plan kernel is held against its plain version."""
     from graphgps_torch.ops.kernels import segment_sum as ks
 
     E, d = data.shape
@@ -1748,31 +1810,57 @@ def segment_cases(torch, data, ids, S: int, tag: str,
     zeros = torch.zeros((S, d), device=data.device)
     counts = torch.bincount(ids.long(), minlength=S)
     at = dict(E=E, S=S, d=d, largest_segment=int(counts.max()),
-              empty_segments=int((counts == 0).sum()))
+              empty_segments=int((counts == 0).sum()),
+              split_segments=int((counts > ks.TASK_LEN).sum()),
+              task_len=ks.TASK_LEN)
+    plans = dict(segment_csr=ks.segment_plan(sids, S, tiled=False),
+                 segment_tiled=ks.segment_plan(ids, S, tiled=True))
     cases = [
-        dict(name="segment_csr", fn=ks.segment_sum_csr,
+        dict(name="segment_csr", plan_ids=sids, tiled=False,
+             call=lambda plan: ks.segment_sum_csr(sdata, sids, row_ptr, S,
+                                                  plan=plan),
              plain=ks.segment_sum_csr_plain, args=(sdata, sids, row_ptr, S),
              source=src, replaces=f"{tpu}/segment_csr.py:155",
              library=lambda: zeros.index_add(0, sids.long(), sdata)),
-        dict(name="segment_tiled", fn=ks.tiled_segment_sum,
+        dict(name="segment_tiled", plan_ids=ids, tiled=True,
+             call=lambda plan: ks.tiled_segment_sum(data, ids, S, plan=plan),
              plain=ks.tiled_segment_sum_plain, args=(data, ids, S),
              source=src, replaces=f"{tpu}/segment_tiled.py:100",
              library=lambda: zeros.index_add(0, ids.long(), data))]
     rows = []
     for c in (c for c in cases if c["name"] in names):
-        c.update(tol=(SEGMENT_RTOL, SEGMENT_ATOL), flops=E * d)   # one add
+        plan = plans[c["name"]]
+        c.update(tol=(SEGMENT_RTOL, SEGMENT_ATOL), flops=E * d,   # one add
+                 fn=lambda *_a, c=c, plan=plan: c["call"](plan))
         with torch.no_grad():
-            once, twice = c["fn"](*c["args"]), c["fn"](*c["args"])
+            once, twice = c["fn"](), c["fn"]()
             lib = c["library"]()
         same = bool(torch.equal(once, twice))
         lib_ok, lib_err, _ = grads_close(torch, [lib], [once], SEGMENT_RTOL,
                                          SEGMENT_ATOL, 0.0)
         row = forward_case(torch, c, at)
-        row.update(shape=tag, bit_identical_reruns=same)
+        plan_check(torch, ks, plan, c["plan_ids"], S, c["tiled"], tag)
+
+        def build(c=c):
+            return ks.segment_plan(c["plan_ids"], S, c["tiled"])
+
+        def amortized(c=c):
+            fresh = build()
+            for _ in range(SEGMENT_CALLS_PER_PLAN):
+                c["call"](fresh)
+
+        extra = dict(
+            plan_ms=device_ms(torch, build)[0],
+            amortized_ms=device_ms(torch, amortized)[0]
+            / SEGMENT_CALLS_PER_PLAN,
+            calls_per_plan=SEGMENT_CALLS_PER_PLAN,
+            cold_ms=cold_device_ms(torch, c["fn"], flush),
+            cold_library_ms=cold_device_ms(torch, c["library"], flush))
+        row.update(shape=tag, bit_identical_reruns=same, **extra)
         print(json.dumps(dict(name=c["name"], shape=tag,
                               bit_identical_reruns=same,
-                              library_vs_kernel_max_abs_err=lib_err)),
-              flush=True)
+                              library_vs_kernel_max_abs_err=lib_err,
+                              **extra)), flush=True)
         if not same:
             fail(f"{c['name']}: two runs on the same inputs differ ({tag})")
         if not lib_ok:
@@ -1780,6 +1868,32 @@ def segment_cases(torch, data, ids, S: int, tag: str,
                  f"{tag} (max abs err {lib_err})")
         rows.append(row)
     return rows
+
+
+def segment_plan_row(torch, ids, S: int, tag: str) -> dict:
+    """The plan kernel's row on sorted ``ids`` (the CSR plan: pointers, the
+    sort's check, the chunk table, the tickets zeroed) against its plain
+    version, with ``torch.searchsorted`` of the segment bounds, the one
+    PyTorch call for the pointers, as its ``library_ms``."""
+    from graphgps_torch.ops.kernels import segment_sum as ks
+
+    E = ids.shape[0]
+    plan = ks.segment_plan(ids, S, tiled=False)
+    plan_check(torch, ks, plan, ids, S, False, tag)
+    bounds = torch.arange(S + 1, device=ids.device, dtype=ids.dtype)
+    n_bytes = 4 * (E + (S + 1) + S + plan.chunk_seg.shape[0])
+    row = dict(name="segment_plan", route="cuda",
+               source="graphgps_torch/csrc/segment_sum.cu",
+               replaces="graphgps_tpu/ops/pallas/segment_csr.py:172",
+               max_abs_err=0, rtol=0, atol=0,
+               **timings(torch, lambda: ks.segment_plan(ids, S, tiled=False),
+                         lambda: ks.plan_plain(ids, S, False),
+                         lambda: torch.searchsorted(ids, bounds,
+                                                    out_int32=True)),
+               **bound(n_bytes, 0),
+               shapes=dict(E=E, S=S, task_len=ks.TASK_LEN), shape=tag)
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def check_segment(torch, cfg_path: str, opts, state, device):
@@ -1791,8 +1905,9 @@ def check_segment(torch, cfg_path: str, opts, state, device):
     the seeded model ``state``) into the receivers, and for the tiled one
     also a cotangent of the messages into the senders (the gather's
     backward); then on seeded inputs with hub segments (a power law over
-    S = 5,248) and at MalNet's size. Returns the rows; every row carries
-    ``shape``."""
+    S = 5,248), with every edge in one segment, and at MalNet's size,
+    uniform and with hubs; and the plan kernel (``segment_plan``) on the
+    receivers. Returns the rows; every row carries ``shape``."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders
@@ -1815,20 +1930,34 @@ def check_segment(torch, cfg_path: str, opts, state, device):
         dinv = torch.rsqrt(deg)
         msgs = h[s.long()] * dinv[s.long(), None] * dinv[r.long(), None]
         msgs = torch.where(batch.edge_mask[:, None], msgs, 0.0).contiguous()
-    rows = segment_cases(torch, msgs, r, S, "wn-squirrel")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    rows = segment_cases(torch, msgs, r, S, "wn-squirrel", flush)
+    rows.append(segment_plan_row(torch, r, S, "wn-squirrel"))
     g = torch.Generator(device=device).manual_seed(SEED + 18)
     rnd = lambda *sh: torch.randn(*sh, generator=g, device=device)  # noqa: E731
+
+    def power_law(n_edges: int, n_segments: int):
+        p = 1.0 / torch.arange(1, n_segments + 1, device=device,
+                               dtype=torch.float64)
+        return torch.multinomial(p / p.sum(), n_edges, replacement=True,
+                                 generator=g).to(torch.int32)
+
     rows += segment_cases(torch, rnd(*msgs.shape), s, S,
-                          "wn-squirrel senders", names=("segment_tiled",))
-    p = 1.0 / torch.arange(1, S + 1, device=device, dtype=torch.float64)
-    hubs = torch.multinomial(p / p.sum(), SKEW_EDGES, replacement=True,
-                             generator=g).to(torch.int32)
-    rows += segment_cases(torch, rnd(SKEW_EDGES, msgs.shape[1]), hubs, S,
-                          "hub-skewed")
+                          "wn-squirrel senders", flush,
+                          names=("segment_tiled",))
+    d = msgs.shape[1]
+    rows += segment_cases(torch, rnd(SKEW_EDGES, d), power_law(SKEW_EDGES, S),
+                          S, "hub-skewed", flush)
+    one = torch.full((SKEW_EDGES,), S // 2, device=device, dtype=torch.int32)
+    rows += segment_cases(torch, rnd(SKEW_EDGES, d), one, S, "one segment",
+                          flush)
     ids = torch.randint(0, MALNET_NODES, (MALNET_EDGES,), generator=g,
                         device=device, dtype=torch.int32)
     rows += segment_cases(torch, rnd(MALNET_EDGES, MALNET_DIM), ids,
-                          MALNET_NODES, "MalNet size")
+                          MALNET_NODES, "MalNet size", flush)
+    rows += segment_cases(torch, rnd(MALNET_EDGES, MALNET_DIM),
+                          power_law(MALNET_EDGES, MALNET_NODES), MALNET_NODES,
+                          "MalNet hubs", flush)
     return rows
 
 
@@ -2057,13 +2186,16 @@ def layers_of(cfg) -> int:
 def expected_launches(table, layers: int, steps: int, evals: int, names):
     """Launches of every kernel in ``names`` over ``steps`` training steps
     and ``evals`` evaluated batches of a model of ``layers`` layers whose
-    path launches per layer what ``table`` says. The last layer's edge
-    output does not reach the loss, so autograd runs the edge tail's
-    backward in the other layers only."""
+    path launches per layer what ``table`` says (per batch, whatever the
+    depth, for PER_BATCH_KERNELS). The last layer's edge output does not
+    reach the loss, so autograd runs the edge tail's backward in the other
+    layers only."""
     out = {}
     for name in names:
         per_step, per_eval = table.get(name, (0, 0))
         n_layers = layers - (name == "pre_tail_bwd")
+        if name in PER_BATCH_KERNELS:
+            n_layers = 1
         out[name] = n_layers * (per_step * steps + per_eval * evals)
     return out
 
@@ -2603,8 +2735,9 @@ def main() -> None:
     rows += [r for r in fl_rows if r["shape"] == "voc" and not r["bias"]]
     phase("3i")
 
-    # 3j. the segment sums at wn-squirrel's aggregation, with hubs and at
-    # MalNet's size; the kernels line takes the aggregation's rows
+    # 3j. the segment sums and their plan at wn-squirrel's aggregation, with
+    # hubs, in one segment and at MalNet's size; the kernels line takes the
+    # aggregation's rows
     seg_rows = check_segment(torch, SQUIRREL_CFG, sq_opts, sq_state, device)
     rows += [r for r in seg_rows if r["shape"] == "wn-squirrel"]
     phase("3j")
@@ -2710,7 +2843,7 @@ def main() -> None:
             path, counts = "vocsuperpixels flash", flash_counts
         elif r["name"] == "segment_tiled":
             path, counts = "wn-squirrel tiled", tiled_counts
-        elif r["name"] == "segment_csr":
+        elif r["name"] in ("segment_csr", "segment_plan"):
             path, counts = "wn-squirrel csr", csr_counts
         elif r["name"] in ("bigbird", "bigbird_bwd"):
             path, counts = "wn-squirrel bigbird", bb_counts

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the ported paths, one wrapper each:
-fifteen forward kernels (two of them, the segment sums, behind one source)
-and thirteen backward kernels.
+fifteen forward kernels (two of them, the segment sums, behind one source),
+thirteen backward kernels, and the segment sums' plan kernel.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -18,7 +18,7 @@ from .gatedgcn import fused_gatedgcn, gatedgcn_backward
 from .gps_front import fused_gps_front, gps_front_backward
 from .ln_ffn import fused_ln_ffn, ln_ffn_backward
 from .pre_tail import fused_pre_tail, pre_tail_backward
-from .segment_sum import segment_sum_csr, tiled_segment_sum
+from .segment_sum import segment_plan, segment_sum_csr, tiled_segment_sum
 from .wide_attention import fused_wide_attention, wide_attention_backward
 
 WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
@@ -38,6 +38,7 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "gps_attention_bwd": gps_attention_backward,
             "flash_mha": flash_mha, "flash_mha_bwd": flash_mha_backward,
             "segment_csr": segment_sum_csr, "segment_tiled": tiled_segment_sum,
+            "segment_plan": segment_plan,
             "bigbird": bigbird_block_sparse, "bigbird_bwd": bigbird_backward}
 
 

@@ -13,7 +13,10 @@ the other three are one ``index_add_``; on the CPU the CSR rung is never
 taken and the tiled one only under ``GGPS_TILED_FORCE=1`` (as JAX off the
 TPU), through the kernel's plain version. The backward of every rung is
 the gather ``index_select``. A gather's backward takes the tiled rung where
-JAX's ``_sbt_bwd`` does, ``index_add_`` otherwise.
+JAX's ``_sbt_bwd`` does, ``index_add_`` otherwise. The tiled and CSR rungs
+build one plan per id tensor (``kernels/segment_sum.py`` ``plan_for``): a
+GCN step over a batch builds the receivers' and, in its backward, the
+senders', whatever its depth, as JAX sorts once per batch.
 
 JAX's switches, under their names and read when JAX reads them: at import
 ``GGPS_DENSE_SEGMENT_LIMIT`` and ``GGPS_BLOCKED_LIMIT``; per call
@@ -114,9 +117,8 @@ def segment_sum(data, segment_ids, num_segments: int,
         out = kseg.tiled_segment_sum(flat, segment_ids.to(torch.int32),
                                      num_segments)
         return out.reshape(num_segments, *data.shape[1:]).to(data.dtype)
-    if rung == "csr":
-        row_ptr = kseg.row_ptr_from_sorted(segment_ids, num_segments)
-        return kseg.segment_sum_csr(data.contiguous(), segment_ids, row_ptr,
+    if rung == "csr":   # the pointers are the receivers' plan's
+        return kseg.segment_sum_csr(data.contiguous(), segment_ids, None,
                                     num_segments)
     return _index_add(data, segment_ids, num_segments)
 

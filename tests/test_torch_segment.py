@@ -377,21 +377,52 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _card_ids(E, S, kind, seed):
+    """ids (E,) int32 of a card case: "uniform" or "skew" (a power law over
+    the S segments, a hub first), "one" (every edge in segment S // 2), or
+    "task_len" (segments of C - 1, C, C + 1, 2C, 2C + 1 and 3 edges for
+    C = TASK_LEN between empty ones, the first and last segments empty;
+    E is then theirs); shuffled."""
+    from graphgps_torch.ops.kernels.segment_sum import TASK_LEN as C
+
+    rng = np.random.default_rng(seed)
+    if kind == "one":
+        return np.full(E, S // 2, np.int32)
+    if kind == "task_len":
+        lengths = np.zeros(S, np.int64)
+        lengths[1:12:2] = [C - 1, C, C + 1, 2 * C, 2 * C + 1, 3]
+        ids = np.repeat(np.arange(S), lengths)
+        return rng.permutation(ids).astype(np.int32)
+    return _case(E, S, 1, seed, skew=kind == "skew")[1]
+
+
+# (E, S, d, kind): wn-squirrel's aggregation width uniform and with hubs, a
+# width off the float4 grid, MalNet's size uniform and with hubs, one
+# segment holding every edge, segments of C and C +- 1 edges with empty
+# first and last segments (d 96 and the scalar path's d 30), no edge at all
+CARD_CASES = [(41600, 5248, 96, "uniform"), (41600, 5248, 96, "skew"),
+              (3000, 1000, 30, "uniform"), (313000, 80000, 64, "uniform"),
+              (313000, 80000, 64, "skew"), (41600, 5248, 96, "one"),
+              (None, 64, 96, "task_len"), (None, 64, 30, "task_len"),
+              (0, 128, 96, "uniform")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,S,d,skew", [(41600, 5248, 96, False),
-                                        (41600, 5248, 96, True),
-                                        (3000, 1000, 30, False),
-                                        (313000, 80000, 64, False)])
-def test_cuda_segment_sums_match_plain(cuda_device, E, S, d, skew):
+@pytest.mark.parametrize("E,S,d,kind", CARD_CASES)
+def test_cuda_segment_sums_match_plain(cuda_device, E, S, d, kind):
     """On the card: both wrappers against their plain versions on the same
-    CUDA tensors (a hub segment, a width off the float4 grid, MalNet's
-    size), two runs equal in every bit, the gradient the gather, one launch
-    per call. Run it from the repository root: ``python -m pytest
-    --noconftest -o addopts="" -p no:cacheprovider -m cuda
-    tests/test_torch_segment.py``."""
+    CUDA tensors (hub segments split across warps, a width off the float4
+    grid, MalNet's size, one segment holding every edge, segments of C and
+    C +- 1 edges, empty end segments, no edge), two runs equal in every
+    bit, the gradient the gather, one launch per call, each plan's kernel
+    equal to its plain version and its tickets back at 0. Run it from the
+    repository root: ``python -m pytest --noconftest -o addopts="" -p
+    no:cacheprovider -m cuda tests/test_torch_segment.py``."""
     from graphgps_torch.ops.kernels import segment_sum as kseg
 
-    data, ids = _case(E, S, d, seed=7, skew=skew)
+    ids = _card_ids(E, S, kind, seed=7)
+    E = ids.shape[0]
+    data = np.random.default_rng(8).standard_normal((E, d)).astype(np.float32)
     x = torch.from_numpy(data).to(cuda_device)
     tids = torch.from_numpy(ids).to(cuda_device)
     sids = tids.sort().values
@@ -411,6 +442,34 @@ def test_cuda_segment_sums_match_plain(cuda_device, E, S, d, skew):
         g = torch.randn(S, d, device=cuda_device)
         (gx,) = torch.autograd.grad(wrapper(leaf, *args), leaf, g)
         assert torch.equal(gx, g[args[0].long()])
+        tiled = wrapper is kseg.tiled_segment_sum
+        plan = kseg.plan_for(args[0], S, tiled)
+        for a, b in zip((plan.perm, plan.ptr, plan.chunk_seg),
+                        kseg.plan_plain(args[0], S, tiled)):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert not plan.tickets.any()
+
+
+@pytest.mark.cuda
+def test_cuda_two_plans_alternate(cuda_device):
+    """Two id vectors with hub segments (split across warps, so their
+    tickets are taken and reset), their plans used in turn by both
+    wrappers: every call gives the bits of the first call on its plan."""
+    from graphgps_torch.ops.kernels import segment_sum as kseg
+
+    E, S, d = 41600, 5248, 96
+    x = torch.from_numpy(_case(E, S, d, seed=11)[0]).to(cuda_device)
+    sums = []
+    for seed in (12, 13):
+        tids = torch.from_numpy(_card_ids(E, S, "skew", seed)).to(cuda_device)
+        sids = tids.sort().values
+        sums.append((lambda t=tids: kseg.tiled_segment_sum(x, t, S),
+                     lambda t=sids: kseg.segment_sum_csr(x, t, None, S)))
+    first = [f() for pair in sums for f in pair]
+    for _ in range(3):
+        again = [f() for pair in sums for f in pair]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert not torch.equal(first[0], first[2])
 
 
 @pytest.mark.cuda
