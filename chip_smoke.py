@@ -7,7 +7,9 @@ one. Phases, each fatal on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from ``graphgps_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once), and find tensor-core instructions
+   (HMMA) in the SASS of every kernel of the attention body in the
+   ``flash_mha`` and ``wide_attention`` libraries;
 3. hold each forward kernel of the merged layer path against its plain
    PyTorch version on the card, on the inputs layer 0 of the first main path
    gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
@@ -31,7 +33,10 @@ one. Phases, each fatal on failure:
    count) on seeded random inputs; the attention mask keeps 128/256 at 0.5;
    ``F.multi_head_attention_forward``, the one PyTorch call that computes
    the wide attention's function, is held against the kernel at rate 0 and
-   timed forward and backward as those rows' ``library_ms``;
+   timed forward and backward as those rows' ``library_ms``; the wide
+   attention's device time is split between its attention body and its
+   projections by a profile; and the wide attention again on a seeded
+   batch in which one graph has no real node (counts 0: uniform weights);
 3e. the Graphormer MLP block's kernel, ``ln_ffn``, forward and backward, on
    layer 0's inputs of the fourth main path (ZINC Graphormer: batch 256, 41
    rows per graph with the token, d=80) at dropout 0.1/0.1, at the recipe's
@@ -73,8 +78,9 @@ one. Phases, each fatal on failure:
 3i. the flash attention, ``flash_mha``, forward and backward, on layer 0's
    q, k, v of the third main path (VOC superpixels: batch 32, 512 node
    slots, 400-500 real, 4 heads of 24) without a bias and with a seeded
-   one, and at wn-squirrel's one graph (5,248 slots, 5,201 real) on seeded
-   inputs; ``F.scaled_dot_product_attention`` with the same-segment mask
+   one, at wn-squirrel's one graph (5,248 slots, 5,201 real), and at heads
+   of 20 columns and at 520 slots with a bias, all three on seeded inputs;
+   ``F.scaled_dot_product_attention`` with the same-segment mask
    (and the bias folded into a float mask) is held against the kernel and
    timed as ``library_ms``;
 3j. the segment sums, ``segment_csr`` and ``segment_tiled`` (one kernel
@@ -150,7 +156,12 @@ one. Phases, each fatal on failure:
    side's launches.
 
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
-phase. The line before the last is ``{"kernels": [...]}`` (the six kernels
+phase. Each kernel row's ``bound_ms`` is the larger of its bytes at the
+HBM rate and its operations at the rate ``bound_rate`` names: the f32 CUDA
+cores' 67 TFLOP/s, or for the long-graph attention body (``wide_attention``
+and ``wide_attention_bwd``, ``flash_mha_bwd``: 3xTF32 on the tensor cores)
+495 / 3 = 165 TFLOP/s. The line
+before the last is ``{"kernels": [...]}`` (the six kernels
 of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
 Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
@@ -259,9 +270,17 @@ SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
 # the script stays inside its time limit
 SWITCH_RATE_BATCHES = 1
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
-# outside the tensor cores (the kernels run f32 on CUDA cores)
+# outside the tensor cores (most kernels run f32 on CUDA cores); the
+# long-graph attention body (csrc/attn_tc.cuh: wide_attention forward and
+# backward, flash_mha's backward) runs 3xTF32 on the tensor cores, three
+# TF32 products for each f32 one, so its rows are bound at the TF32 peak
+# over 3
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_3XTF32 = 495e12 / 3
+RATE_NAMES = {PEAK_F32: "f32 CUDA cores, 67 TFLOP/s",
+              PEAK_3XTF32: "3xTF32 tensor cores, 165 TFLOP/s"}
+TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention")
 # kernel vs plain version, both f32 on the card: the sums run in another
 # order (tiled GEMM vs cuBLAS, per-column loops vs index_add_)
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
@@ -321,6 +340,9 @@ EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM, EDGE_HEADS = 64, 128, 256, 4
 # phase 3i: the flash attention at wn-squirrel's one graph under flash
 # (5,248 node slots, 5,201 real), 4 heads of 24, on seeded inputs
 SQUIRREL_SLOTS, SQUIRREL_NODES = 5248, 5201
+# and on seeded inputs: ((graphs, node slots, head width, a bias), tag)
+FLASH_ODD_CASES = (((16, 512, 20, False), "heads of 20"),
+                   ((16, 520, 24, True), "520 slots, a bias"))
 # phase 3j: the segment sums (rtol, atol x each tensor's largest entry:
 # the same adds as index_add_ in another order -- the kernel adds four rows
 # at a time and a hub's pieces in order, index_add_ in its atomics' order),
@@ -367,6 +389,38 @@ STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-4
 F64_GRAD_TOL = 2e-2
 NO_NORM_BEHIND = ("head.",)
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+
+
+def check_tensor_cores(build) -> None:
+    """Every kernel of the attention body (``attn_*``, csrc/attn_tc.cuh) in
+    the libraries of TENSOR_CORE_SOURCES holds tensor-core products: HMMA in
+    ``cuobjdump -sass``. Prints the counts (and the SHFL count: a quad's
+    row max and sum, no shuffle-broadcast loop) per library; fails on an
+    attention kernel without HMMA."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for name in TENSOR_CORE_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if line.strip().startswith("Function :"):
+                fn = line.split(":", 1)[1].strip()
+                counts[fn] = [0, 0]
+            elif fn is not None and "HMMA" in line:
+                counts[fn][0] += 1
+            elif fn is not None and "SHFL" in line:
+                counts[fn][1] += 1
+        attn = {f: c for f, c in counts.items() if "attn_" in f}
+        print(json.dumps(dict(
+            sass=name, attention_kernels=len(attn),
+            hmma_per_kernel_min=min((c[0] for c in attn.values()), default=0),
+            hmma_total=sum(c[0] for c in attn.values()),
+            shfl_per_kernel_max=max((c[1] for c in attn.values()),
+                                    default=0))), flush=True)
+        if not attn or any(c[0] == 0 for c in attn.values()):
+            fail(f"{name}: an attention kernel without tensor-core "
+                 "instructions (HMMA) in its SASS")
 
 
 def fail(msg: str) -> None:
@@ -579,12 +633,14 @@ def timings(torch, fn, plain, library=None) -> dict:
                 wall_ms=time_ms(torch, fn), plain_wall_ms=time_ms(torch, plain))
 
 
-def bound(n_bytes: int, flops: int) -> dict:
+def bound(n_bytes: int, flops: int, peak: float = PEAK_F32) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the CUDA cores' peak, whichever is larger."""
-    byte_s, flop_s = n_bytes / PEAK_BYTES, flops / PEAK_F32
+    the operations over ``peak`` (the f32 CUDA cores' by default),
+    whichever is larger; ``bound_rate`` names the rate."""
+    byte_s, flop_s = n_bytes / PEAK_BYTES, flops / peak
     return dict(bound_ms=max(byte_s, flop_s) * 1e3,
-                bound_by="bytes" if byte_s >= flop_s else "operations")
+                bound_by="bytes" if byte_s >= flop_s else "operations",
+                bound_rate=RATE_NAMES[peak])
 
 
 def forward_case(torch, c, shapes: dict) -> dict:
@@ -595,7 +651,8 @@ def forward_case(torch, c, shapes: dict) -> dict:
     one: timed, used nowhere in the port), and for a
     function whose last outputs are (1, 2d) moment sums the
     ``moment_scales`` of those; ``tol`` = (rtol, atol) makes the atol
-    relative to each tensor's largest entry."""
+    relative to each tensor's largest entry; ``peak`` the rate of the bound's
+    operations (PEAK_F32 by default)."""
     with torch.no_grad():
         got = as_tuple(c["fn"](*c["args"]))
         ref = as_tuple(c["plain"](*c["args"]))
@@ -630,7 +687,8 @@ def forward_case(torch, c, shapes: dict) -> dict:
                    **timings(torch, lambda: c["fn"](*c["args"]),
                              lambda: c["plain"](*c["args"]),
                              c.get("library")),
-                   **bound(nbytes(*tensors(c["args"]), *got), c["flops"]),
+                   **bound(nbytes(*tensors(c["args"]), *got), c["flops"],
+                           c.get("peak", PEAK_F32)),
                    shapes=shapes, **extra)
     print(json.dumps(row), flush=True)
     if not ok:
@@ -733,7 +791,7 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
     computes the same forward, where there is one: timed, used nowhere in
     the port), and ``tol`` = (rtol, atol) to make the atol relative to each
     tensor's largest entry with no floor (by default GRAD_RTOL and GRAD_ATOL
-    × max(1, largest entry))."""
+    × max(1, largest entry)); ``peak`` as in ``forward_case``."""
     from graphgps_torch.ops.kernels.common import dropout_mask, keep_rule
 
     cots, bwd = c["run"]()
@@ -758,7 +816,8 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
                bit_identical_reruns=same,
                **timings(torch, bwd, lambda: c["plain"](cots),
                          c["library"](cots) if "library" in c else None),
-               **bound(nbytes(*c["inputs"], *cots, *got), c["flops"]),
+               **bound(nbytes(*c["inputs"], *cots, *got), c["flops"],
+                       c.get("peak", PEAK_F32)),
                rate=rate, kept_fraction=kept, shapes=shapes)
     print(json.dumps(row), flush=True)
     if not same:
@@ -1088,30 +1147,34 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
         return lambda cots: lambda: torch.autograd.grad(
             y, leaves, cots[0].transpose(0, 1), retain_graph=True)
 
-    def attn_cases(rate):
+    def attn_cases(rate, ins=attn_in, library=True):
         conf = (seed, H, scale, rate)
-        pairs = int(N * n_keys.sum())     # (query, key) pairs with weight
+        counts = ins[1]
+        keys = torch.where(counts > 0, counts, N)
+        pairs = int(N * keys.sum())       # (query, key) pairs with weight
         proj = 2 * B * N * d * 4 * d      # QKV and out-projection
         def run(cots=None):
-            y, kept = wide_attention._launch_forward(attn_in, *conf)
+            y, kept = wide_attention._launch_forward(ins, *conf)
             cots = cots or cots_for([y])
             return cots, lambda: wide_attention.wide_attention_backward(
-                *attn_in, *conf, cots[0], kept=kept)
+                *ins, *conf, cots[0], kept=kept)
         sites = [("attention P", B * H * N, N)] if rate > 0 else []
+        lib_f = dict(library=lambda: library_mha(rate, *lib_in)) \
+            if library else {}
+        lib_b = dict(library=library_backward(rate)) if library else {}
         return (dict(name="wide_attention",
                      fn=wide_attention.fused_wide_attention,
                      plain=wide_attention.wide_attention_plain,
-                     args=(*attn_in, *conf), tol=tol, source=wa_src,
-                     replaces=f"{wa_tpu}:244",
-                     library=lambda: library_mha(rate, *lib_in),
+                     args=(*ins, *conf), tol=tol, source=wa_src,
+                     replaces=f"{wa_tpu}:244", peak=PEAK_3XTF32, **lib_f,
                      # q k^T and P v over the weighted pairs, per head
                      flops=proj + 4 * pairs * d),
                 dict(name="wide_attention_bwd", run=run,
                      plain=lambda c:
                          wide_attention.wide_attention_backward_plain(
-                             *attn_in, *conf, c[0]),
-                     inputs=attn_in, source=wa_src, replaces=f"{wa_tpu}:297",
-                     sites=sites, library=library_backward(rate),
+                             *ins, *conf, c[0]),
+                     inputs=ins, source=wa_src, replaces=f"{wa_tpu}:297",
+                     sites=sites, peak=PEAK_3XTF32, **lib_b,
                      # dO, dWo, dx, dWqkv, and per head the logits again,
                      # dP, dq, dk, dv over the weighted pairs
                      flops=2 * proj + 10 * pairs * d))
@@ -1132,6 +1195,49 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
                       attn_rate=rate)]
     for r in rows:
         r["shape"] = "voc"
+
+    # the share of the wide attention's device time its projections and
+    # column sums (gemm.cuh, common.cuh) take beside the attention body
+    # (attn_tc.cuh), at the recipe's rate
+    rate = cfg.gt.attn_dropout
+    conf = (seed, H, scale, rate)
+    y, kept = wide_attention._launch_forward(attn_in, *conf)
+    cot = cots_for([y])[0]
+    split_ms = {}
+    for kind, fn in (("fwd", lambda: wide_attention._launch_forward(
+                          attn_in, *conf)),
+                     ("bwd", lambda: wide_attention.wide_attention_backward(
+                         *attn_in, *conf, cot, kept=kept))):
+        fn()
+        torch.cuda.synchronize()
+        prof, _ = profiled_rows(torch, lambda: [fn() for _ in range(20)])
+        if prof is None:
+            fail("phase 3d: the profiler recorded no device time of the "
+                 "wide attention")
+        body = sum(us for name, us, _ in prof if "attn_" in name) / 20e3
+        rest = sum(us for name, us, _ in prof if "attn_" not in name) / 20e3
+        split_ms[kind] = dict(attention_ms=body, projections_ms=rest,
+                              projections_share=rest / (body + rest))
+    print(json.dumps(dict(note="wide_attention's device time by part at the "
+                               "recipe's rate (profiler, 20 calls)",
+                          attn_rate=rate, **split_ms, shapes=shapes)),
+          flush=True)
+
+    # a batch with a graph of no real node (uniform weights over its slots)
+    # on seeded inputs: the layer's weights, the other graphs 400-500 real
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    empty_counts = torch.randint(400, N + 1, (B,), generator=g,
+                                 device=device, dtype=torch.int32)
+    empty_counts[0] = 0
+    empty_in = (torch.randn(B, N, d, generator=g, device=device),
+                empty_counts, *attn_in[2:])
+    e_shapes = dict(shapes, real_nodes=int(empty_counts.sum()),
+                    attn_rate=rate, empty_graphs=1)
+    af, ab = attn_cases(rate, empty_in, library=False)
+    for r in (forward_case(torch, af, e_shapes),
+              backward_case(torch, ab, seed, rate, e_shapes)):
+        r.update(shape="voc, a graph with no real node", attn_rate=rate)
+        rows.append(r)
 
     # the library call computes the kernel's function: held at rate 0, where
     # no dropout bits part them. And a note: the library's attention core
@@ -1678,7 +1784,7 @@ def flash_cases(torch, q, k, v, mask, bias, tag: str):
                plain=lambda c: grads(flash_mha_backward_plain(*ins, c[0])),
                inputs=[t for t in ins if t is not None], source=src,
                replaces=f"{tpu}:67 (the library's backward)", sites=[],
-               library=lambda cots: library_backward(cots),
+               library=lambda cots: library_backward(cots), peak=PEAK_3XTF32,
                # the logits again, dP, dv, dq, dk over the pairs
                flops=10 * pairs * Dh)
     at = dict(B=B, H=H, N=N, Dh=Dh, real_nodes=int(mask.sum()),
@@ -1744,6 +1850,14 @@ def check_flash(torch, cfg_path: str, opts, state, device):
     sq_mask = torch.arange(N, device=device)[None, :] < SQUIRREL_NODES
     rows += flash_cases(torch, *(rnd(1, H, N, Dh) for _ in range(3)),
                         sq_mask, None, "wn-squirrel")
+    # heads of a width no multiple of 8, and slots no multiple of the
+    # 64-row tiles (with a bias), on seeded inputs with VOC's real counts
+    for (Bs, Ns, Ds, bias), tag in FLASH_ODD_CASES:
+        counts = torch.randint(400, 501, (Bs,), generator=g, device=device)
+        mask = torch.arange(Ns, device=device)[None, :] < counts[:, None]
+        qkv = [rnd(Bs, H, Ns, Ds) for _ in range(3)]
+        rows += flash_cases(torch, *qkv, mask,
+                            rnd(Bs, H, Ns, Ns) if bias else None, tag)
     return rows
 
 
@@ -2669,6 +2783,7 @@ def main() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
+    check_tensor_cores(build)
 
     # 3, 3b. the merged path's kernels at GPS-deep's shapes
     cfg = new_cfg()
@@ -2864,7 +2979,8 @@ def main() -> None:
     print(json.dumps(dict(kernels=[
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms", "profile_whole",
+                           "bound_by", "bound_rate", "library_ms",
+                           "profile_whole",
                            "main_path",
                            "launches_ogbg_molhiv",
                            "launches_vocsuperpixels",

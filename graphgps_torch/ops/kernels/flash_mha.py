@@ -12,7 +12,9 @@ padded 0, real 1) of a query and a key differ, ``-0.7 · float32.max`` is
 added. So a padded query row attends over the padded keys of its graph,
 while a real row equals the dense rung's. The kernels run at the true head
 width: the TPU's padding of Dh to 128 lanes (``pad_head_dim``) has no
-counterpart."""
+counterpart. The forward runs f32 on the CUDA cores; the backward on the
+tensor cores in 3xTF32 (``csrc/attn_tc.cuh``), the head padded to a
+multiple of 8 columns in shared memory only."""
 from __future__ import annotations
 
 import ctypes
@@ -22,7 +24,9 @@ import torch
 from . import build
 from .common import needs_grad, true_f32
 
-# the kernels hold a head's columns in four registers per lane
+# the widest head the kernels take: four column registers per lane in the
+# forward; in the backward (csrc/attn_tc.cuh) 2 warps of 16 rows and tiles of
+# 32 above 64 columns, within a block's shared memory
 MAX_HEAD_DIM = 128
 # the library's DEFAULT_MASK_VALUE
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)

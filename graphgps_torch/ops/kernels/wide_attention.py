@@ -5,7 +5,8 @@ out-projection: the CUDA kernels of ``csrc/wide_attention.cu`` (replacing
 and its backward ``_vjp_bwd`` :297) and their plain PyTorch versions. The
 kernels run at the true head width: the TPU's per-head padding
 (``pad_heads``) has no counterpart, and ``scale`` is the caller's
-``1/sqrt(d / H)``."""
+``1/sqrt(d / H)``. The attention runs on the tensor cores in 3xTF32
+(``csrc/attn_tc.cuh``), the projections on ``csrc/gemm.cuh``."""
 from __future__ import annotations
 
 import ctypes
@@ -16,7 +17,8 @@ from ..mha import merge_heads, mha_core, split_heads
 from . import build
 from .common import apply_dropout, check_rate, keep_rule, needs_grad, true_f32
 
-# the kernels hold a head's columns in two registers per lane
+# the widest head the kernels take; the tensor-core body (csrc/attn_tc.cuh)
+# pads a head to a multiple of 8 columns in shared memory
 MAX_HEAD_DIM = 64
 
 _CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint32,

@@ -292,12 +292,16 @@ def test_voc_flash_train_step_matches_jax(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,N,Dh", [(4, 4, 512, 24), (2, 2, 384, 64),
-                                      (1, 2, 200, 100)])
+                                      (1, 2, 200, 100), (3, 2, 136, 20),
+                                      (2, 4, 520, 24), (2, 2, 520, 36),
+                                      (2, 2, 136, 64), (1, 2, 200, 128)])
 def test_cuda_flash_matches_plain(cuda_device, B, H, N, Dh):  # noqa: F811
     """On the card: the kernel through autograd against its plain version
     on the same CUDA tensors (ragged graphs, one with no real node, a ragged
-    last tile), with and without a bias: outputs and gradients close, two
-    backward runs equal in every bit, one launch of each wrapper per call.
+    last tile: N no multiple of the 64-row tiles; heads of 20 to 128
+    columns, multiples of 8 or not), with and without a bias: outputs and
+    gradients close, two backward runs equal in every bit, one launch of
+    each wrapper per call.
     Run it from the repository root: ``python -m pytest --noconftest -o
     addopts="" -p no:cacheprovider -m cuda tests/test_torch_flash.py``."""
     from graphgps_torch.ops.kernels.flash_mha import (flash_mha,

@@ -68,7 +68,11 @@ def keep_at(widths):
 class Patches:
     def __init__(self, monkeypatch, d):
         from graphgps_tpu.ops import mha as jmha
-        from graphgps_tpu.ops.pallas import fused_combine, fused_tail
+        # fused_layer binds fused_tail._keep when first imported, which JAX's
+        # CustomGatedGCN layer does inside its call: imported under the patch,
+        # it would keep the patched rule for the rest of the process
+        from graphgps_tpu.ops.pallas import (  # noqa: F401
+            fused_combine, fused_layer, fused_tail)
         from graphgps_torch.models import gps_layer
         from graphgps_torch.ops.kernels.common import drop_bits
 

@@ -338,11 +338,16 @@ def _hold_on_card(kernel, plain, ins, wrappers):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,E,d,H", [(3, 136, 300, 96, 4),
                                        (2, 200, 70, 80, 2),
-                                       (2, 512, 1024, 96, 8)])
+                                       (2, 512, 1024, 96, 8),
+                                       (2, 520, 600, 80, 4),
+                                       (3, 520, 1000, 96, 4),
+                                       (2, 200, 300, 128, 4),
+                                       (2, 136, 200, 128, 2)])
 def test_cuda_long_graph_kernels_match_plain(cuda_device, B, N, E, d, H):
     """On the card: both kernels through autograd against their plain
     versions on the same CUDA tensors (stray endpoints, a graph with no real
-    node, a head of 40 columns, dropout off and on). Run it where there is a
+    node, heads of 12 to 64 columns, multiples of 8 or not, N no multiple of
+    the 64-row tiles, dropout off and on). Run it where there is a
     card, from the repository root (the card machine has no JAX, so skip
     ``tests/conftest.py``; this file imports JAX inside its CPU tests only):
     ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
