@@ -9,7 +9,8 @@ one. Phases, each fatal on failure:
 2. build the hand-written CUDA kernels from ``graphgps_torch/csrc`` (one
    ``nvcc`` per source, all at once), and find tensor-core instructions
    (HMMA) in the SASS of every kernel of the attention body in the
-   ``flash_mha`` and ``wide_attention`` libraries;
+   ``flash_mha``, ``wide_attention``, ``gps_attention`` and ``gps_front``
+   libraries, and of every kernel of the tensor-core GEMM in the last two;
 3. hold each forward kernel of the merged layer path against its plain
    PyTorch version on the card, on the inputs layer 0 of the first main path
    gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
@@ -158,9 +159,11 @@ one. Phases, each fatal on failure:
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
 phase. Each kernel row's ``bound_ms`` is the larger of its bytes at the
 HBM rate and its operations at the rate ``bound_rate`` names: the f32 CUDA
-cores' 67 TFLOP/s, or for the long-graph attention body (``wide_attention``
-and ``wide_attention_bwd``, ``flash_mha_bwd``: 3xTF32 on the tensor cores)
-495 / 3 = 165 TFLOP/s. The line
+cores' 67 TFLOP/s, or for the kernels on the attention body and the
+tensor-core GEMM (``wide_attention`` and ``wide_attention_bwd``,
+``flash_mha_bwd``, ``gps_front`` and ``gps_front_bwd``, ``gps_attention``
+and ``gps_attention_bwd``: 3xTF32 on the tensor cores) 495 / 3 = 165
+TFLOP/s. The line
 before the last is ``{"kernels": [...]}`` (the six kernels
 of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
@@ -271,16 +274,20 @@ SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
 SWITCH_RATE_BATCHES = 1
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores (most kernels run f32 on CUDA cores); the
-# long-graph attention body (csrc/attn_tc.cuh: wide_attention forward and
-# backward, flash_mha's backward) runs 3xTF32 on the tensor cores, three
-# TF32 products for each f32 one, so its rows are bound at the TF32 peak
-# over 3
+# attention body (csrc/attn_tc.cuh: wide_attention forward and backward,
+# flash_mha's backward, gps_attention's and gps_front's attention) and the
+# tensor-core GEMM (csrc/gemm_tc.cuh: gps_attention's and gps_front's
+# products) run 3xTF32 on the tensor cores, three TF32 products for each
+# f32 one, so their rows are bound at the TF32 peak over 3
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_3XTF32 = 495e12 / 3
 RATE_NAMES = {PEAK_F32: "f32 CUDA cores, 67 TFLOP/s",
               PEAK_3XTF32: "3xTF32 tensor cores, 165 TFLOP/s"}
-TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention")
+TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention", "gps_attention",
+                       "gps_front")
+# the libraries whose products run on the tensor-core GEMM
+GEMM_TC_SOURCES = ("gps_attention", "gps_front")
 # kernel vs plain version, both f32 on the card: the sums run in another
 # order (tiled GEMM vs cuBLAS, per-column loops vs index_add_)
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
@@ -300,9 +307,10 @@ MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
 # the terms' magnitudes (f32 sequential sums stay well inside n*eps ≈ 6e-4)
 MOMENT_RTOL = 1e-5
 # the rates: full batches per timed pass (40 until the sixth path joined
-# the script: halved to keep it well inside its time limit), and timed
-# passes
-RATE_BATCHES = 20
+# the script, 20 until the tensor-core GEMM's builds brought the script to
+# 989 s of its 1,200 on an H100: halved each time to keep it inside its
+# time limit), and timed passes
+RATE_BATCHES = 10
 RATE_PASSES = 3
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
@@ -329,13 +337,15 @@ MOLPCBA_ROWS, MOLPCBA_DIM, MOLPCBA_RATE = 512 * 40, 304, 0.2
 FFN_RTOL, FFN_ATOL = 1e-5, 1e-5
 ACTOR_ROWS, ACTOR_DIM = 7680, 64
 # rate batches of the wn-squirrel recipe: one epoch is one step over the one
-# train batch, and a step runs ~20k launches of the chunked attention
-SQUIRREL_RATE_BATCHES = 5
+# train batch, and a step runs ~20k launches of the chunked attention (5
+# until RATE_BATCHES was halved to 10)
+SQUIRREL_RATE_BATCHES = 3
 # phase 3h: the fused attention rung at the pcqm4m-GPS+RWSE width (d 304, 4
 # heads, attention dropout 0.5) on seeded inputs
 PCQM_GPS_DIM, PCQM_GPS_HEADS, PCQM_GPS_ATTN_RATE = 304, 4, 0.5
 # and at the edge of JAX's envelope: 64 graphs of 128 node slots (64-128
-# real), d = 256 in 4 heads of 64 (two column chunks of the attention body)
+# real), d = 256 in 4 heads of 64 (two query blocks of the attention body
+# per head)
 EDGE_GRAPHS, EDGE_SLOTS, EDGE_DIM, EDGE_HEADS = 64, 128, 256, 4
 # phase 3i: the flash attention at wn-squirrel's one graph under flash
 # (5,248 node slots, 5,201 real), 4 heads of 24, on seeded inputs
@@ -393,10 +403,13 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 
 def check_tensor_cores(build) -> None:
     """Every kernel of the attention body (``attn_*``, csrc/attn_tc.cuh) in
-    the libraries of TENSOR_CORE_SOURCES holds tensor-core products: HMMA in
-    ``cuobjdump -sass``. Prints the counts (and the SHFL count: a quad's
-    row max and sum, no shuffle-broadcast loop) per library; fails on an
-    attention kernel without HMMA."""
+    the libraries of TENSOR_CORE_SOURCES, and every kernel of the
+    tensor-core GEMM (``gemm_tc_kernel``, csrc/gemm_tc.cuh) in those of
+    GEMM_TC_SOURCES, holds tensor-core products: HMMA in ``cuobjdump
+    -sass``. Prints the counts (and the SHFL count: a quad's row max and
+    sum, no shuffle-broadcast loop) per library; fails on such a kernel
+    without HMMA, or on a library of GEMM_TC_SOURCES without GEMM
+    kernels."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     for name in TENSOR_CORE_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
@@ -412,15 +425,20 @@ def check_tensor_cores(build) -> None:
             elif fn is not None and "SHFL" in line:
                 counts[fn][1] += 1
         attn = {f: c for f, c in counts.items() if "attn_" in f}
+        gemm = {f: c for f, c in counts.items() if "gemm_tc_kernel" in f}
+        tc_kernels = {**attn, **gemm}
         print(json.dumps(dict(
-            sass=name, attention_kernels=len(attn),
-            hmma_per_kernel_min=min((c[0] for c in attn.values()), default=0),
-            hmma_total=sum(c[0] for c in attn.values()),
+            sass=name, attention_kernels=len(attn), gemm_tc_kernels=len(gemm),
+            hmma_per_kernel_min=min((c[0] for c in tc_kernels.values()),
+                                    default=0),
+            hmma_total=sum(c[0] for c in tc_kernels.values()),
             shfl_per_kernel_max=max((c[1] for c in attn.values()),
                                     default=0))), flush=True)
-        if not attn or any(c[0] == 0 for c in attn.values()):
-            fail(f"{name}: an attention kernel without tensor-core "
+        if not attn or any(c[0] == 0 for c in tc_kernels.values()):
+            fail(f"{name}: an attention or GEMM kernel without tensor-core "
                  "instructions (HMMA) in its SASS")
+        if name in GEMM_TC_SOURCES and not gemm:
+            fail(f"{name}: no tensor-core GEMM kernel in its SASS")
 
 
 def fail(msg: str) -> None:
@@ -737,9 +755,9 @@ def check_kernels(torch, cfg, splits, device):
                  (gate, batch.edge_mask, gg.norm_e.running_mean),
                  (sa, batch.node_mask, layer.norm_attn.running_mean))],
              # products on the real rows: joint projection, edge projection,
-             # QK^T and PV per head, out-projection
+             # QK^T and PV per head, out-projection (3xTF32 tensor cores)
              flops=2 * n_real * d * 7 * d + 2 * e_real * d * d
-             + 4 * attn_pairs * d + 2 * n_real * d * d),
+             + 4 * attn_pairs * d + 2 * n_real * d * d, peak=PEAK_3XTF32),
         dict(name="pre_tail", fn=fused_pre_tail, plain=pre_tail_plain,
              args=tail_args, source="graphgps_torch/csrc/pre_tail.cu",
              replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
@@ -904,9 +922,9 @@ def check_backward(torch, layer0):
     cconf = (seed, rate, L["comb"][17])
 
     def run_front(cots=None):
-        outs, (proj, attn) = gps_front._launch_forward(fin, *fconf)
+        outs, kept = gps_front._launch_forward(fin, *fconf)
         cots = cots or cots_for(outs)
-        kept = (*outs[:3], proj, attn)
+        kept = (*outs[:3], *kept)
         return cots, lambda: gps_front.gps_front_backward(
             *fin, *fconf, *cots, kept=kept)
 
@@ -920,7 +938,7 @@ def check_backward(torch, layer0):
              # dx, dWnq (7d wide), de, dWc, dO, dWo, and per head dv, dP,
              # dq, dk over the real pairs
              flops=4 * n * 7 * d * d + 4 * e_ * d * d + 4 * n * d * d
-             + 8 * pairs * d),
+             + 8 * pairs * d, peak=PEAK_3XTF32),
         tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_),
         combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n),
     ]
@@ -1657,8 +1675,10 @@ def gps_attention_cases(torch, ins, H: int, rates, tag: str):
                    source=src, replaces=f"{tpu}:279",
                    library=lambda rate=rate: call(rate, *lib_in),
                    # the two projections on the real rows, q k^T and P v
-                   # over the real (query, key) pairs per head
-                   flops=8 * n_real * d * d + 4 * pairs * d)
+                   # over the real (query, key) pairs per head (3xTF32
+                   # tensor cores)
+                   flops=8 * n_real * d * d + 4 * pairs * d,
+                   peak=PEAK_3XTF32)
         bwd = dict(name="gps_attention_bwd", run=run,
                    plain=lambda c, conf=conf: ga.gps_attention_backward_plain(
                        *ins, *conf, c[0]),
@@ -1667,7 +1687,8 @@ def gps_attention_cases(torch, ins, H: int, rates, tag: str):
                    library=lib_backward(rate),
                    # dO, dWo, dx, dWqkv on the real rows (qkv and o kept),
                    # and per head the logits again, dP, dq, dk, dv
-                   flops=16 * n_real * d * d + 10 * pairs * d)
+                   flops=16 * n_real * d * d + 10 * pairs * d,
+                   peak=PEAK_3XTF32)
         at = dict(shapes, attn_rate=rate)
         rows += [dict(forward_case(torch, fwd, at), attn_rate=rate),
                  dict(backward_case(torch, bwd, DROP_SEED, rate, at),

@@ -1,16 +1,18 @@
-// The long-graph attention body on Hopper's tensor cores, shared by
-// flash_mha.cu and wide_attention.cu: online-softmax attention of one
-// (graph, head) over a tile of query rows, forward (wide_attention) and
-// backward (both).
+// The tensor-core attention body, shared by flash_mha.cu, wide_attention.cu,
+// gps_attention.cu and gps_front.cu: online-softmax attention of one
+// (graph, head) over a tile of query rows, forward (all but FLASH) and
+// backward (all).
 //
-// It stands for the attention of two TPU kernels:
+// It stands for the attention of four TPU kernels:
 // graphgps_tpu/ops/pallas/flash_mha.py:67 flash_mha (the library's flash
 // kernel; here its backward, the forward staying on flash_mha.cu's CUDA-core
-// loop, whose notes say why) and fused_attn_wide.py:244
-// fused_wide_attention with its backward _vjp_bwd :297 (whose four
-// projections stay on gemm.cuh). Each caller's semantics are a mode of the
-// body, and only the logits, the mask, the dropout and the row statistics
-// differ between them:
+// loop, whose notes say why), fused_attn_wide.py:244 fused_wide_attention
+// with its backward _vjp_bwd :297, and the attention of graphs of at most 128
+// node slots, _attn_fwd_all (fused_gps_attn.py:121) with its hand-written
+// backward, inside fused_gps_attention (fused_gps_attn.py:279) and the layer
+// front fused_gps_front (fused_layer.py:270). Each caller's semantics are a
+// mode of the body, and only the logits, the mask, the dropout and the row
+// statistics differ between them:
 //   FLASH  s = (q k^T + bias) * scale, plus FA_MASK (added, not assigned)
 //          where the query's and the key's segment ids differ; P from the
 //          forward's lse per row.
@@ -20,42 +22,43 @@
 //          (b*H + h)*N + i, column j: no tile in the counter, so the bits do
 //          not depend on this layout); the normaliser sums P before dropout;
 //          row maxima and sums.
+//   KMASK  WIDE with a key mask: key j of graph b is set to -1e30 where
+//          kmask[b, j] = 0, for any 0/1 mask, N <= 128; no tile is skipped.
+//          A graph with no real node has uniform weights, and the backward
+//          passes gradient through every logit (a masked one has weight 0
+//          unless the whole row is masked).
 //
 // Products. q k^T, P v and in the backward dO v^T, dS k, k q^T, v dO^T,
-// dS^T q and P^T dO all run on mma.sync.m16n8k8 tf32 with f32 accumulation
-// and the 3xTF32 split: x = hi + lo, hi = tf32(x) (round to nearest),
-// lo = tf32(x - hi), and a product is lo*hi + hi*lo + hi*hi. One tf32 pass
-// keeps ~3 decimal digits; the split keeps about f32's, at three
-// tensor-core products a step. The tensor cores truncate as they add, so
-// the three products of a k-step are summed in a zeroed fragment and added
-// to the running sum by a rounded f32 add (mma3): every truncation is at the
-// size of 8 products, none at the running sum's. With the products
-// accumulated in place, wide_attention's backward at VOC's shape lay 10x
-// further from its plain version than the f32 loops it replaced
-// (graphgps_torch/tools/kernel_ab.py), and one VOC training step's
-// gradients, amplified ~150x by an ill-conditioned norm, moved further
-// from f64 in chip_smoke.py's card-vs-CPU step (4c).
+// dS^T q and P^T dO all run in 3xTF32 on mma.sync (tc_mma.cuh: mma3, the
+// three products of a k-step summed in a zeroed fragment and added to the
+// running sum by a rounded f32 add). With the products accumulated in place,
+// wide_attention's backward at VOC's shape lay 10x further from its plain
+// version than the f32 loops it replaced (graphgps_torch/tools/kernel_ab.py),
+// and one VOC training step's gradients, amplified ~150x by an
+// ill-conditioned norm, moved further from f64 in chip_smoke.py's
+// card-vs-CPU step (4c).
 //
 // Bound on the H100: operations, 4 N^2 Dh per (graph, head) forward and ~10
 // N^2 Dh backward over the pairs with weight, at the 3xTF32 rate (495 / 3 =
 // 165 TFLOP/s); with a bias, its N^2 floats read (and dbias written) at
 // 3.35 TB/s are the larger term. In practice the softmax's per-logit work
-// on the CUDA cores (exp, max, the P split; WIDE's dropout hash) and the
+// on the CUDA cores (exp, max, the P split; the dropout hash) and the
 // shared-memory fragment reads share the time with the tensor cores, so
 // exp is __expf (relative error ~1e-6 over the logits' range) and the bias
 // values of a step are read before its products.
 //
 // Layout. A block owns R = 16 * WARPS rows (queries; keys in the dk/dv
-// pass), a warp 16 of them; up to 64 head columns WARPS = 4 and tiles of
-// KT = 64, beyond that 2 and 32 (shared memory). The other side comes
+// pass), a warp 16 of them; up to 64 head columns WARPS = 4, tiles of KT =
+// 64 rows and register steps of SUB = 32 keys, beyond that 2, 16 and 16
+// (shared memory and registers). The other side comes
 // through shared memory in tiles of KT rows, double-buffered by cp.async;
 // once a tile has landed the block splits it in place into a hi plane and a
 // lo plane (once, not in every warp). A warp's own rows are split once as
 // they are staged: for heads up to 32 columns straight into register
 // fragments, wider into shared planes. The head is zero-padded to DP
 // columns in shared memory and registers only: a multiple of 8 up to 64
-// (24 stays 24: 3 k-steps), then 96 or 128 (no recipe runs those widths;
-// two of them keep the build short). Rows have a stride of DP + 4 floats,
+// (24 stays 24: 3 k-steps), then 96 or 128 (two widths there keep the build
+// short). Rows have a stride of DP + 4 floats,
 // so that both fragment reads below hit 32 distinct banks. S stays in
 // registers as mma C fragments: a row's max reduces within its lane quad
 // (2 shuffles), its sum is kept per lane and reduced once at the end. P
@@ -67,19 +70,25 @@
 // each element by its one owner) and D = dO . o per row; a dk/dv pass per
 // key tile forms S^T = k q^T and dP^T = v dO^T directly. Every sum runs in
 // a fixed order: two runs, same bits.
+//
+// KMASK covers a graph of N <= 128 slots with cdiv(N, R) blocks per head;
+// a warp whose 16 rows all lie at or beyond N (at N = 40 and R = 64, the
+// fourth) stages tiles with the block but skips the products, so ceil(N/16)
+// warps compute. A lane's keys in the forward and dq passes are j with
+// j % 8 in {2t, 2t+1}; with N <= 128 their mask fits one 32-bit word per
+// lane, read once (lane_keys).
 #pragma once
 
-#include "common.cuh"
+#include "tc_mma.cuh"
 
 namespace ggps {
 namespace tc {
 
-enum Mode { FLASH = 0, WIDE = 1 };
+enum Mode { FLASH = 0, WIDE = 1, KMASK = 2 };
 
 // the library's DEFAULT_MASK_VALUE, -0.7 * float32 max, rounded to f32 once
 constexpr float FA_MASK = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float WA_NEG = -1e30f;
-constexpr int SUB = 32;  // keys (queries in the dk/dv pass) per register step
 constexpr unsigned FULL = 0xffffffffu;
 
 // One tensor's rows of a head: element (b, h, i, c) at p + b*sb + h*sh + i*ld + c.
@@ -100,13 +109,14 @@ struct Params {
   const float* bias;   // FLASH: (B, H, N, N) or null
   float* dbias;        // FLASH backward: like bias, or null
   const int* counts;   // WIDE: (B,) real nodes
+  const float* kmask;  // KMASK: (B, N) 0/1 key mask
   float* lse;          // FLASH: (B*H*N) row log-sum-exps
-  float* mrow;         // WIDE: row maxima
-  float* lrow;         // WIDE: row sums before dropout
+  float* mrow;         // WIDE, KMASK: row maxima
+  float* lrow;         // WIDE, KMASK: row sums before dropout
   float* drow;         // backward: D = dO . o per row
   int N, H, Dh;
   float scale;
-  Drop drop;           // WIDE: site 0 of the (B*H*N, N) view
+  Drop drop;           // WIDE, KMASK: site 0 of the (B*H*N, N) view
   bool vec4;           // rows copied by cp.async are 16-byte chunks
 };
 
@@ -118,7 +128,11 @@ struct Cfg {
   static constexpr int WARPS = DP <= 64 ? 4 : 2;
   static constexpr int NT = 32 * WARPS;
   static constexpr int R = 16 * WARPS;              // rows a block owns
-  static constexpr int KT = DP <= 64 ? 64 : 32;     // rows of a staged tile
+  // rows of a staged tile, and keys (queries in the dk/dv pass) per
+  // register step: above 64 columns both 16, so that two blocks of the
+  // backward fit an SM's shared memory and its sums fit the registers
+  static constexpr int KT = DP <= 64 ? 64 : 16;
+  static constexpr int SUB = DP <= 64 ? 32 : 16;
   // a warp's own rows as A fragments in registers (narrow heads) or in
   // shared hi/lo planes
   static constexpr bool AREG = KS <= 4;
@@ -129,53 +143,10 @@ struct Cfg {
   static constexpr size_t bwd_smem = 2 * own + tiles + 3 * KT * 4;
 };
 
-// The padded widths: multiples of 8 up to 64, then 96 and 128 (wider heads
-// run on no recipe; two widths there keep the build short).
+// The padded widths: multiples of 8 up to 64, then 96 and 128 (two widths
+// there keep the build short).
 constexpr int pad_width(int Dh) { return Dh <= 64 ? (Dh + 7) / 8 * 8 : Dh <= 96 ? 96 : 128; }
 constexpr int next_width(int DP) { return DP < 64 ? DP + 8 : DP < 96 ? 96 : DP + 32; }
-
-// ---------------------------------------------------------------------------
-// tf32 and the tensor-core product
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-struct AFrag { uint32_t h[4], l[4]; };  // 16 x 8 A operand, hi and lo
-struct BFrag { uint32_t h[2], l[2]; };  // 8 x 8 B operand, hi and lo
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32. The tensor cores truncate as they add, so the three
-// products go into a zeroed fragment, the small terms first (each
-// truncation at the size of one k-step's 8 products, not of the running
-// sum), and one rounded f32 add takes them into d.
-__device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a, const BFrag& b) {
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma(t, a.l, b.h[0], b.h[1]);
-  mma(t, a.h, b.l[0], b.l[1]);
-  mma(t, a.h, b.h[0], b.h[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
-// Fragment lanes: g = lane / 4 (row group), t = lane % 4. A (16 x 8, row):
-// a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4). B (8 x 8, col): b0 (t,
-// g), b1 (t+4, g). C (16 x 8): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3
-// (g+8, 2t+1).
 
 // A = 16 rows of a plane (from its row 0) at columns 8kk ..
 template <int LD>
@@ -268,19 +239,6 @@ __device__ __forceinline__ AFrag a_from_c(const float (&c)[4]) {
 // ---------------------------------------------------------------------------
 // Staging
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
-__device__ __forceinline__ void cp_wait1() { asm volatile("cp.async.wait_group 1;" ::: "memory"); }
-
 // Copies of rows row0 .. row0 + ROWS (those below N) of a head, row stride
 // ld, into dst (stride LD). split_rows zeroes what is not copied.
 template <int ROWS, int LD, int NT>
@@ -333,27 +291,6 @@ __device__ __forceinline__ void load_split(float* hi, float* lo, const float* sr
   }
 }
 
-// The tile loop: tile it + 1's copies are in flight while tile it is split
-// (prep) and used (body). own() stages the block's rows after tile 0's
-// copies are issued.
-template <class Issue, class Own, class Prep, class Body>
-__device__ __forceinline__ void pipeline(int ntiles, Issue issue, Own own, Prep prep,
-                                         Body body) {
-  if (ntiles > 0) issue(0, 0);
-  cp_commit();
-  own();
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) issue(it + 1, (it + 1) & 1);
-    cp_commit();
-    cp_wait1();
-    __syncthreads();
-    prep(it, it & 1);
-    __syncthreads();
-    body(it, it & 1);
-    __syncthreads();
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
   return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
@@ -377,15 +314,33 @@ __device__ __forceinline__ int wide_count(const Params& pr, int b) {
   return min(max(pr.counts[b], 0), pr.N);
 }
 
-// ---------------------------------------------------------------------------
-// Forward (WIDE): o and the row maxima and sums. (flash_mha.cu keeps its
-// CUDA-core forward; its notes say why.)
+// KMASK: the real keys among a lane's keys j (j % 8 in {2t, 2t+1}, j < N <=
+// 128) of graph b, bit 2 * (j / 8) + j % 2
+__device__ __forceinline__ uint32_t lane_keys(const Params& pr, int b, int t) {
+  const float* km = pr.kmask + (size_t)b * pr.N;
+  uint32_t bits = 0;
+  for (int j8 = 0; j8 < pr.N; j8 += 8)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = j8 + 2 * t + e;
+      if (j < pr.N && km[j] > 0.0f) bits |= 1u << (j8 / 4 + e);
+    }
+  return bits;
+}
 
-template <int DP>
+__device__ __forceinline__ bool key_real(uint32_t bits, int j) {
+  return (bits >> (2 * (j >> 3) + (j & 1))) & 1u;
+}
+
+// ---------------------------------------------------------------------------
+// Forward (WIDE, KMASK): o and the row maxima and sums. (flash_mha.cu keeps
+// its CUDA-core forward; its notes say why.)
+
+template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
-  constexpr int NS = SUB / 8;
+  constexpr int SUB = C::SUB, NS = SUB / 8;
   extern __shared__ float smem[];
   float* Qh = smem;                                 // [R][LD] q rows unless AREG
   float* Kb = Qh + C::own / 4;                      // [2][KT][LD] raw, then hi
@@ -399,8 +354,10 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
   const size_t stat0 = ((size_t)b * pr.H + h) * N;
   const float* kb = pr.k.at(b, h);
   const float* vb = pr.v.at(b, h);
-  const int cnt = wide_count(pr, b);
+  const int cnt = MODE == WIDE ? wide_count(pr, b) : N;
   const int kend = cnt == 0 ? N : cnt;
+  const uint32_t kbits = MODE == KMASK ? lane_keys(pr, b, t) : 0u;
+  const bool idle = MODE == KMASK && q0 + warp * 16 >= N;
 
   int row[2];
   float m[2] = {WA_NEG, WA_NEG}, l[2] = {0.0f, 0.0f}, acc[KS][4];
@@ -432,6 +389,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
     const float* kh = Kb + s * KT * LD;
     const float* vh = Vb + s * KT * LD;
     const int k0 = it * KT;
+    if (idle) return;
     for (int kc = 0; kc < KT && k0 + kc < kend; kc += SUB) {
       float sc[NS][4];
 #pragma unroll
@@ -452,7 +410,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
         for (int e = 0; e < 4; ++e) {
           const int j = k0 + kc + 8 * n + 2 * t + (e & 1);
           float& x = sc[n][e];
-          x = j < cnt ? x : WA_NEG;
+          x = (MODE == WIDE ? j < cnt : key_real(kbits, j)) ? x : WA_NEG;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
       float corr[2];
@@ -515,7 +473,7 @@ template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
-  constexpr int NS = SUB / 8;
+  constexpr int SUB = C::SUB, NS = SUB / 8;
   extern __shared__ float smem[];
   float* Qh = smem;                                 // [R][LD] q rows unless AREG
   float* Gh = Qh + C::own / 4;                      // [R][LD] dO rows unless AREG
@@ -533,7 +491,9 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
   const float* vb = pr.v.at(b, h);
   const int cnt = MODE == WIDE ? wide_count(pr, b) : N;
   const int kend = MODE == WIDE && cnt == 0 ? N : cnt;
-  const float qmul = MODE == WIDE ? pr.scale : 1.0f;
+  const float qmul = MODE != FLASH ? pr.scale : 1.0f;
+  const uint32_t kbits = MODE == KMASK ? lane_keys(pr, b, t) : 0u;
+  const bool idle = MODE == KMASK && q0 + warp * 16 >= N;
 
   int row[2], qid[2] = {0, 0};
   const float* brow[2] = {nullptr, nullptr};
@@ -600,6 +560,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
     const float* kh = Kb + s * KT * LD;
     const float* vh = Vb + s * KT * LD;
     const int k0 = it * KT;
+    if (idle) return;
     for (int kc = 0; kc < KT && k0 + kc < kend; kc += SUB) {
       float bv[NS][4];
 #pragma unroll
@@ -639,7 +600,8 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
             ds = pv * (dp[n][e] - D[r]);
             if (j < N && dbrow[r] != nullptr) dbrow[r][j] = ds * pr.scale;
           } else {
-            const float sv = j < cnt ? sc[n][e] : WA_NEG;
+            const bool real = MODE == WIDE ? j < cnt : key_real(kbits, j);
+            const float sv = real ? sc[n][e] : WA_NEG;
             const float pv = j < N ? __expf(sv - Lr[r]) * inv[r] : 0.0f;
             const unsigned long long idx = (stat0 + row[r]) * (unsigned long long)N + j;
             ds = pv * (drop_apply(pr.drop, idx, dp[n][e]) - D[r]);
@@ -674,13 +636,13 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
 // ---------------------------------------------------------------------------
 // Backward, pass 2: dk and dv of a tile of keys over the query tiles, from
 // S^T = k q^T and dP^T = v dO^T (C fragments: lane holds key g / g+8 and
-// queries 2t, 2t+1).
+// queries 2t, 2t+1). WIDE and KMASK share the dropout and statistics.
 
 template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
-  constexpr int NS = SUB / 8;
+  constexpr int SUB = C::SUB, NS = SUB / 8;
   extern __shared__ float smem[];
   float* Kh = smem;                 // [R][LD] the block's keys unless AREG
   float* Vh = Kh + C::own / 4;      // [R][LD] their values unless AREG
@@ -702,13 +664,16 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
   const int cnt = MODE == WIDE ? wide_count(pr, b) : N;
   // WIDE: keys beyond the real ones get no weight, so no gradient: zeros
   const bool live = MODE == FLASH || k0 < (cnt == 0 ? N : cnt);
+  const bool idle = MODE == KMASK && k0 + warp * 16 >= N;
 
   int key[2], kid[2] = {0, 0};
+  bool kreal[2] = {false, false};  // KMASK: the lane's keys are real
   float dk[KS][4], dv[KS][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     key[r] = k0 + warp * 16 + g + 8 * r;
     if (MODE == FLASH && key[r] < N) kid[r] = pr.ids[(size_t)b * N + key[r]];
+    if (MODE == KMASK) kreal[r] = key[r] < N && pr.kmask[(size_t)b * N + key[r]] > 0.0f;
   }
 #pragma unroll
   for (int dd = 0; dd < KS; ++dd)
@@ -719,7 +684,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
   ka.lo = Kh + R * LD + warp * 16 * LD;
   va.hi = Vh + warp * 16 * LD;
   va.lo = Vh + R * LD + warp * 16 * LD;
-  const float qmul = MODE == WIDE ? pr.scale : 1.0f;
+  const float qmul = MODE != FLASH ? pr.scale : 1.0f;
 
   auto issue = [&](int it, int s) {
     issue_rows<KT, LD, NT>(Qb + s * KT * LD, qb, pr.q.ld, it * KT, N, Dh, pr.vec4);
@@ -754,6 +719,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
     const float* qh = Qb + s * KT * LD;
     const float* gh = Gb + s * KT * LD;
     const int q0 = it * KT;
+    if (idle) return;
     for (int qc = 0; qc < KT && q0 + qc < N; qc += SUB) {
       // FLASH: the bias values of this step (query 2t(+1) rows, key g/g+8)
       float bv[NS][4];
@@ -796,7 +762,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
             pd = pv;
             dpd = dpt[n][e];
           } else {
-            const float sv = j < cnt ? st[n][e] : WA_NEG;
+            const float sv = (MODE == WIDE ? j < cnt : kreal[r]) ? st[n][e] : WA_NEG;
             pv = ok ? __expf(sv - Ls[iq]) * Xs[iq] : 0.0f;
             const bool keep =
                 pr.drop.t <= 0 ||
@@ -849,13 +815,13 @@ inline bool rows_vec4(const View& v, int Dh) {
          ((uintptr_t)v.p & 15) == 0;
 }
 
-template <int DP>
+template <int MODE, int DP>
 cudaError_t launch_fwd_dp(const Params& pr, int B, cudaStream_t st) {
   using C = Cfg<DP>;
   const dim3 grid(cdiv(pr.N, C::R), pr.H, B), block(C::NT);
   cudaError_t err;
-  if ((err = allow_smem(attn_fwd<DP>, C::fwd_smem)) != cudaSuccess) return err;
-  attn_fwd<DP><<<grid, block, C::fwd_smem, st>>>(pr);
+  if ((err = allow_smem(attn_fwd<MODE, DP>, C::fwd_smem)) != cudaSuccess) return err;
+  attn_fwd<MODE, DP><<<grid, block, C::fwd_smem, st>>>(pr);
   return cudaGetLastError();
 }
 
@@ -872,7 +838,7 @@ cudaError_t launch_bwd_dp(const Params& pr, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The forward kernel (BWD false; WIDE only) or the two backward passes, for
+// The forward kernel (BWD false; WIDE or KMASK) or the two backward passes, for
 // pr.Dh up to MAX_DP, at the padded width pad_width(pr.Dh).
 template <int MODE, bool BWD, int MAX_DP, int DP = 8>
 cudaError_t launch(const Params& pr, int B, cudaStream_t st) {
@@ -883,7 +849,7 @@ cudaError_t launch(const Params& pr, int B, cudaStream_t st) {
       if constexpr (BWD)
         return launch_bwd_dp<MODE, DP>(pr, B, st);
       else
-        return launch_fwd_dp<DP>(pr, B, st);
+        return launch_fwd_dp<MODE, DP>(pr, B, st);
     }
     return launch<MODE, BWD, MAX_DP, next_width(DP)>(pr, B, st);
   }

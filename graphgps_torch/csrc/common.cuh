@@ -73,6 +73,17 @@ __device__ __forceinline__ float drop_apply(const Drop& dp, unsigned long long i
   return drop_keep(dp, idx) ? v * dp.scale : 0.0f;
 }
 
+// A GEMM's fused epilogue (gemm.cuh, gemm_tc.cuh): pre = acc + bias[n]
+// (`pre` optionally stored), v = drop(act(pre)) on the (M, N) view, C = v +
+// res[m, n].
+struct Epi {
+  const float* bias = nullptr;  // (N,)
+  const float* res = nullptr;   // (M, N), added last
+  float* pre = nullptr;         // (M, N): acc + bias, before the activation
+  int act = ACT_IDENTITY;
+  Drop drop = {0u, 0, 1.0f};
+};
+
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.

@@ -7,14 +7,14 @@
 //   epi(acc): pre = acc + bias[n]   (bias optional; `pre` optionally stored)
 //             v = drop(act(pre))    (dropout on the (M, N) view, optional)
 //             C = v + R[m, n]       (residual optional)
+//   (common.cuh Epi, shared with the tensor-core GEMM gemm_tc.cuh)
 //
 // All operands row-major and contiguous; weights keep the JAX package's
 // (in, out) layout, so no transpose is made anywhere. These are the products
 // the TPU kernels on the main path compute in their own bodies (_dot, _dot_nt,
-// _dot_tn of ops/pallas/fused_gatedgcn.py): the layer front's joint
-// (B*N, d) x (d, 7d) projection, the edge projection, the attention
-// out-projection, the FFN's two products, and in the backward their input and
-// weight gradients.
+// _dot_tn of ops/pallas/fused_gatedgcn.py): the unmerged GatedGCN's node and
+// edge projections, the FFN's two products, the long-graph attention's
+// projections, and in the backward their input and weight gradients.
 //
 // Bound on the H100: at the main path's shapes these products are bound by
 // f32 operations (67 TFLOP/s outside the tensor cores), not bytes. Design: a
@@ -23,8 +23,8 @@
 // shared memory, edges guarded so any M, N, K works. A weight gradient has few
 // output tiles and a long K (all rows), so TN splits K over blockIdx.z into
 // partials that a second pass adds in split order: no float atomics, and two
-// runs give the same bits. Simple and right first; the tensor-core
-// (TF32/wgmma) version is later work.
+// runs give the same bits. The layer front and the GPS attention run their
+// products on the tensor-core GEMM (gemm_tc.cuh) instead.
 #pragma once
 
 #include "common.cuh"
@@ -38,14 +38,6 @@ constexpr int GEMM_BK = 16;
 constexpr int GEMM_TM = 4;
 constexpr int GEMM_TN = 4;
 constexpr int GEMM_THREADS = (GEMM_BM / GEMM_TM) * (GEMM_BN / GEMM_TN);  // 256
-
-struct Epi {
-  const float* bias = nullptr;  // (N,)
-  const float* res = nullptr;   // (M, N), added last
-  float* pre = nullptr;         // (M, N): acc + bias, before the activation
-  int act = ACT_IDENTITY;
-  Drop drop = {0u, 0, 1.0f};
-};
 
 // A element (m, k): TA ? A[k * M + m] : A[m * K + k]
 // B element (k, n): TB ? B[n * K + k] : B[k * N + n]

@@ -63,9 +63,11 @@ def check_stack_supported(cfg) -> None:
         raise NotImplementedError(
             "gnn.layers_pre_mp > 0 is not ported (ROADMAP Queue 1 item 17)")
     if cfg.gnn.head not in HEADS:
+        what = ("an edge head, for edge and link tasks"
+                if cfg.gnn.head in EDGE_HEADS else "the default graph head")
         raise NotImplementedError(
             f"gnn.head={cfg.gnn.head!r}: the port has {sorted(HEADS)} "
-            "(the default graph head: ROADMAP Queue 1 item 17)")
+            f"({what}: ROADMAP Queue 1 item 17)")
     if cfg.posenc_EquivStableLapPE.enable:
         raise NotImplementedError(
             "EquivStableLapPE is not ported (ROADMAP Queue 1 item 16)")
@@ -129,6 +131,9 @@ def check_supported(cfg) -> None:
 # "node" is JAX's transductive alias of inductive_node (heads.py:110): the
 # split masks ride the loss mask
 HEADS = ("san_graph", "inductive_node", "node")
+# the JAX package's heads over edges and links (graphgps_tpu/models/heads.py
+# :142, :198), which the port does not build yet
+EDGE_HEADS = ("inductive_edge", "infer_links")
 
 
 def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:

@@ -15,16 +15,17 @@ from ..mha import merge_heads, mha_core, split_heads
 from . import build
 from .common import apply_dropout, check_rate, keep_rule, needs_grad, true_f32
 
-# the attention holds a graph's N x N scores per head in shared memory
-# (csrc/mha_core.cuh; the head's columns pass through in chunks, so any head
-# width fits)
+# the key-mask mode of the tensor-core attention body (csrc/attn_tc.cuh)
+# keeps a lane's keys' mask in one 32-bit word, and pads heads to at most 128
+# columns
 MAX_NODES = 128
+MAX_HEAD_DIM = 128
 
 _CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint32,
                                        ctypes.c_int, ctypes.c_float,
                                        ctypes.c_void_p]
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + _CONF_ARGTYPES
-_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + _CONF_ARGTYPES
+_FWD_ARGTYPES = [ctypes.c_void_p] * 11 + _CONF_ARGTYPES
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + _CONF_ARGTYPES
 # positions of the differentiable inputs among the six tensors
 GRAD_INPUTS = (0, 2, 3, 4, 5)   # x, wqkv, bqkv, wo, bo
 
@@ -73,10 +74,12 @@ def _check_args(x, kmask, wqkv, bqkv, wo, bo, H):
     (B, N, d, device)."""
     B, N, d = x.shape
     dev = x.device
-    if not (H > 0 and d % H == 0 and N <= MAX_NODES):
+    if not (H > 0 and d % H == 0 and N <= MAX_NODES
+            and d // H <= MAX_HEAD_DIM):
         raise ValueError(
             f"fused_gps_attention: N={N}, d={d}, H={H} outside the kernels' "
-            f"envelope (N ≤ {MAX_NODES}, H dividing d)")
+            f"envelope (N ≤ {MAX_NODES}, H dividing d into heads of at most "
+            f"{MAX_HEAD_DIM} columns)")
     build.require("x", x, (B, N, d), dev)
     build.require("kmask", kmask, (B, N), dev)
     build.require("wqkv", wqkv, (d, 3 * d), dev)
@@ -94,18 +97,21 @@ def _conf(B, N, d, H, seed, rate, dev):
 
 def _launch_forward(args, seed, H, rate):
     """The forward kernel. Returns y and the kept (qkv (B*N, 3d),
-    o (B*N, d)) the backward takes back."""
+    o (B*N, d), the softmax's row maxima and sums (B*H*N)) the backward
+    takes back."""
     B, N, d, dev = _check_args(*args, H)
     f32 = dict(device=dev, dtype=torch.float32)
     y = torch.empty_like(args[0])
     qkv = torch.empty((B * N, 3 * d), **f32)
     o = torch.empty((B * N, d), **f32)
+    mrow = torch.empty((B * H * N,), **f32)
+    lrow = torch.empty((B * H * N,), **f32)
     fn = build.cfunc("gps_attention", "gps_attention_forward", _FWD_ARGTYPES)
-    err = fn(*map(build.ptr, args + (y, qkv, o)),
+    err = fn(*map(build.ptr, args + (y, qkv, o, mrow, lrow)),
              *_conf(B, N, d, H, seed, rate, dev))
     build.check_launch("fused_gps_attention", err)
     fused_gps_attention.launches += 1
-    return y, (qkv, o)
+    return y, (qkv, o, mrow, lrow)
 
 
 def gps_attention_backward(x, kmask, wqkv, bqkv, wo, bo, seed, H: int,
@@ -113,7 +119,8 @@ def gps_attention_backward(x, kmask, wqkv, bqkv, wo, bo, seed, H: int,
     """The backward of :func:`fused_gps_attention` given the cotangent gy
     (B, N, d): returns (dx, dwqkv, dbqkv, dwo, dbo). CPU tensors take the
     plain version; CUDA tensors launch the kernel, which also takes the
-    forward kernel's ``kept`` (qkv and o)."""
+    forward kernel's ``kept`` (qkv, o and the softmax's row maxima and
+    sums)."""
     inputs = (x, kmask, wqkv, bqkv, wo, bo)
     if x.device.type == "cpu":
         return gps_attention_backward_plain(*inputs, seed, H, rate, gy)
@@ -122,19 +129,22 @@ def gps_attention_backward(x, kmask, wqkv, bqkv, wo, bo, seed, H: int,
         raise ValueError(f"gps_attention_backward: unsupported device "
                          f"{x.device}, or no kept tensors")
     B, N, d, dev = _check_args(*inputs, H)
-    qkv, o = kept
+    qkv, o, mrow, lrow = kept
     build.require("gy", gy, (B, N, d), dev)
     build.require("qkv", qkv, (B * N, 3 * d), dev)
     build.require("o", o, (B * N, d), dev)
+    for name, t in (("mrow", mrow), ("lrow", lrow)):
+        build.require(name, t, (B * H * N,), dev)
     em = lambda *s: torch.empty(s, device=dev)  # noqa: E731
     dx = torch.empty_like(x)
     dwqkv, dbqkv, dwo, dbo = em(d, 3 * d), em(3 * d), em(d, d), em(d)
-    d_o, dqkv = em(B * N, d), em(B * N, 3 * d)
+    d_o, dqkv, drow = em(B * N, d), em(B * N, 3 * d), em(B * H * N)
     scratch = em(build.cfunc("gps_attention", "gps_attention_backward_scratch",
                              [ctypes.c_int] * 3, ctypes.c_longlong)(B, N, d))
     fn = build.cfunc("gps_attention", "gps_attention_backward", _BWD_ARGTYPES)
-    err = fn(*map(build.ptr, (x, kmask, wqkv, wo, qkv, o, gy, dx, dwqkv,
-                              dbqkv, dwo, dbo, d_o, dqkv, scratch)),
+    err = fn(*map(build.ptr, (x, kmask, wqkv, wo, qkv, o, mrow, lrow, gy, dx,
+                              dwqkv, dbqkv, dwo, dbo, d_o, dqkv, drow,
+                              scratch)),
              *_conf(B, N, d, H, seed, rate, dev))
     build.check_launch("gps_attention_backward", err)
     gps_attention_backward.launches += 1
@@ -170,8 +180,8 @@ def fused_gps_attention(x, kmask, wqkv, bqkv, wo, bo, seed, H: int,
 
     Returns y (B, N, d) = ``outProj(MHA(qkvProj(x)))``; x and the four
     weights get gradients. CPU tensors take the plain version (autograd
-    differentiates it); CUDA tensors launch the kernel (N ≤ 128), and the
-    backward kernel when differentiated."""
+    differentiates it); CUDA tensors launch the kernel (N ≤ 128, heads of at
+    most 128 columns), and the backward kernel when differentiated."""
     args = (x, kmask, wqkv, bqkv, wo, bo)
     if x.device.type == "cpu":
         return gps_attention_plain(*args, seed, H, rate)

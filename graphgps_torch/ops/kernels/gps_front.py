@@ -13,15 +13,18 @@ from ..mha import merge_heads, mha_core, split_heads
 from . import build
 from .common import apply_dropout, check_rate, keep_rule, needs_grad, true_f32
 
-# the in-shared-memory attention holds a graph's N x N scores per head
+# the key-mask mode of the tensor-core attention body (csrc/attn_tc.cuh):
+# at most 128 node slots, heads of at most 128 columns; the GatedGCN core
+# holds a graph's receivers in shared memory
 MAX_NODES = 128
+MAX_HEAD_DIM = 128
 SMEM_LIMIT = 227 * 1024
 
 _DROP_ARGTYPES = [ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + _DROP_ARGTYPES)
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 37 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 40 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + _DROP_ARGTYPES)
 # positions of the differentiable tensor inputs among the fifteen
 GRAD_INPUTS = (0, 1, 9, 10, 11, 12, 13, 14)   # x, e, wnq, bnq, wc, bc, wo, bo
@@ -100,13 +103,12 @@ def _check_args(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca, wnq, bnq, wc,
     B, N, d = x.shape
     E = e.shape[1]
     dev = x.device
-    if (N > MAX_NODES or d % H
-            or max(_size("gps_front_mha_smem", 3)(N, d, H),
-                   _size("gps_front_mha_bwd_smem", 3)(N, d, H),
-                   _size("gps_front_core_smem", 1)(N),
+    if (N > MAX_NODES or H <= 0 or d % H or d // H > MAX_HEAD_DIM
+            or max(_size("gps_front_core_smem", 1)(N),
                    _size("gps_front_core_bwd_smem", 1)(N)) > SMEM_LIMIT):
         raise ValueError(f"fused_gps_front: shape outside the kernel's envelope "
-                         f"(N={N} ≤ {MAX_NODES}, d={d} divisible by H={H})")
+                         f"(N={N} ≤ {MAX_NODES}, d={d} divisible by H={H} "
+                         f"into heads of at most {MAX_HEAD_DIM} columns)")
     build.require("x", x, (B, N, d), dev)
     build.require("e", e, (B, E, d), dev)
     build.require("s_loc", s_loc, (B, E), dev, torch.int32)
@@ -131,7 +133,8 @@ def _drop_args(seed, attn_rate, drop_rate):
 
 def _launch_forward(args, seed, H, scale, attn_rate, drop_rate):
     """The forward kernel. Returns the six outputs and the kept
-    (projall (B*N, 7d), attn (B*N, d)) the backward takes back."""
+    (projall (B*N, 7d), attn (B*N, d), the softmax's row maxima and sums
+    (B*H*N)) the backward takes back."""
     B, N, E, d, dev = _check_args(*args, H)
     x, e = args[0], args[1]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -141,16 +144,18 @@ def _launch_forward(args, seed, H, scale, attn_rate, drop_rate):
     moments = torch.empty((3, 2 * d), **f32)
     proj = torch.empty((B * N, 7 * d), **f32)
     attn = torch.empty((B * N, d), **f32)
+    mrow = torch.empty((B * H * N,), **f32)
+    lrow = torch.empty((B * H * N,), **f32)
     part = torch.empty((3, B, 2 * d), **f32)
     fn = build.cfunc("gps_front", "gps_front_forward", _FWD_ARGTYPES)
     err = fn(*map(build.ptr, args + (x_new, gate, s_attn, moments, proj,
-                                     attn, part)),
+                                     attn, mrow, lrow, part)),
              B, N, E, d, H, float(scale),
              *_drop_args(seed, attn_rate, drop_rate), build.stream_of(dev))
     build.check_launch("fused_gps_front", err)
     fused_gps_front.launches += 1
     px, pg, pa = (m[None].clone() for m in moments)
-    return (x_new, gate, s_attn, px, pg, pa), (proj, attn)
+    return (x_new, gate, s_attn, px, pg, pa), (proj, attn, mrow, lrow)
 
 
 def gps_front_backward(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
@@ -161,8 +166,8 @@ def gps_front_backward(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
     six outputs (gx, gg, gsa like x_new, gate, s_attn; gpx, gpg, gpa (1, 2d)):
     returns (dx, de, dwnq, dbnq, dwc, dbc, dwo, dbo). CPU tensors take the
     plain version; CUDA tensors launch the kernel, which also takes the
-    forward kernel's ``kept`` (its outputs x_new, gate, s_attn and its
-    projall and attn)."""
+    forward kernel's ``kept`` (its outputs x_new, gate, s_attn, its projall
+    and attn, and the softmax's row maxima and sums)."""
     inputs = (x, e, s_loc, r_loc, emask, nmask, cx, cg, ca, wnq, bnq, wc, bc,
               wo, bo)
     cots = (gx, gg, gsa, gpx, gpg, gpa)
@@ -175,7 +180,7 @@ def gps_front_backward(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
         raise ValueError(f"gps_front_backward: unsupported device {x.device}, "
                          "or no kept tensors")
     B, N, E, d, dev = _check_args(*inputs, H)
-    x_new, gate, s_attn, proj, attn = kept
+    x_new, gate, s_attn, proj, attn, mrow, lrow = kept
     for name, t in (("x_new", x_new), ("s_attn", s_attn), ("gx", gx),
                     ("gsa", gsa)):
         build.require(name, t, (B, N, d), dev)
@@ -185,19 +190,22 @@ def gps_front_backward(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
         build.require(name, t, (1, 2 * d), dev)
     build.require("proj", proj, (B * N, 7 * d), dev)
     build.require("attn", attn, (B * N, d), dev)
+    for name, t in (("mrow", mrow), ("lrow", lrow)):
+        build.require(name, t, (B * H * N,), dev)
     em = lambda *s: torch.empty(s, device=dev)  # noqa: E731
     dx, de = torch.empty_like(x), torch.empty_like(e)
     dwnq, dbnq, dwc, dbc, dwo, dbo = (em(d, 7 * d), em(7 * d), em(d, d),
                                       em(d), em(d, d), em(d))
     dproj, dgate = em(B * N, 7 * d), em(B * E, d)
     gsa3, dy, do = em(B * N, d), em(B * N, d), em(B * N, d)
+    drow = em(B * H * N)
     scratch = em(_size("gps_front_backward_scratch", 4)(B, N, E, d))
     fn = build.cfunc("gps_front", "gps_front_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
-                              wnq, wc, wo, proj, attn, x_new, gate, s_attn,
-                              gx, gg, gsa, gpx, gpg, gpa, dx, de, dwnq, dbnq,
-                              dwc, dbc, dwo, dbo, dproj, dgate, gsa3, dy, do,
-                              scratch)),
+                              wnq, wc, wo, proj, attn, mrow, lrow, x_new,
+                              gate, s_attn, gx, gg, gsa, gpx, gpg, gpa, dx, de,
+                              dwnq, dbnq, dwc, dbc, dwo, dbo, dproj, dgate,
+                              gsa3, dy, do, drow, scratch)),
              B, N, E, d, H, float(scale),
              *_drop_args(seed, attn_rate, drop_rate), build.stream_of(dev))
     build.check_launch("gps_front_backward", err)
@@ -209,10 +217,10 @@ class _GpsFront(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *inputs):
         args, conf = inputs[:15], inputs[15:]
-        outs, (proj, attn) = _launch_forward(args, *conf)
+        outs, kept = _launch_forward(args, *conf)
         # the moment shifts cx/cg/ca are the norms' running means: kept as
         # the tensors given, which the norms replace (never update in place)
-        ctx.save_for_backward(*args, *outs[:3], proj, attn)
+        ctx.save_for_backward(*args, *outs[:3], *kept)
         ctx.conf = conf
         return outs
 
@@ -242,8 +250,8 @@ def fused_gps_front(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
     tensors and their (1, 2d) masked moment partials, all differentiable
     (x, e and the six weights get gradients; the masks, indices and shifts
     do not). CPU tensors take the plain version (autograd differentiates
-    it); CUDA tensors launch the kernel (N ≤ 128), and the backward kernel
-    when differentiated."""
+    it); CUDA tensors launch the kernel (N ≤ 128, heads of at most 128
+    columns), and the backward kernel when differentiated."""
     args = (x, e, s_loc, r_loc, emask, nmask, cx, cg, ca, wnq, bnq, wc, bc,
             wo, bo)
     if x.device.type == "cpu":

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device times and output bits of kernels of two checkouts, in turns, on
 one GPU: the FFN-block kernels ``combine_ffn`` and ``bn_ffn``, the layer
-front ``gps_front`` and the long-graph attention ``flash_mha`` and
-``wide_attention``, forward and backward, at the shapes of
-``chip_smoke.py`` phases 3, 3c, 3d, 3f and 3i. Used to hold a change to a
-shared body (``csrc/ffn_core.cuh``, ``csrc/mha_core.cuh``,
-``csrc/attn_tc.cuh``) to its parent's times and bits.
+front ``gps_front``, the GPS attention ``gps_attention`` and the long-graph
+attention ``flash_mha`` and ``wide_attention``, forward and backward, at
+the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3f, 3h and 3i. Used to
+hold a change to a shared body (``csrc/ffn_core.cuh``,
+``csrc/attn_tc.cuh``, ``csrc/gemm_tc.cuh``) to its parent's times and
+bits.
 
 Usage, from anywhere, each ROOT a checkout holding ``graphgps_torch/``::
 
@@ -22,8 +23,8 @@ card's name and power limit. The attention kernels' runs also carry the
 largest difference from their plain versions on the same inputs
 (``max_abs_err``; the summary gives each ROOT's largest), since a redesign
 of their body changes the summation order and so the bits. ``--kernels``
-picks some of ``combine_ffn``, ``bn_ffn``, ``gps_front``, ``flash_mha``,
-``wide_attention`` (by default all).
+picks some of ``combine_ffn``, ``bn_ffn``, ``gps_front``,
+``gps_attention``, ``flash_mha``, ``wide_attention`` (by default all).
 """
 from __future__ import annotations
 
@@ -39,11 +40,17 @@ import sys
 # slots, 96 edge slots, d 256, 8 heads); flash_mha (tag, B, N, H, Dh, with
 # a bias) at 3i's VOC attention (400-500 real nodes of 512 slots, no
 # dropout); wide_attention (tag, B, N, d, H, attention dropout) at 3d's VOC
-# layer at the recipe's rate and at 0
+# layer at the recipe's rate and at 0; gps_attention (tag, B, N, d, H,
+# attention dropout) at 3h's GPS-deep layer (256 graphs of 40 slots, 8 heads
+# of 32), at 64 graphs of 128 slots in 4 heads of 64 and at the pcqm4m-GPS
+# width (d 304 in 4 heads of 76, rate 0.5)
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
           "bn_ffn": [("S", 2560, 64), ("W", 20480, 304)],
           "gps_front": [("G", 10240, 256)],
+          "gps_attention": [("G", 256, 40, 256, 8, 0.1),
+                            ("E", 64, 128, 256, 4, 0.1),
+                            ("P", 256, 40, 304, 4, 0.5)],
           "flash_mha": [("V'", 32, 512, 4, 24, False),
                         ("V'b", 32, 512, 4, 24, True)],
           "wide_attention": [("V", 32, 512, 96, 4, 0.5),
@@ -101,10 +108,10 @@ def _front_case(torch, rnd, g, dev, R, d):
             w(d, d), vec(), w(d, d), vec())
     conf = (SEED, H, 1.0 / float(d // H) ** 0.5, RATE, RATE)
     fwd = lambda: gps_front._launch_forward(args, *conf)  # noqa: E731
-    outs, (proj, attn) = fwd()
+    outs, kept = fwd()
     cots = [rnd(*o.shape) for o in outs]
     bwd = lambda: gps_front.gps_front_backward(  # noqa: E731
-        *args, *conf, *cots, kept=(*outs[:3], proj, attn))
+        *args, *conf, *cots, kept=(*outs[:3], *kept))
     return (lambda: fwd()[0]), bwd
 
 
@@ -150,6 +157,25 @@ def _wide_case(torch, rnd, g, dev, B, N, d, H, rate):
             lambda: wa.wide_attention_backward(*args, *conf, cot, kept=kept),
             lambda: wa.wide_attention_plain(*args, *conf),
             lambda: wa.wide_attention_backward_plain(*args, *conf, cot))
+
+
+def _gps_attention_case(torch, rnd, g, dev, B, N, d, H, rate):
+    """gps_attention's forward and backward calls and their plain versions
+    on seeded inputs: ragged prefix node masks (a quarter to all of N)."""
+    from graphgps_torch.ops.kernels import gps_attention as ga
+
+    w = lambda *s: rnd(*s, scale=s[0] ** -0.5)  # noqa: E731
+    nodes = torch.randint(N // 4, N + 1, (B, 1), generator=g, device=dev)
+    kmask = (torch.arange(N, device=dev)[None] < nodes).float()
+    args = (rnd(B, N, d), kmask, w(d, 3 * d), rnd(3 * d, scale=0.1), w(d, d),
+            rnd(d, scale=0.1))
+    conf = (SEED, H, rate)
+    y, kept = ga._launch_forward(args, *conf)
+    cot = rnd(B, N, d)
+    return (lambda: ga._launch_forward(args, *conf)[0],
+            lambda: ga.gps_attention_backward(*args, *conf, cot, kept=kept),
+            lambda: ga.gps_attention_plain(*args, *conf),
+            lambda: ga.gps_attention_backward_plain(*args, *conf, cot))
 
 
 def _ffn_case(torch, rnd, name, R, d):
@@ -217,6 +243,9 @@ def _run_one(root: str, kernels) -> None:
                 fwd, bwd, *plain = _flash_case(torch, rnd, g, dev, *shape)
             elif name == "wide_attention":
                 fwd, bwd, *plain = _wide_case(torch, rnd, g, dev, *shape)
+            elif name == "gps_attention":
+                fwd, bwd, *plain = _gps_attention_case(torch, rnd, g, dev,
+                                                       *shape)
             else:
                 fwd, bwd = _ffn_case(torch, rnd, name, *shape)
             for kind, fn, ref in (("fwd", fwd, plain[0]),

@@ -504,3 +504,34 @@ def test_cuda_gps_attention_matches_plain(cuda_device, B, N, d, H):  # noqa: F81
             lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, SEED, H,
                                                    rate),
             [x, *w], (ga.fused_gps_attention, ga.gps_attention_backward))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 40, 128])
+@pytest.mark.parametrize("d,H", [(256, 8), (256, 4), (304, 4)])
+def test_cuda_gps_attention_key_mask(cuda_device, N, d, H):  # noqa: F811
+    """On the card: the key-mask mode of the tensor-core attention body
+    through ``fused_gps_attention`` against its plain version, on a key
+    mask that is not a prefix (each key real with probability 0.7, and one
+    graph with no real node), at N = 8, 40 and 128 node slots and heads of
+    32, 64 and 76 columns (GPS-deep, 128-slot graphs, pcqm4m-GPS), forward
+    and backward at rate 0 and 0.1: outputs and gradients close, two
+    backward runs equal in every bit, one launch of each wrapper per call."""
+    from graphgps_torch.ops.kernels import gps_attention as ga
+
+    B = 6
+    x, _, *w = (torch.from_numpy(a).to(cuda_device)
+                for a in _inputs(B, N, d, 5))
+    rng = np.random.default_rng(N + d + H)
+    km = (rng.random((B, N)) < 0.7).astype(np.float32)
+    km[2] = 0.0
+    km[3, 0] = 0.0
+    km[3, N - 1] = 1.0
+    kmask = torch.from_numpy(km).to(cuda_device)
+    for rate in (0.0, 0.1):
+        _hold_on_card(
+            lambda x_, *w_: ga.fused_gps_attention(x_, kmask, *w_, SEED, H,
+                                                   rate),
+            lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, SEED, H,
+                                                   rate),
+            [x, *w], (ga.fused_gps_attention, ga.gps_attention_backward))

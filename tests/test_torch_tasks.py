@@ -241,3 +241,22 @@ def test_molhiv_unported_settings_raise(tmp_path, key, val, what):
         main(["--device", "cpu", "--cfg", MOLHIV_CFG, *MOLHIV_SMALL, key, val,
               *extra, "optim.max_epoch", "1", "out_dir", str(tmp_path)])
     assert what in str(err.value)
+
+
+def test_edge_head_refusal_names_the_edge_head():
+    """``pcqm-contact-GPS.yaml`` (``gnn.head inductive_edge``): the stack
+    check refuses its head as an edge head for edge and link tasks, citing
+    ROADMAP Queue 1 item 17, and not as the default graph head."""
+    from graphgps_torch.config import load_cfg, new_cfg
+    from graphgps_torch.models.networks import check_stack_supported
+
+    cfg = new_cfg()
+    load_cfg(cfg, str(ROOT / "configs/GPS/pcqm-contact-GPS.yaml"))
+    assert cfg.gnn.head == "inductive_edge"
+    with pytest.raises(NotImplementedError) as err:
+        check_stack_supported(cfg)
+    msg = str(err.value)
+    assert "gnn.head='inductive_edge'" in msg
+    assert "an edge head, for edge and link tasks" in msg
+    assert "ROADMAP Queue 1 item 17" in msg
+    assert "default graph head" not in msg
