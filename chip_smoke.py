@@ -10,7 +10,9 @@ one. Phases, each fatal on failure:
    ``nvcc`` per source, all at once), and find tensor-core instructions
    (HMMA) in the SASS of every kernel of the attention body in the
    ``flash_mha``, ``wide_attention``, ``gps_attention`` and ``gps_front``
-   libraries, and of every kernel of the tensor-core GEMM in the last two;
+   libraries, and of every kernel of the tensor-core GEMM in the last two
+   and ``combine_ffn``, and f64 tensor-core instructions (DMMA) in every
+   instance of ``flash_mha``'s forward kernel;
 3. hold each forward kernel of the merged layer path against its plain
    PyTorch version on the card, on the inputs layer 0 of the first main path
    gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
@@ -81,6 +83,9 @@ one. Phases, each fatal on failure:
    slots, 400-500 real, 4 heads of 24) without a bias and with a seeded
    one, at wn-squirrel's one graph (5,248 slots, 5,201 real), and at heads
    of 20 columns and at 520 slots with a bias, all three on seeded inputs;
+   every forward output entry within FLASH_F64_ULPS f32 ulp of the plain
+   version evaluated in f64 and rounded to f32 (the forward computes in
+   f64 and rounds once);
    ``F.scaled_dot_product_attention`` with the same-segment mask
    (and the bias folded into a float mask) is held against the kernel and
    timed as ``library_ms``;
@@ -162,8 +167,9 @@ HBM rate and its operations at the rate ``bound_rate`` names: the f32 CUDA
 cores' 67 TFLOP/s, or for the kernels on the attention body and the
 tensor-core GEMM (``wide_attention`` and ``wide_attention_bwd``,
 ``flash_mha_bwd``, ``gps_front`` and ``gps_front_bwd``, ``gps_attention``
-and ``gps_attention_bwd``: 3xTF32 on the tensor cores) 495 / 3 = 165
-TFLOP/s. The line
+and ``gps_attention_bwd``, ``combine_ffn`` and ``combine_ffn_bwd``: 3xTF32
+on the tensor cores) 495 / 3 = 165 TFLOP/s, or for ``flash_mha``'s forward
+(f64 on the FP64 tensor cores) 67 TFLOP/s. The line
 before the last is ``{"kernels": [...]}`` (the six kernels
 of the merged path at GPS-deep's shapes, the four of the unmerged path at
 ogbg-molhiv's, the four of the long-graph rung at VOC's, the two of the
@@ -272,22 +278,26 @@ SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
 # rate batches of those three paths: fewer than SQUIRREL_RATE_BATCHES, so
 # the script stays inside its time limit
 SWITCH_RATE_BATCHES = 1
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
-# outside the tensor cores (most kernels run f32 on CUDA cores); the
-# attention body (csrc/attn_tc.cuh: wide_attention forward and backward,
-# flash_mha's backward, gps_attention's and gps_front's attention) and the
-# tensor-core GEMM (csrc/gemm_tc.cuh: gps_attention's and gps_front's
-# products) run 3xTF32 on the tensor cores, three TF32 products for each
-# f32 one, so their rows are bound at the TF32 peak over 3
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
+# operations' rates by the units that run them: f32 outside the tensor cores
+# (most kernels run f32 on CUDA cores); 3xTF32 on the tensor cores, three
+# TF32 products for each f32 one, so the TF32 peak over 3, for the attention
+# body (csrc/attn_tc.cuh: wide_attention forward and backward, flash_mha's
+# backward, gps_attention's and gps_front's attention) and the tensor-core
+# GEMM (csrc/gemm_tc.cuh: gps_attention's, gps_front's and combine_ffn's
+# products); f64 on the FP64 tensor cores for flash_mha's forward
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_3XTF32 = 495e12 / 3
-RATE_NAMES = {PEAK_F32: "f32 CUDA cores, 67 TFLOP/s",
-              PEAK_3XTF32: "3xTF32 tensor cores, 165 TFLOP/s"}
+PEAK_F32 = "f32 CUDA cores, 67 TFLOP/s"
+PEAK_3XTF32 = "3xTF32 tensor cores, 165 TFLOP/s"
+PEAK_F64_TC = "FP64 tensor cores, 67 TFLOP/s"
+PEAKS = {PEAK_F32: 67e12, PEAK_3XTF32: 495e12 / 3, PEAK_F64_TC: 67e12}
+# the libraries of the 3xTF32 attention body (HMMA in its attn_* kernels)
 TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention", "gps_attention",
                        "gps_front")
 # the libraries whose products run on the tensor-core GEMM
-GEMM_TC_SOURCES = ("gps_attention", "gps_front")
+GEMM_TC_SOURCES = ("gps_attention", "gps_front", "combine_ffn")
+# the libraries with f64 tensor-core kernels (DMMA), by kernel name
+DMMA_KERNELS = {"flash_mha": "flash_fwd_dmma"}
 # kernel vs plain version, both f32 on the card: the sums run in another
 # order (tiled GEMM vs cuBLAS, per-column loops vs index_add_)
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
@@ -353,6 +363,11 @@ SQUIRREL_SLOTS, SQUIRREL_NODES = 5248, 5201
 # and on seeded inputs: ((graphs, node slots, head width, a bias), tag)
 FLASH_ODD_CASES = (((16, 512, 20, False), "heads of 20"),
                    ((16, 520, 24, True), "520 slots, a bias"))
+# the forward runs in f64 and rounds once: every entry of its output within
+# this many f32 ulps of the plain version evaluated in f64 and rounded to
+# f32 (the two f64 results differ by f64 rounding, which can move a value
+# lying at an f32 rounding boundary by one ulp)
+FLASH_F64_ULPS = 1
 # phase 3j: the segment sums (rtol, atol x each tensor's largest entry:
 # the same adds as index_add_ in another order -- the kernel adds four rows
 # at a time and a hub's pieces in order, index_add_ in its atomics' order),
@@ -406,12 +421,15 @@ def check_tensor_cores(build) -> None:
     the libraries of TENSOR_CORE_SOURCES, and every kernel of the
     tensor-core GEMM (``gemm_tc_kernel``, csrc/gemm_tc.cuh) in those of
     GEMM_TC_SOURCES, holds tensor-core products: HMMA in ``cuobjdump
-    -sass``. Prints the counts (and the SHFL count: a quad's row max and
-    sum, no shuffle-broadcast loop) per library; fails on such a kernel
-    without HMMA, or on a library of GEMM_TC_SOURCES without GEMM
-    kernels."""
+    -sass``; every kernel named in DMMA_KERNELS holds f64 tensor-core
+    products, DMMA. Prints the counts (and the attention kernels' SHFL
+    count: a quad's row max and sum, no shuffle-broadcast loop) per library;
+    fails on such a kernel without them, or on a library without the
+    kernels its list names."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for name in TENSOR_CORE_SOURCES:
+    names = dict.fromkeys(TENSOR_CORE_SOURCES + GEMM_TC_SOURCES
+                          + tuple(DMMA_KERNELS))
+    for name in names:
         sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -419,26 +437,36 @@ def check_tensor_cores(build) -> None:
         for line in sass.splitlines():
             if line.strip().startswith("Function :"):
                 fn = line.split(":", 1)[1].strip()
-                counts[fn] = [0, 0]
-            elif fn is not None and "HMMA" in line:
-                counts[fn][0] += 1
-            elif fn is not None and "SHFL" in line:
-                counts[fn][1] += 1
+                counts[fn] = dict(HMMA=0, DMMA=0, SHFL=0)
+            elif fn is not None:
+                for op in counts[fn]:
+                    counts[fn][op] += op in line
         attn = {f: c for f, c in counts.items() if "attn_" in f}
         gemm = {f: c for f, c in counts.items() if "gemm_tc_kernel" in f}
+        dmma = {f: c for f, c in counts.items()
+                if name in DMMA_KERNELS and DMMA_KERNELS[name] in f}
         tc_kernels = {**attn, **gemm}
         print(json.dumps(dict(
             sass=name, attention_kernels=len(attn), gemm_tc_kernels=len(gemm),
-            hmma_per_kernel_min=min((c[0] for c in tc_kernels.values()),
+            hmma_per_kernel_min=min((c["HMMA"] for c in tc_kernels.values()),
                                     default=0),
-            hmma_total=sum(c[0] for c in tc_kernels.values()),
-            shfl_per_kernel_max=max((c[1] for c in attn.values()),
+            hmma_total=sum(c["HMMA"] for c in tc_kernels.values()),
+            shfl_per_kernel_max=max((c["SHFL"] for c in attn.values()),
+                                    default=0),
+            dmma_kernels=len(dmma),
+            dmma_per_kernel_min=min((c["DMMA"] for c in dmma.values()),
                                     default=0))), flush=True)
-        if not attn or any(c[0] == 0 for c in tc_kernels.values()):
+        if any(c["HMMA"] == 0 for c in tc_kernels.values()):
             fail(f"{name}: an attention or GEMM kernel without tensor-core "
                  "instructions (HMMA) in its SASS")
+        if name in TENSOR_CORE_SOURCES and not attn:
+            fail(f"{name}: no tensor-core attention kernel in its SASS")
         if name in GEMM_TC_SOURCES and not gemm:
             fail(f"{name}: no tensor-core GEMM kernel in its SASS")
+        if name in DMMA_KERNELS and (
+                not dmma or any(c["DMMA"] == 0 for c in dmma.values())):
+            fail(f"{name}: no {DMMA_KERNELS[name]} kernel with f64 "
+                 "tensor-core instructions (DMMA) in its SASS")
 
 
 def fail(msg: str) -> None:
@@ -651,14 +679,14 @@ def timings(torch, fn, plain, library=None) -> dict:
                 wall_ms=time_ms(torch, fn), plain_wall_ms=time_ms(torch, plain))
 
 
-def bound(n_bytes: int, flops: int, peak: float = PEAK_F32) -> dict:
+def bound(n_bytes: int, flops: int, peak: str = PEAK_F32) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    the operations over ``peak`` (the f32 CUDA cores' by default),
-    whichever is larger; ``bound_rate`` names the rate."""
-    byte_s, flop_s = n_bytes / PEAK_BYTES, flops / peak
+    the operations over the rate ``peak`` names (the f32 CUDA cores' by
+    default), whichever is larger; ``bound_rate`` names the rate."""
+    byte_s, flop_s = n_bytes / PEAK_BYTES, flops / PEAKS[peak]
     return dict(bound_ms=max(byte_s, flop_s) * 1e3,
                 bound_by="bytes" if byte_s >= flop_s else "operations",
-                bound_rate=RATE_NAMES[peak])
+                bound_rate=peak)
 
 
 def forward_case(torch, c, shapes: dict) -> dict:
@@ -722,6 +750,7 @@ def check_kernels(torch, cfg, splits, device):
     from graphgps_torch.driver import create_loaders
     from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
                                                          fused_combine_ffn)
+    from graphgps_torch.ops.kernels.gatedgcn import fused_gatedgcn
     from graphgps_torch.ops.kernels.gps_front import (fused_gps_front,
                                                        gps_front_plain)
     from graphgps_torch.ops.kernels.pre_tail import (fused_pre_tail,
@@ -765,11 +794,24 @@ def check_kernels(torch, cfg, splits, device):
         dict(name="combine_ffn", fn=fused_combine_ffn, plain=combine_ffn_plain,
              args=comb_args, source="graphgps_torch/csrc/combine_ffn.cu",
              replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
-             flops=4 * n_real * d * dh),
+             # the FFN's two products (3xTF32 tensor cores)
+             flops=4 * n_real * d * dh, peak=PEAK_3XTF32),
     ]
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
                   real_edges=e_real)
     results = [forward_case(torch, c, shapes) for c in cases]
+    # the GatedGCN core as GPS-deep's layers with the front off run it
+    # (G'), forward and backward: printed, not in the kernels line, which
+    # takes ogbg-molhiv's rows (3c)
+    with torch.no_grad():
+        gin = gg.core_args(batch, x, e, layer.node_proj())
+        gout = fused_gatedgcn(*gin)
+    ggcn = gatedgcn_cases(torch, gin, gg, batch, gout[0].reshape(-1, d),
+                          gout[1].reshape(-1, d),
+                          cotangents(torch, SEED + 17, device))
+    at = dict(shapes, path="pcqm4m-GPSdeep front-off")
+    forward_case(torch, ggcn[0], at)
+    backward_case(torch, ggcn[1], DROP_SEED, 0.0, at)
     layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
                   n_real=n_real, e_real=e_real, attn_pairs=attn_pairs,
                   B=B, N=N, E=E, d=d, H=H, dh=dh)
@@ -895,7 +937,8 @@ def combine_backward_case(torch, cin, cconf, cots_for, R: int, d: int,
                 sites=[("local tail", R, d), ("FFN inner", R, dh),
                        ("FFN outer", R, d)],
                 # dU = dA2 W2^T, dH = dA1 W1^T, dW1 = H^T dA1, dW2 = Z^T dA2
-                flops=8 * n_real * d * dh)
+                # (3xTF32 tensor cores)
+                flops=8 * n_real * d * dh, peak=PEAK_3XTF32)
 
 
 def check_backward(torch, layer0):
@@ -956,6 +999,48 @@ def check_backward(torch, layer0):
     return [backward_case(torch, c, seed, rate, shapes) for c in cases]
 
 
+def gatedgcn_cases(torch, gin, gg, batch, xo, gate, cots_for):
+    """The GatedGCN core's forward and backward cases on its inputs ``gin``
+    (``gg.core_args`` of ``batch``), with the scales of its moment sums
+    from its outputs ``xo`` and ``gate``; ``cots_for`` draws the backward's
+    cotangents."""
+    from graphgps_torch.ops.kernels import gatedgcn
+
+    d = xo.shape[-1]
+    n_real = int(batch.node_mask.sum())
+    e_real = int(batch.edge_mask.sum())
+    # the core per real edge and column: two gathers' adds, the sigmoid
+    # (~6), the message product, two accumulations, two moment terms; per
+    # real node the division, the add and two moment terms
+    core = 14 * e_real * d + 6 * n_real * d
+    src = "graphgps_torch/csrc/gatedgcn.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_gatedgcn.py"
+
+    def run(cots=None):
+        outs, proj = gatedgcn._launch_forward(gin)
+        cots = cots or cots_for(outs)
+        return cots, lambda: gatedgcn.gatedgcn_backward(
+            *gin, *cots, kept=(outs[0], outs[1], proj))
+
+    fwd = dict(name="gatedgcn", fn=gatedgcn.fused_gatedgcn,
+               plain=gatedgcn.gatedgcn_plain, args=gin, source=src,
+               replaces=f"{tpu}:279",
+               moment_scales=[
+                   moment_scale(torch, xo, batch.node_mask,
+                                gg.norm_x.running_mean),
+                   moment_scale(torch, gate, batch.edge_mask,
+                                gg.norm_e.running_mean)],
+               flops=2 * n_real * d * 4 * d + 2 * e_real * d * d + core)
+    bwd = dict(name="gatedgcn_bwd", run=run,
+               plain=lambda c: gatedgcn.gatedgcn_backward_plain(*gin, *c),
+               inputs=tensors(gin), source=src, replaces=f"{tpu}:349",
+               sites=[],
+               # dx, dWn (4d wide), de, dWc, and about twice the forward's
+               # core (sigma and the quotient recomputed, five scatters)
+               flops=4 * n_real * d * 4 * d + 4 * e_real * d * d + 2 * core)
+    return fwd, bwd
+
+
 def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
     """Phase 3c: the four functions of the unmerged layer path (GatedGCN
     core, edge tail, drop-add, combine+FFN), forward and backward with
@@ -998,22 +1083,12 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
     e_real = int(batch.edge_mask.sum())
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
                   real_edges=e_real)
-    # the core per real edge and column: two gathers' adds, the sigmoid
-    # (~6), the message product, two accumulations, two moment terms; per
-    # real node the division, the add and two moment terms
-    core = 14 * e_real * d + 6 * n_real * d
-    ggcn_src = "graphgps_torch/csrc/gatedgcn.cu"
     da_src = "graphgps_torch/csrc/drop_add.cu"
+    cots_for = cotangents(torch, SEED + 6, device)
+    ggcn_fwd, ggcn_bwd = gatedgcn_cases(torch, gin, gg, batch, xo, gate,
+                                        cots_for)
     fwd = [
-        dict(name="gatedgcn", fn=gatedgcn.fused_gatedgcn,
-             plain=gatedgcn.gatedgcn_plain, args=gin, source=ggcn_src,
-             replaces="graphgps_tpu/ops/pallas/fused_gatedgcn.py:279",
-             moment_scales=[
-                 moment_scale(torch, xo, batch.node_mask,
-                              gg.norm_x.running_mean),
-                 moment_scale(torch, gate, batch.edge_mask,
-                              gg.norm_e.running_mean)],
-             flops=2 * n_real * d * 4 * d + 2 * e_real * d * d + core),
+        ggcn_fwd,
         dict(name="pre_tail", fn=pre_tail.fused_pre_tail,
              plain=pre_tail.pre_tail_plain, args=(*tin, *tconf),
              source="graphgps_torch/csrc/pre_tail.cu",
@@ -1029,17 +1104,9 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
              plain=combine_ffn.combine_ffn_plain, args=(*cin, *cconf),
              source="graphgps_torch/csrc/combine_ffn.cu",
              replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
-             flops=4 * n_real * d * dh),
+             flops=4 * n_real * d * dh, peak=PEAK_3XTF32),
     ]
     rows = [forward_case(torch, c, shapes) for c in fwd]
-
-    cots_for = cotangents(torch, SEED + 6, device)
-
-    def run_core(cots=None):
-        outs, proj = gatedgcn._launch_forward(gin)
-        cots = cots or cots_for(outs)
-        return cots, lambda: gatedgcn.gatedgcn_backward(
-            *gin, *cots, kept=(outs[0], outs[1], proj))
 
     def run_drop_add(cots=None):
         out = drop_add._launch_forward(x, h_attn, seed, rate)
@@ -1047,14 +1114,7 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
         return cots, lambda: (drop_add.drop_add_backward(cots[0], seed, rate),)
 
     bwd = [
-        dict(name="gatedgcn_bwd", run=run_core,
-             plain=lambda c: gatedgcn.gatedgcn_backward_plain(*gin, *c),
-             inputs=tensors(gin), source=ggcn_src,
-             replaces="graphgps_tpu/ops/pallas/fused_gatedgcn.py:349",
-             sites=[],
-             # dx, dWn (4d wide), de, dWc, and about twice the forward's
-             # core (sigma and the quotient recomputed, five scatters)
-             flops=4 * n_real * d * 4 * d + 4 * e_real * d * d + 2 * core),
+        ggcn_bwd,
         tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_real),
         dict(name="drop_add_bwd", run=run_drop_add,
              plain=lambda c: (drop_add.drop_add_backward_plain(
@@ -1749,14 +1809,15 @@ def check_gps_attention(torch, layer0, device):
 
 def flash_cases(torch, q, k, v, mask, bias, tag: str):
     """The flash attention's rows on (q, k, v, mask, bias): forward and
-    backward against the plain version, and
+    backward against the plain version, the forward also within
+    FLASH_F64_ULPS of the plain version in f64 rounded to f32, and
     ``F.scaled_dot_product_attention`` with the same logits' mask (the
     boolean same-segment mask; with a bias, the float mask bias·scale plus
     the library's mask value across segments) held against the kernel and
     timed as ``library_ms`` (used nowhere in the port)."""
     import torch.nn.functional as F
     from graphgps_torch.ops.kernels.flash_mha import (
-        MASK_VALUE, _launch_forward, flash_mha, flash_mha_backward,
+        MASK_VALUE, _launch_forward, f32_ulps, flash_mha, flash_mha_backward,
         flash_mha_backward_plain, flash_mha_plain)
 
     B, H, N, Dh = q.shape
@@ -1798,8 +1859,8 @@ def flash_cases(torch, q, k, v, mask, bias, tag: str):
 
     fwd = dict(name="flash_mha", fn=flash_mha, plain=flash_mha_plain,
                args=ins, tol=tol, source=src, replaces=f"{tpu}:67",
-               library=library,
-               # q k^T and P v over the pairs with weight
+               library=library, peak=PEAK_F64_TC,
+               # q k^T and P v over the pairs with weight (f64 tensor cores)
                flops=4 * pairs * Dh)
     bwd = dict(name="flash_mha_bwd", run=run,
                plain=lambda c: grads(flash_mha_backward_plain(*ins, c[0])),
@@ -1816,6 +1877,18 @@ def flash_cases(torch, q, k, v, mask, bias, tag: str):
         y = flash_mha(*ins)
         y_lib = library()
         lib_err = float((y - y_lib).abs().max())
+        y64 = flash_mha_plain(*(None if t is None else t.double()
+                                for t in (q, k, v)), mask,
+                              None if bias is None else bias.double())
+        ulps = f32_ulps(y, y64.float())
+    print(json.dumps(dict(
+        note="flash_mha's forward against the plain version in f64 rounded "
+             "to f32", max_ulps=int(ulps.max()),
+        entries_differing=int((ulps > 0).sum()), entries=ulps.numel(),
+        ulps_allowed=FLASH_F64_ULPS, shape=tag, shapes=at)), flush=True)
+    if int(ulps.max()) > FLASH_F64_ULPS:
+        fail(f"flash_mha on {tag}: an output entry {int(ulps.max())} f32 "
+             "ulps from the plain version in f64 rounded to f32")
     print(json.dumps(dict(
         note="F.scaled_dot_product_attention against flash_mha; not used in "
              "the port", library_vs_kernel_max_abs_err=lib_err,

@@ -5,9 +5,10 @@
 //
 // It stands for the attention of four TPU kernels:
 // graphgps_tpu/ops/pallas/flash_mha.py:67 flash_mha (the library's flash
-// kernel; here its backward, the forward staying on flash_mha.cu's CUDA-core
-// loop, whose notes say why), fused_attn_wide.py:244 fused_wide_attention
-// with its backward _vjp_bwd :297, and the attention of graphs of at most 128
+// kernel; here its backward, the forward running in f64 on the FP64
+// tensor cores in flash_mha.cu, whose notes say why),
+// fused_attn_wide.py:244 fused_wide_attention with its backward _vjp_bwd
+// :297, and the attention of graphs of at most 128
 // node slots, _attn_fwd_all (fused_gps_attn.py:121) with its hand-written
 // backward, inside fused_gps_attention (fused_gps_attn.py:279) and the layer
 // front fused_gps_front (fused_layer.py:270). Each caller's semantics are a
@@ -333,8 +334,8 @@ __device__ __forceinline__ bool key_real(uint32_t bits, int j) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward (WIDE, KMASK): o and the row maxima and sums. (flash_mha.cu keeps
-// its CUDA-core forward; its notes say why.)
+// Forward (WIDE, KMASK): o and the row maxima and sums. (flash_mha.cu has
+// its own forward, in f64; its notes say why.)
 
 template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {

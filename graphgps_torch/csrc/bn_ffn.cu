@@ -25,6 +25,7 @@
 // dmu = -sum ds, dinv = sum dh * gamma * (s - mu), dgamma = sum dh * (s - mu)
 // * inv, dbeta = sum dh, added in a fixed order (no float atomics), so two
 // runs give the same bits.
+#include "gemm.cuh"
 #include "ffn_core.cuh"
 
 namespace ggps {
@@ -89,14 +90,15 @@ extern "C" int bn_ffn_forward(const float* s, const float* mu, const float* inv,
                                                                    h, total, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return ffn_core_forward(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
-                          make_drop(seed, 1, t1, scale), make_drop(seed, 2, t2, scale), st);
+  return ffn_core_forward<Gemm>(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
+                                make_drop(seed, 1, t1, scale),
+                                make_drop(seed, 2, t2, scale), st);
 }
 
 // floats of scratch bn_ffn_backward needs (reused by its passes in turn)
 extern "C" long long bn_ffn_backward_scratch(int R, int d, int dh) {
   const long long part = 4 * (long long)row_chunks(R) * d;
-  const long long core = ffn_core_scratch(R, d, dh);
+  const long long core = ffn_core_scratch<Gemm>(R, d, dh);
   return part > core ? part : core;
 }
 
@@ -114,10 +116,9 @@ extern "C" int bn_ffn_backward(const float* s, const float* mu, const float* inv
                                unsigned int seed, int t1, int t2, float scale,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = ffn_core_backward(h, a1, z, g, w1, w2, dhh, dw1, db1, dw2, db2, da2,
-                                      da1, scratch, R, d, dh, act,
-                                      make_drop(seed, 1, t1, scale),
-                                      make_drop(seed, 2, t2, scale), st);
+  cudaError_t err = ffn_core_backward<Gemm>(
+      h, a1, z, g, w1, w2, dhh, dw1, db1, dw2, db2, da2, da1, scratch, R, d, dh, act,
+      make_drop(seed, 1, t1, scale), make_drop(seed, 2, t2, scale), st);
   if (err != cudaSuccess) return err;
   const int chunks = row_chunks(R);
   const dim3 blk(COLS, ROW_WARPS);

@@ -11,15 +11,18 @@
 // FFN inner (R, dh) view, 2 the FFN outer (R, d) view.
 //
 // Bound on the H100: the FFN's products (forward 4*R*d*dh f32 operations,
-// backward twice that), so operations. Design, in launches on the caller's
-// stream. Forward: an elementwise prologue forms h, then the shared FFN block
-// (ffn_core.cuh) computes out = h + drop2(W2 drop1(act(W1 h + b1)) + b2).
+// backward twice that), so operations; they run 3xTF32 on the tensor cores
+// (gemm_tc.cuh, 165 TFLOP/s). Design, in launches on the caller's stream.
+// Forward: an elementwise prologue forms h, then the shared FFN block
+// (ffn_core.cuh over tc::Gemm) computes out = h + drop2(W2 drop1(act(W1 h +
+// b1)) + b2).
 // When a backward will follow, the forward keeps h, the pre-activation
 // a1 = h W1 + b1 and z (saving them costs 2*R*dh + R*d floats a layer;
 // recomputing would cost a third product). Backward: the FFN block's
 // backward gives dh, dW1, db1, dW2, db2; then one pass over dh gives
 // ds_attn, dv_loc and per-chunk partials of the eight norm-vector sums,
 // added in a fixed order (no float atomics), so two runs give the same bits.
+#include "gemm_tc.cuh"
 #include "ffn_core.cuh"
 
 namespace ggps {
@@ -108,14 +111,15 @@ extern "C" int combine_ffn_forward(
       make_drop(seed, 0, t, scale));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return ffn_core_forward(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
-                          make_drop(seed, 1, t, scale), make_drop(seed, 2, t, scale), st);
+  return ffn_core_forward<tc::Gemm>(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
+                                    make_drop(seed, 1, t, scale),
+                                    make_drop(seed, 2, t, scale), st);
 }
 
 // floats of scratch combine_ffn_backward needs (reused by its passes in turn)
 extern "C" long long combine_ffn_backward_scratch(int R, int d, int dh) {
   const long long part = 8 * (long long)row_chunks(R) * d;
-  const long long core = ffn_core_scratch(R, d, dh);
+  const long long core = ffn_core_scratch<tc::Gemm>(R, d, dh);
   return part > core ? part : core;
 }
 
@@ -133,10 +137,9 @@ extern "C" int combine_ffn_backward(
     float* scratch, int R, int d, int dhid, int act, unsigned int seed, int t,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = ffn_core_backward(h, a1, z, g, w1, w2, dh, dw1, db1, dw2, db2, da2,
-                                      da1, scratch, R, d, dhid, act,
-                                      make_drop(seed, 1, t, scale),
-                                      make_drop(seed, 2, t, scale), st);
+  cudaError_t err = ffn_core_backward<tc::Gemm>(
+      h, a1, z, g, w1, w2, dh, dw1, db1, dw2, db2, da2, da1, scratch, R, d, dhid, act,
+      make_drop(seed, 1, t, scale), make_drop(seed, 2, t, scale), st);
   if (err != cudaSuccess) return err;
   const int chunks = row_chunks(R);
   const dim3 blk(COLS, ROW_WARPS);

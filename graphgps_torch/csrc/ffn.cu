@@ -20,6 +20,7 @@
 // buffers), then runs the block's backward: dh = g + da1 W1^T and the weight
 // and bias gradients, the column sums in a fixed order, so two runs give the
 // same bits.
+#include "gemm.cuh"
 #include "ffn_core.cuh"
 
 using namespace ggps;
@@ -31,14 +32,15 @@ extern "C" int ffn_forward(const float* h, const float* w1, const float* b1,
                            const float* w2, const float* b2, float* out, float* z,
                            float* a1, int R, int d, int dh, int act, unsigned int seed,
                            int t1, int t2, float scale, void* stream) {
-  return ffn_core_forward(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
-                          make_drop(seed, 1, t1, scale), make_drop(seed, 2, t2, scale),
-                          static_cast<cudaStream_t>(stream));
+  return ffn_core_forward<Gemm>(h, w1, b1, w2, b2, out, z, a1, R, d, dh, act,
+                                make_drop(seed, 1, t1, scale),
+                                make_drop(seed, 2, t2, scale),
+                                static_cast<cudaStream_t>(stream));
 }
 
 // floats of scratch ffn_backward needs
 extern "C" long long ffn_backward_scratch(int R, int d, int dh) {
-  return ffn_core_scratch(R, d, dh);
+  return ffn_core_scratch<Gemm>(R, d, dh);
 }
 
 // Inputs: h (R, d), W1 (d, dh), b1 (dh,), W2 (dh, d), the cotangent g (R, d).
@@ -60,7 +62,7 @@ extern "C" int ffn_backward(const float* h, const float* w1, const float* b1,
   e1.drop = drop1;
   cudaError_t err = gemm_nn(h, w1, z, R, dhid, d, e1, st);
   if (err != cudaSuccess) return err;
-  return ffn_core_backward(h, a1, z, g, w1, w2, dh, dw1, db1, dw2, db2, da2, da1,
-                           scratch, R, d, dhid, act, drop1,
-                           make_drop(seed, 2, t2, scale), st);
+  return ffn_core_backward<Gemm>(h, a1, z, g, w1, w2, dh, dw1, db1, dw2, db2, da2, da1,
+                                 scratch, R, d, dhid, act, drop1,
+                                 make_drop(seed, 2, t2, scale), st);
 }

@@ -6,8 +6,11 @@
 //   z   = drop1(act(a1))                 (R, dh)
 //   out = h + drop2(z W2 + b2)           (R, d)
 //
-// Forward: two shared GEMMs (gemm.cuh) with bias, activation, dropout and
-// the residual in their epilogues; a1 is stored when a backward will need it.
+// Forward: two GEMMs with bias, activation, dropout and the residual in
+// their epilogues; a1 is stored when a backward will need it. The includer
+// picks the GEMM as the template argument Products: tc::Gemm (gemm_tc.cuh,
+// 3xTF32 on the tensor cores) for combine_ffn.cu, Gemm (gemm.cuh, f32 on the
+// CUDA cores) for ffn.cu and bn_ffn.cu; both share common.cuh's epilogue.
 // Backward, given g = d out and the forward's h, a1 and z: da2 = drop2(g) with
 // its column sum (db2); du = da2 W2^T (NT GEMM); da1 = drop1(du) * act'(a1)
 // with its column sum (db1); dh = g + da1 W1^T (NT GEMM, residual epilogue);
@@ -18,12 +21,13 @@
 // on chip, as the TPU kernels do in VMEM, is later work.
 #pragma once
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace ggps {
 namespace {
 
 // z and out from h; a1 (R, dh) stored when not null.
+template <class Products>
 inline cudaError_t ffn_core_forward(const float* h, const float* w1, const float* b1,
                                     const float* w2, const float* b2, float* out,
                                     float* z, float* a1, int R, int d, int dh, int act,
@@ -33,26 +37,29 @@ inline cudaError_t ffn_core_forward(const float* h, const float* w1, const float
   e1.pre = a1;
   e1.act = act;
   e1.drop = drop1;
-  cudaError_t err = gemm_nn(h, w1, z, R, dh, d, e1, st);
+  cudaError_t err = Products::nn(h, w1, z, R, dh, d, e1, st);
   if (err != cudaSuccess) return err;
   Epi e2;
   e2.bias = b2;
   e2.res = h;
   e2.drop = drop2;
-  return gemm_nn(z, w2, out, R, d, dh, e2, st);
+  return Products::nn(z, w2, out, R, d, dh, e2, st);
 }
 
 // floats of scratch ffn_core_backward needs (its passes reuse it in turn)
+template <class Products>
 inline long long ffn_core_scratch(int R, int d, int dh) {
   const long long chunks = row_chunks(R);
   long long s = chunks * (d > dh ? d : dh);
-  s = s > (long long)tn_scratch(d, dh, R) ? s : (long long)tn_scratch(d, dh, R);
-  s = s > (long long)tn_scratch(dh, d, R) ? s : (long long)tn_scratch(dh, d, R);
-  return s;
+  const long long w1 = (long long)Products::scratch(d, dh, R);
+  const long long w2 = (long long)Products::scratch(dh, d, R);
+  s = s > w1 ? s : w1;
+  return s > w2 ? s : w2;
 }
 
 // dh = g + da1 W1^T (R, d), dw1 (d, dh), db1 (dh,), dw2 (dh, d), db2 (d,).
 // Work: da2 (R, d), da1 (R, dh), scratch (ffn_core_scratch floats).
+template <class Products>
 inline cudaError_t ffn_core_backward(const float* h, const float* a1, const float* z,
                                      const float* g, const float* w1, const float* w2,
                                      float* dh, float* dw1, float* db1, float* dw2,
@@ -68,7 +75,7 @@ inline cudaError_t ffn_core_backward(const float* h, const float* a1, const floa
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
   // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
-  if ((err = gemm_nt(da2, w2, da1, R, dhid, d, Epi(), st)) != cudaSuccess) return err;
+  if ((err = Products::nt(da2, w2, da1, R, dhid, d, Epi(), st)) != cudaSuccess) return err;
   drop_grad_kernel<<<dim3(cdiv(dhid, COLS), chunks), blk, 0, st>>>(da1, a1, da1, scratch,
                                                                     R, dhid, act, drop1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -77,10 +84,11 @@ inline cudaError_t ffn_core_backward(const float* h, const float* a1, const floa
   // dh = g + da1 W1^T: the residual rides h
   Epi eres;
   eres.res = g;
-  if ((err = gemm_nt(da1, w1, dh, R, d, dhid, eres, st)) != cudaSuccess) return err;
+  if ((err = Products::nt(da1, w1, dh, R, d, dhid, eres, st)) != cudaSuccess) return err;
   // weight gradients over all R rows
-  if ((err = gemm_tn(h, da1, dw1, d, dhid, R, scratch, st)) != cudaSuccess) return err;
-  return gemm_tn(z, da2, dw2, dhid, d, R, scratch, st);
+  if ((err = Products::tn(h, da1, dw1, d, dhid, R, scratch, st)) != cudaSuccess)
+    return err;
+  return Products::tn(z, da2, dw2, dhid, d, R, scratch, st);
 }
 
 }  // namespace

@@ -21,20 +21,39 @@
 // about 2.5 times that backward; with a bias the (B, H, N, N) bias read (and
 // dbias written) is the larger term in bytes.
 //
-// Forward (flash_fwd_kernel), f32 on the CUDA cores: one block per (graph,
-// head, 32 query rows), 8 warps of 4 query rows. Keys, values and key ids
-// come through shared memory in tiles of 64; per 32 keys a lane holds one
-// key, forms the 4 rows' logits against the q rows in shared memory (the
-// bias read straight from device memory, neighbouring lanes on neighbouring
-// keys), the warp takes the online softmax step (running max m and sum l per
-// row), and then a lane holds one column of the head and adds p_j * v_j with
-// p_j handed round by shuffle. The N x N scores exist only in registers.
-// Each row's log-sum-exp m + log(l) is written out for the backward. The
-// forward stays on this loop, not on the tensor-core body: on VOC under
-// flash the attention output's bits decide which side of a kink some units
-// of the ill-conditioned training step fall on, and the body's forward
-// (more accurate, other bits) moved one clean weight entry of
-// chip_smoke.py's card-vs-CPU step (4c) out of its tolerance (PERF.md).
+// Forward (flash_fwd_dmma), in f64 on the FP64 tensor cores: the f32
+// inputs are exact in f64, and the logits (q k^T on DMMA, tc_mma.cuh dmma;
+// the bias, the scale 1/sqrt(Dh) in f64 and the mask value added in f64),
+// the online softmax (row max, CUDA's f64 exp, row sum) and P v (DMMA)
+// all run in f64; only o and the rows' log-sum-exps m + log(l) are rounded
+// to f32, once. So o is the exact attention correctly rounded to within f64
+// rounding: the bits of the plain version evaluated in f64 and rounded
+// (chip_smoke.py 3i holds every entry within 1 f32 ulp of them). On VOC
+// under flash that matters: its training step has relu units within
+// rounding of the kink, which side they fall on follows the attention
+// output's bits, and every f32 tensor-core forward (3xTF32, more accurate
+// than the f32 loop it would replace, other bits) moved one clean weight
+// entry of chip_smoke.py's card-vs-CPU step (4c) out of its tolerance; the
+// f64 output rounded to f32 passes (PERF.md §6).
+//
+// Layout: a block owns R = 16 * WARPS query rows of one (graph, head), a
+// warp 16; keys and values come through shared memory in tiles of KT rows,
+// copied raw by cp.async (double-buffered) and, once landed, widened once
+// into an f64 k plane [KT][LDK] and an f64 v^T plane [DP][LDV] that every
+// warp reads, with the tile's key segment ids. The head is zero-padded to
+// DP columns (a multiple of 8; 96 or 128 above 64). Both products permute
+// their k index so that a lane's two B values are neighbours in shared
+// memory, read as one 16-byte load: in q k^T k = t stands for head column
+// 2t and t + 4 for 2t + 1 (q's A fragment follows); in P v k = t stands for
+// key 2t and t + 4 for 2t + 1, which is also how P leaves the C fragment of
+// q k^T (a lane holds keys 2t, 2t + 1), so P becomes the A operand without
+// data movement. LDK and LDV are 8 mod 16 doubles: a quarter warp's eight
+// 16-byte reads hit distinct banks. A warp's q rows sit in registers up to
+// 32 columns, wider in an f64 shared plane. S stays in registers as DMMA C
+// fragments: a row's max reduces within its lane quad, its sum is kept per
+// lane and reduced once at the end. Bound: operations, 4 N^2 Dh per (graph,
+// head) on the FP64 tensor cores (67 TFLOP/s) plus the f64 exp of every
+// logit on the f64 CUDA cores; with a bias its N^2 floats read.
 //
 // Backward, the FLASH mode of the tensor-core body attn_tc.cuh (3xTF32
 // mma.sync; its notes give the layout), with no float atomics: a dq pass per
@@ -48,168 +67,253 @@
 namespace ggps {
 namespace {
 
-constexpr int FA_WARPS = 8;
-constexpr int FA_ROWS = 4;                    // rows a warp carries at once
-constexpr int FA_BLOCK = FA_WARPS * FA_ROWS;  // rows per block (queries, or keys in dkv)
-constexpr int FA_TILE = 64;                   // rows of the other side per shared tile
-// ops/kernels/flash_mha.py MAX_HEAD_DIM: four column registers per lane in
-// the forward, 2 warps and tiles of 32 in the body's backward
+// ops/kernels/flash_mha.py MAX_HEAD_DIM: the widest padded head of the
+// forward's instantiations and of the body's backward
 constexpr int FA_MAX_DH = 128;
-using tc::FA_MASK;
+// the library's DEFAULT_MASK_VALUE in f64, as the plain version adds it
+constexpr double FA_MASK_F64 = -0.7 * 3.4028234663852886e38;
 using tc::FULL;
 
-__device__ __forceinline__ float wmax(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+// Shapes of the f64 forward at a head width padded to DP columns.
+template <int DP>
+struct Fwd {
+  static constexpr int KS = DP / 8;                 // k-steps over the head
+  static constexpr int WARPS = DP <= 64 ? 4 : 2;
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int R = 16 * WARPS;              // query rows a block owns
+  // keys of a staged tile and of a register step: fewer for wide heads, so
+  // that two blocks fit an SM's shared memory and the sums its registers
+  static constexpr int KT = DP <= 32 ? 64 : DP <= 64 ? 32 : 16;
+  static constexpr int SUB = DP <= 64 ? 32 : 16;
+  static constexpr bool QREG = DP <= 32;            // q fragments in registers
+  static constexpr int LDR = DP + 4;                // raw f32 row stride
+  static constexpr int LDK = DP % 16 == 8 ? DP : DP + 8;  // f64 k and q rows
+  static constexpr int LDV = KT + 8;                // f64 v^T rows
+  static constexpr size_t smem = ((size_t)KT * LDK + (size_t)DP * LDV +
+                                  (QREG ? 0 : (size_t)R * LDK)) * 8 +
+                                 (size_t)4 * KT * LDR * 4 + (size_t)KT * 4;
+};
+
+__device__ __forceinline__ double quad_max(double v) {
+  v = fmax(v, __shfl_xor_sync(FULL, v, 1));
+  return fmax(v, __shfl_xor_sync(FULL, v, 2));
 }
 
-__device__ __forceinline__ float wsum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+__device__ __forceinline__ double quad_sum(double v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
 }
 
-// rows row0 .. row0 + rows of one head's (N, Dh) matrix into shared rows of
-// stride ld; rows from N on are zero
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int rows, int N, int Dh, int ld) {
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int i = tid; i < rows * Dh; i += 32 * FA_WARPS) {
-    const int r = i / Dh, t = i % Dh;
-    dst[r * ld + t] = row0 + r < N ? src[(size_t)(row0 + r) * Dh + t] : 0.0f;
-  }
+// Two neighbouring f64 values of a shared plane (p 16-byte aligned).
+__device__ __forceinline__ double2 pair(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
 }
 
-// ids of rows row0 .. row0 + rows of graph b's (N,) segment ids; 0 from N on
-__device__ __forceinline__ void load_ids(int* dst, const int* __restrict__ ids,
-                                         int row0, int rows, int N) {
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  if (tid < rows) dst[tid] = row0 + tid < N ? ids[row0 + tid] : 0;
-}
+template <int DP>
+__global__ void __launch_bounds__(Fwd<DP>::NT)
+flash_fwd_dmma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ ids,
+               const float* __restrict__ bias, float* __restrict__ o,
+               float* __restrict__ lse, int N, int H, int Dh, double scale, bool vec4) {
+  using C = Fwd<DP>;
+  constexpr int KS = C::KS, R = C::R, KT = C::KT, NT = C::NT, NS = C::SUB / 8;
+  constexpr int LDK = C::LDK, LDV = C::LDV, LDR = C::LDR;
+  extern __shared__ __align__(16) double fsmem[];
+  double* Kp = fsmem;                                   // [KT][LDK] k rows
+  double* Vt = Kp + KT * LDK;                           // [DP][LDV] v columns
+  double* Qs = Vt + DP * LDV;                           // [R][LDK] unless QREG
+  float* raw = reinterpret_cast<float*>(Qs + (C::QREG ? 0 : R * LDK));  // [2][k, v][KT][LDR]
+  int* Is = reinterpret_cast<int*>(raw + 4 * KT * LDR);  // [KT] key segment ids
 
-// the logit of a (query, key) pair from its dot product, as the library forms it
-__device__ __forceinline__ float logit(float dot, const float* brow, int j, float scale,
-                                       bool same) {
-  float s = dot;
-  if (brow != nullptr) s += brow[j];
-  s *= scale;
-  return same ? s : s + FA_MASK;
-}
-
-template <int ACC>
-__global__ void __launch_bounds__(32 * FA_WARPS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ ids,
-                 const float* __restrict__ bias, float* __restrict__ o,
-                 float* __restrict__ lse, int N, int H, int Dh, float scale) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;
-  float* Qs = smem;                    // [FA_BLOCK][ld]
-  float* Ks = Qs + FA_BLOCK * ld;      // [FA_TILE][ld]
-  float* Vs = Ks + FA_TILE * ld;       // [FA_TILE][ld]
-  int* Is = reinterpret_cast<int*>(Vs + FA_TILE * ld);  // [FA_TILE] key ids
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FA_BLOCK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * R;
   const size_t head = ((size_t)b * H + h) * N;     // this (graph, head)'s first row
+  const float* qb = q + head * Dh;
+  const float* kb = k + head * Dh;
+  const float* vb = v + head * Dh;
   const int* gid = ids + (size_t)b * N;
-  load_rows(Qs, q + head * Dh, q0, FA_BLOCK, N, Dh, ld);
 
-  float m[FA_ROWS], l[FA_ROWS], acc[FA_ROWS][ACC];
-  int qid[FA_ROWS];
-  const float* brow[FA_ROWS];
+  int row[2], qid[2];
+  const float* brow[2];
+  double m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0, 0.0}, acc[KS][4];
 #pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    const int i = q0 + warp * FA_ROWS + r;
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-    qid[r] = i < N ? gid[i] : 0;
-    brow[r] = bias != nullptr && i < N ? bias + (head + i) * N : nullptr;
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) acc[r][a] = 0.0f;
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + warp * 16 + g + 8 * r;
+    const bool ok = row[r] < N;
+    qid[r] = ok ? gid[row[r]] : 0;
+    brow[r] = bias != nullptr && ok ? bias + (head + row[r]) * N : nullptr;
   }
-  const float* qw = Qs + warp * FA_ROWS * ld;
+#pragma unroll
+  for (int dd = 0; dd < KS; ++dd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dd][e] = 0.0;
+  // q's A fragments, k index t standing for head column 2t and t + 4 for
+  // 2t + 1: a0 (g, 2t), a1 (g+8, 2t), a2 (g, 2t+1), a3 (g+8, 2t+1)
+  double qa[C::QREG ? KS : 1][4];
+  const double* qw = Qs + warp * 16 * LDK + g * LDK + 2 * t;
 
-  for (int k0 = 0; k0 < N; k0 += FA_TILE) {
-    __syncthreads();
-    load_rows(Ks, k + head * Dh, k0, FA_TILE, N, Dh, ld);
-    load_rows(Vs, v + head * Dh, k0, FA_TILE, N, Dh, ld);
-    load_ids(Is, gid, k0, FA_TILE, N);
-    __syncthreads();
-    for (int kc = 0; kc < FA_TILE && k0 + kc < N; kc += 32) {
-      const int j = k0 + kc + lane;
-      const bool valid = j < N;
-      const float* kr = Ks + (kc + lane) * ld;
-      float s[FA_ROWS];
+  auto issue = [&](int it, int s) {
+    float* st = raw + s * 2 * KT * LDR;
+    tc::issue_rows<KT, LDR, NT>(st, kb, Dh, it * KT, N, Dh, vec4);
+    tc::issue_rows<KT, LDR, NT>(st + KT * LDR, vb, Dh, it * KT, N, Dh, vec4);
+  };
+  auto own = [&]() {
+    if constexpr (C::QREG) {
 #pragma unroll
-      for (int r = 0; r < FA_ROWS; ++r) s[r] = 0.0f;
-      for (int t = 0; t < Dh; ++t) {
-        const float kv = kr[t];
+      for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-        for (int r = 0; r < FA_ROWS; ++r) s[r] = fmaf(qw[r * ld + t], kv, s[r]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = row[e & 1], c = 8 * kk + 2 * t + (e >> 1);
+          qa[kk][e] = r < N && c < Dh ? (double)qb[(size_t)r * Dh + c] : 0.0;
+        }
+    } else {
+      for (int i = threadIdx.x; i < R * DP; i += NT) {
+        const int r = i / DP, c = i - r * DP;
+        Qs[r * LDK + c] = q0 + r < N && c < Dh ? (double)qb[(size_t)(q0 + r) * Dh + c] : 0.0;
       }
-      float p[FA_ROWS];
+    }
+  };
+  // the landed tile widened to f64 once: rows from N on and columns from Dh
+  // on become 0; v transposed (consecutive threads on consecutive keys)
+  auto prep = [&](int it, int s) {
+    const float* rk = raw + s * 2 * KT * LDR;
+    const float* rv = rk + KT * LDR;
+    const int r0 = it * KT;
+    for (int i = threadIdx.x; i < KT * DP; i += NT) {
+      const int r = i / DP, c = i - r * DP;
+      Kp[r * LDK + c] = r0 + r < N && c < Dh ? (double)rk[r * LDR + c] : 0.0;
+    }
+    for (int i = threadIdx.x; i < KT * DP; i += NT) {
+      const int c = i / KT, r = i - c * KT;
+      Vt[c * LDV + r] = r0 + r < N && c < Dh ? (double)rv[r * LDR + c] : 0.0;
+    }
+    if (threadIdx.x < KT) Is[threadIdx.x] = r0 + threadIdx.x < N ? gid[r0 + threadIdx.x] : 0;
+  };
+  auto body = [&](int it, int) {
+    const int k0 = it * KT;
+    for (int kc = 0; kc < KT && k0 + kc < N; kc += C::SUB) {
+      // this step's bias values first: their reads overlap the products
+      float bv[NS][4];
 #pragma unroll
-      for (int r = 0; r < FA_ROWS; ++r) {
-        const float sv = valid ? logit(s[r], brow[r], j, scale, Is[kc + lane] == qid[r])
-                               : -INFINITY;
-        const float m_new = fmaxf(m[r], wmax(sv));
-        const float pv = valid ? expf(sv - m_new) : 0.0f;
-        const float corr = expf(m[r] - m_new);
-        l[r] = l[r] * corr + wsum(pv);
-        m[r] = m_new;
-        p[r] = pv;
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int a = 0; a < ACC; ++a) acc[r][a] *= corr;
-      }
-      for (int jj = 0; jj < 32; ++jj) {
-        float vv[ACC];
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + kc + 8 * n + 2 * t + (e & 1);
+          const float* br = brow[e >> 1];
+          bv[n][e] = br != nullptr && j < N ? br[j] : 0.0f;
+        }
+      double sc[NS][4];
 #pragma unroll
-        for (int a = 0; a < ACC; ++a) {
-          const int c = lane + 32 * a;
-          vv[a] = c < Dh ? Vs[(kc + jj) * ld + c] : 0.0f;
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.0;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        double a[4];
+        if constexpr (C::QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+        } else {
+          const double2 lo = pair(qw + 8 * kk), hi = pair(qw + 8 * LDK + 8 * kk);
+          a[0] = lo.x;
+          a[1] = hi.x;
+          a[2] = lo.y;
+          a[3] = hi.y;
         }
 #pragma unroll
-        for (int r = 0; r < FA_ROWS; ++r) {
-          const float pj = __shfl_sync(FULL, p[r], jj);
+        for (int n = 0; n < NS; ++n) {
+          const double2 kv = pair(Kp + (kc + 8 * n + g) * LDK + 8 * kk + 2 * t);
+          tc::dmma(sc[n], a, kv.x, kv.y);
+        }
+      }
+      // logits as the library forms them, then the online-softmax step
+      double mx[2] = {m[0], m[1]};
 #pragma unroll
-          for (int a = 0; a < ACC; ++a) acc[r][a] = fmaf(pj, vv[a], acc[r][a]);
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kc + 8 * n + 2 * t + (e & 1);
+          double x = -INFINITY;
+          if (k0 + key < N) {
+            x = (sc[n][e] + (double)bv[n][e]) * scale;
+            if (Is[key] != qid[e >> 1]) x += FA_MASK_F64;
+          }
+          sc[n][e] = x;
+          mx[e >> 1] = fmax(mx[e >> 1], x);
+        }
+      double corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        corr[r] = exp(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const double p = exp(sc[n][e] - m[e >> 1]);  // 0 past N (-inf)
+          l[e >> 1] += p;
+          sc[n][e] = p;
+        }
+#pragma unroll
+      for (int dd = 0; dd < KS; ++dd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dd][e] *= corr[e >> 1];
+      // P v: P's C fragment is the A operand with k = t standing for key 2t
+      // and t + 4 for 2t + 1; v^T's two values for them are neighbours
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const double a[4] = {sc[n][0], sc[n][2], sc[n][1], sc[n][3]};
+#pragma unroll
+        for (int dd = 0; dd < KS; ++dd) {
+          const double2 vv = pair(Vt + (8 * dd + g) * LDV + kc + 8 * n + 2 * t);
+          tc::dmma(acc[dd], a, vv.x, vv.y);
         }
       }
     }
-  }
+  };
+  tc::pipeline((N + KT - 1) / KT, issue, own, prep, body);
 
 #pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    const int i = q0 + warp * FA_ROWS + r;
-    if (i >= N) continue;
-    const float inv = 1.0f / l[r];
+  for (int r = 0; r < 2; ++r) {
+    const double lt = quad_sum(l[r]);
+    if (row[r] >= N) continue;
+    float* orow = o + (head + row[r]) * Dh;
 #pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int c = lane + 32 * a;
-      if (c < Dh) o[(head + i) * Dh + c] = acc[r][a] * inv;
-    }
-    if (lane == 0) lse[head + i] = m[r] + logf(l[r]);
+    for (int dd = 0; dd < KS; ++dd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * dd + 2 * t + e;
+        if (c < Dh) orow[c] = __double2float_rn(acc[dd][2 * r + e] / lt);
+      }
+    if (t == 0) lse[head + row[r]] = __double2float_rn(m[r] + log(lt));
   }
 }
 
-
-inline size_t fwd_smem(int Dh) {
-  return (size_t)(FA_BLOCK + 2 * FA_TILE) * (Dh + 1) * sizeof(float) + FA_TILE * sizeof(int);
-}
-
-
-template <int ACC>
+// The forward at the head width padded to DP (tc::pad_width's widths).
+template <int DP = 8>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int* ids,
                        const float* bias, float* o, float* lse, int B, int H, int N,
-                       int Dh, float scale, cudaStream_t st) {
-  const dim3 grid(cdiv(N, FA_BLOCK), H, B), block(32, FA_WARPS);
-  const size_t smem = fwd_smem(Dh);
-  cudaError_t err = allow_smem(flash_fwd_kernel<ACC>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<ACC><<<grid, block, smem, st>>>(q, k, v, ids, bias, o, lse, N, H, Dh,
-                                                   scale);
-  return cudaGetLastError();
+                       int Dh, double scale, bool vec4, cudaStream_t st) {
+  if constexpr (DP > FA_MAX_DH) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (tc::pad_width(Dh) != DP)
+      return launch_fwd<tc::next_width(DP)>(q, k, v, ids, bias, o, lse, B, H, N, Dh, scale,
+                                             vec4, st);
+    using C = Fwd<DP>;
+    cudaError_t err = allow_smem(flash_fwd_dmma<DP>, C::smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(cdiv(N, C::R), H, B);
+    flash_fwd_dmma<DP><<<grid, C::NT, C::smem, st>>>(q, k, v, ids, bias, o, lse, N, H, Dh,
+                                                      scale, vec4);
+    return cudaGetLastError();
+  }
 }
 
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 }  // namespace ggps
@@ -217,16 +321,15 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int
 using namespace ggps;
 
 // Inputs q, k, v (B, H, N, Dh), ids (B, N) int32 segment ids, bias
-// (B, H, N, N) or null. Outputs o (B, H, N, Dh) and lse (B*H*N), the rows'
-// log-sum-exps the backward takes back.
+// (B, H, N, N) or null, the scale in f64. Outputs o (B, H, N, Dh) and lse
+// (B*H*N), the rows' log-sum-exps the backward takes back.
 extern "C" int flash_mha_forward(const float* q, const float* k, const float* v,
                                  const int* ids, const float* bias, float* o, float* lse,
-                                 int B, int H, int N, int Dh, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                 int B, int H, int N, int Dh, double scale, void* stream) {
   if (Dh <= 0 || Dh > FA_MAX_DH) return cudaErrorInvalidValue;
-  if (Dh <= 32) return launch_fwd<1>(q, k, v, ids, bias, o, lse, B, H, N, Dh, scale, st);
-  if (Dh <= 64) return launch_fwd<2>(q, k, v, ids, bias, o, lse, B, H, N, Dh, scale, st);
-  return launch_fwd<4>(q, k, v, ids, bias, o, lse, B, H, N, Dh, scale, st);
+  const bool vec4 = Dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  return launch_fwd(q, k, v, ids, bias, o, lse, B, H, N, Dh, scale, vec4,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Inputs: the forward's q, k, v, ids, bias (or null), o and lse, and the

@@ -172,5 +172,24 @@ inline cudaError_t gemm_tn(const float* A, const float* G, float* C, int M, int 
   return reduce_partials(scratch, C, 1, grid.z, (long long)M * N, stream);
 }
 
+// The three products as one type, for a body shared by kernels on either
+// GEMM (ffn_core.cuh): these on the CUDA cores, tc::Gemm (gemm_tc.cuh) on
+// the tensor cores.
+struct Gemm {
+  static cudaError_t nn(const float* A, const float* W, float* C, int M, int N, int K,
+                        const Epi& epi, cudaStream_t st) {
+    return gemm_nn(A, W, C, M, N, K, epi, st);
+  }
+  static cudaError_t nt(const float* A, const float* B, float* C, int M, int N, int K,
+                        const Epi& epi, cudaStream_t st) {
+    return gemm_nt(A, B, C, M, N, K, epi, st);
+  }
+  static cudaError_t tn(const float* A, const float* G, float* C, int M, int N, int K,
+                        float* scratch, cudaStream_t st) {
+    return gemm_tn(A, G, C, M, N, K, scratch, st);
+  }
+  static size_t scratch(int M, int N, int K) { return tn_scratch(M, N, K); }
+};
+
 }  // namespace
 }  // namespace ggps

@@ -9,10 +9,11 @@
 // (in, out) layout, so no transpose is made anywhere. These are the products
 // of the GPS layer front (gps_front.cu: the joint (B*N, d) x (d, 7d)
 // projection, the edge projection, the out-projection and their input and
-// weight gradients) and of the GPS attention (gps_attention.cu: the QKV and
-// out-projections), which the TPU kernels compute in their own bodies (_dot,
-// _dot_nt, _dot_tn of ops/pallas/fused_gatedgcn.py); the other kernels keep
-// gemm.cuh's CUDA-core loop.
+// weight gradients), of the GPS attention (gps_attention.cu: the QKV and
+// out-projections) and of the FFN block of combine_ffn.cu (ffn_core.cuh),
+// which the TPU kernels compute in their own bodies (_dot, _dot_nt, _dot_tn
+// of ops/pallas/fused_gatedgcn.py); the other kernels keep gemm.cuh's
+// CUDA-core loop.
 //
 // Bound on the H100: at the main path's shapes operations, at the 3xTF32
 // rate (495 / 3 = 165 TFLOP/s). Design: a block of 64 x 64
@@ -310,6 +311,23 @@ inline cudaError_t gemm_tn(const float* A, const float* G, float* C, int M, int 
   if (err != cudaSuccess) return err;
   return reduce_partials(scratch, C, 1, s, (long long)M * N, st);
 }
+
+// The three products as one type, as gemm.cuh's Gemm (ffn_core.cuh).
+struct Gemm {
+  static cudaError_t nn(const float* A, const float* W, float* C, int M, int N, int K,
+                        const Epi& epi, cudaStream_t st) {
+    return gemm_nn(A, W, C, M, N, K, epi, st);
+  }
+  static cudaError_t nt(const float* A, const float* B, float* C, int M, int N, int K,
+                        const Epi& epi, cudaStream_t st) {
+    return gemm_nt(A, B, C, M, N, K, epi, st);
+  }
+  static cudaError_t tn(const float* A, const float* G, float* C, int M, int N, int K,
+                        float* scratch, cudaStream_t st) {
+    return gemm_tn(A, G, C, M, N, K, scratch, st);
+  }
+  static size_t scratch(int M, int N, int K) { return tn_scratch(M, N, K); }
+};
 
 }  // namespace tc
 }  // namespace ggps

@@ -1,5 +1,6 @@
 // The 3xTF32 tensor-core product and cp.async staging shared by the
-// attention body (attn_tc.cuh) and the tensor-core GEMM (gemm_tc.cuh).
+// attention body (attn_tc.cuh) and the tensor-core GEMM (gemm_tc.cuh), and
+// the f64 tensor-core product of flash_mha.cu's forward.
 //
 // Products run on mma.sync.m16n8k8 tf32 with f32 accumulation and the
 // 3xTF32 split: x = hi + lo, hi = tf32(x) (round to nearest),
@@ -65,6 +66,21 @@ __device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a, const BFrag&
 // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4). B (8 x 8, col): b0 (t,
 // g), b1 (t+4, g). C (16 x 8): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3
 // (g+8, 2t+1).
+
+// d += a b (16 x 8 x 8) on the FP64 tensor cores (DMMA; mma.sync m16n8k8
+// .f64, sm_90), in the same fragment layout as the tf32 product above, one
+// f64 value a register. Hopper has no f64 wgmma; its f64 mma.sync shapes
+// m16n8k4, m16n8k8 and m16n8k16 all reach the card's f64 tensor rate, and
+// sm_80's m8n8k4 half of it (graphgps_torch/tools/dmma_probe.py, PERF.md
+// §6). One m16n8k8 a step, not two dependent m16n8k4: the attention's
+// chains of products are latency-bound at its occupancy.
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], double b0,
+                                     double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
 
 // ---------------------------------------------------------------------------
 // Staging

@@ -20,31 +20,36 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 4 + [
 
 def combine_ffn_plain(x_in, v_loc, mu_x, inv_x, ga_x, be_x,
                       s_attn, mu_a, inv_a, ga_a, be_a,
-                      w1, b1, w2, b2, seed, rate: float, act: str):
+                      w1, b1, w2, b2, seed, rate: float, act: str,
+                      relu_mask=None):
     """Plain version of :func:`fused_combine_ffn`, same signature; dropout
     sites 0 (local tail, (R, d)), 1 (FFN inner, (R, dh)), 2 (FFN outer,
-    (R, d))."""
+    (R, d)). ``relu_mask`` (R, dh), for relu only, as in
+    ``ffn.ffn_plain``: the side of the kink each FFN unit takes, 1/0, in
+    place of this computation's own."""
     check_rate(rate)
     true_f32()
     a = act_fn(act)
     h = (x_in + apply_dropout(a((v_loc - mu_x) * inv_x * ga_x + be_x), seed,
                               0, rate)
          + ((s_attn - mu_a) * inv_a * ga_a + be_a))
-    z = apply_dropout(a(h @ w1 + b1), seed, 1, rate)
+    a1 = h @ w1 + b1
+    z = apply_dropout(a(a1) if relu_mask is None else a1 * relu_mask, seed, 1,
+                      rate)
     return h + apply_dropout(z @ w2 + b2, seed, 2, rate)
 
 
 def combine_ffn_backward_plain(x_in, v_loc, mu_x, inv_x, ga_x, be_x, s_attn,
                                mu_a, inv_a, ga_a, be_a, w1, b1, w2, b2, g,
-                               seed, rate: float, act: str):
+                               seed, rate: float, act: str, relu_mask=None):
     """Plain version of the backward: autograd through
-    :func:`combine_ffn_plain` with the same masks. Returns the gradients of
-    all fifteen tensor inputs, in order."""
+    :func:`combine_ffn_plain` with the same masks (and ``relu_mask``).
+    Returns the gradients of all fifteen tensor inputs, in order."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_()
                for t in (x_in, v_loc, mu_x, inv_x, ga_x, be_x, s_attn, mu_a,
                          inv_a, ga_a, be_a, w1, b1, w2, b2)]
-        out = combine_ffn_plain(*ins, seed, rate, act)
+        out = combine_ffn_plain(*ins, seed, rate, act, relu_mask)
         return torch.autograd.grad(out, ins, g)
 
 

@@ -12,9 +12,11 @@ padded 0, real 1) of a query and a key differ, ``-0.7 · float32.max`` is
 added. So a padded query row attends over the padded keys of its graph,
 while a real row equals the dense rung's. The kernels run at the true head
 width: the TPU's padding of Dh to 128 lanes (``pad_head_dim``) has no
-counterpart. The forward runs f32 on the CUDA cores; the backward on the
-tensor cores in 3xTF32 (``csrc/attn_tc.cuh``), the head padded to a
-multiple of 8 columns in shared memory only."""
+counterpart. The forward runs in f64 on the FP64 tensor cores from the f32
+inputs and rounds o and the rows' log-sum-exps to f32 once, so o is the
+exact attention correctly rounded (to within f64 rounding); the backward
+runs on the tensor cores in 3xTF32 (``csrc/attn_tc.cuh``). Both pad the
+head to a multiple of 8 columns in shared memory only."""
 from __future__ import annotations
 
 import ctypes
@@ -24,15 +26,15 @@ import torch
 from . import build
 from .common import needs_grad, true_f32
 
-# the widest head the kernels take: four column registers per lane in the
-# forward; in the backward (csrc/attn_tc.cuh) 2 warps of 16 rows and tiles of
-# 32 above 64 columns, within a block's shared memory
+# the widest head the kernels take (csrc/flash_mha.cu FA_MAX_DH): the
+# widest padded width they are instantiated for, forward and backward
 MAX_HEAD_DIM = 128
 # the library's DEFAULT_MASK_VALUE
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
+# the forward takes its scale in f64, the backward in f32
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_double, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_void_p]
 
@@ -66,6 +68,16 @@ def flash_mha_backward_plain(q, k, v, key_mask, bias, do):
                             else None)
         grads = torch.autograd.grad(o, ins, do)
     return (*grads[:3], grads[3] if bias is not None else None)
+
+
+def f32_ulps(a, b):
+    """|a - b| in f32 ulps, elementwise, for f32 tensors: the distance of
+    their bit patterns on the ordered integer line. The forward's output is
+    held to its plain version evaluated in f64 and rounded by it."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
 
 
 def _check_args(q, k, v, key_mask, bias):

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Device times and output bits of kernels of two checkouts, in turns, on
-one GPU: the FFN-block kernels ``combine_ffn`` and ``bn_ffn``, the layer
-front ``gps_front``, the GPS attention ``gps_attention`` and the long-graph
-attention ``flash_mha`` and ``wide_attention``, forward and backward, at
-the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3f, 3h and 3i. Used to
-hold a change to a shared body (``csrc/ffn_core.cuh``,
-``csrc/attn_tc.cuh``, ``csrc/gemm_tc.cuh``) to its parent's times and
-bits.
+one GPU: the FFN-block kernels ``combine_ffn``, ``bn_ffn`` and ``ffn``, the
+GatedGCN core ``gatedgcn``, the layer front ``gps_front``, the GPS
+attention ``gps_attention`` and the long-graph attention ``flash_mha`` and
+``wide_attention``, forward and backward, at the shapes of
+``chip_smoke.py`` phases 3, 3c, 3d, 3f, 3g, 3h and 3i and of GPS-deep's
+layers with the front off (G'). Used to hold a change to a shared body
+(``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``, ``csrc/gemm_tc.cuh``,
+``csrc/tc_mma.cuh``) to its parent's times and bits.
 
 Usage, from anywhere, each ROOT a checkout holding ``graphgps_torch/``::
 
@@ -23,8 +24,11 @@ card's name and power limit. The attention kernels' runs also carry the
 largest difference from their plain versions on the same inputs
 (``max_abs_err``; the summary gives each ROOT's largest), since a redesign
 of their body changes the summation order and so the bits. ``--kernels``
-picks some of ``combine_ffn``, ``bn_ffn``, ``gps_front``,
-``gps_attention``, ``flash_mha``, ``wide_attention`` (by default all).
+picks some of ``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``,
+``gps_front``, ``gps_attention``, ``flash_mha``, ``wide_attention`` (by
+default all). ``flash_mha``'s forward runs also carry the largest distance
+in f32 ulps from its plain version evaluated in f64 and rounded
+(``max_ulps_f64``).
 """
 from __future__ import annotations
 
@@ -36,27 +40,36 @@ import sys
 # (tag, rows, width): phase 3's GPS-deep layer (batch 256 x 40 node
 # slots, d 256), 3c's ogbg-molhiv (32 x 40, d 64) and pcqm4m-GPS (256 x
 # 40, d 304), 3f's molhiv SAN (64 x 40, d 64) and the molpcba-SAN width
-# (512 x 40, d 304); gps_front at GPS-deep's layer (batch 256, 40 node
-# slots, 96 edge slots, d 256, 8 heads); flash_mha (tag, B, N, H, Dh, with
-# a bias) at 3i's VOC attention (400-500 real nodes of 512 slots, no
-# dropout); wide_attention (tag, B, N, d, H, attention dropout) at 3d's VOC
+# (512 x 40, d 304), 3g's wn-squirrel (5,248 slots, d 96) and the actor
+# width (7,680, d 64); gatedgcn (tag, B, N, E, d) at ogbg-molhiv's layer
+# (32 graphs of 40 node and 96 edge slots, d 64), GPS-deep's with the front
+# off (256 graphs, d 256) and pcqm4m-GPS's (d 304); gps_front at GPS-deep's
+# layer (batch 256, 40 node slots, 96 edge slots, d 256, 8 heads); flash_mha
+# (tag, B, N, H, Dh, with a bias, least real nodes) at 3i's VOC attention
+# (400-500 real nodes of 512 slots, no dropout) and wn-squirrel's one graph
+# (5,201 real of 5,248); wide_attention (tag, B, N, d, H, attention
+# dropout) at 3d's VOC
 # layer at the recipe's rate and at 0; gps_attention (tag, B, N, d, H,
 # attention dropout) at 3h's GPS-deep layer (256 graphs of 40 slots, 8 heads
 # of 32), at 64 graphs of 128 slots in 4 heads of 64 and at the pcqm4m-GPS
 # width (d 304 in 4 heads of 76, rate 0.5)
+VOC_MIN_REAL = 400
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
           "bn_ffn": [("S", 2560, 64), ("W", 20480, 304)],
+          "ffn": [("Q", 5248, 96), ("A", 7680, 64)],
+          "gatedgcn": [("M", 32, 40, 96, 64), ("G'", 256, 40, 96, 256),
+                       ("P", 256, 40, 96, 304)],
           "gps_front": [("G", 10240, 256)],
           "gps_attention": [("G", 256, 40, 256, 8, 0.1),
                             ("E", 64, 128, 256, 4, 0.1),
                             ("P", 256, 40, 304, 4, 0.5)],
-          "flash_mha": [("V'", 32, 512, 4, 24, False),
-                        ("V'b", 32, 512, 4, 24, True)],
+          "flash_mha": [("V'", 32, 512, 4, 24, False, VOC_MIN_REAL),
+                        ("V'b", 32, 512, 4, 24, True, VOC_MIN_REAL),
+                        ("Q'", 1, 5248, 4, 24, False, 5201)],
           "wide_attention": [("V", 32, 512, 96, 4, 0.5),
                              ("V0", 32, 512, 96, 4, 0.0)]}
 FRONT_GRAPHS, FRONT_NODES, FRONT_EDGES, FRONT_HEADS = 256, 40, 96, 8
-VOC_MIN_REAL = 400
 ITERS, WARMUP, RATE, SEED = 50, 5, 0.1, 20260
 
 
@@ -121,14 +134,26 @@ def _voc_counts(torch, g, dev, B, N):
                          dtype=torch.int32).clamp(max=N)
 
 
-def _flash_case(torch, rnd, g, dev, B, N, H, Dh, with_bias):
-    """flash_mha's forward and backward calls and their plain versions on
-    seeded VOC-sized inputs (segment ids from ragged prefix masks)."""
+def _f32_ulps(torch, a, b):
+    """|a - b| in f32 ulps (the port's ``flash_mha.f32_ulps``, kept here so
+    that the tool runs on checkouts without it)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _flash_case(torch, rnd, g, dev, B, N, H, Dh, with_bias, min_real):
+    """flash_mha's forward and backward calls, their plain versions and the
+    forward's distance in f32 ulps from the plain forward in f64 rounded to
+    f32, on seeded inputs (segment ids from ragged prefix masks of min_real
+    to 500 real nodes, or min_real)."""
     import importlib
 
     # the package's ``flash_mha`` is the function; the module by its path
     fm = importlib.import_module("graphgps_torch.ops.kernels.flash_mha")
-    counts = _voc_counts(torch, g, dev, B, N)
+    counts = torch.randint(min_real, max(min_real, min(N, 500)) + 1, (B,),
+                           generator=g, device=dev, dtype=torch.int32)
     mask = torch.arange(N, device=dev)[None] < counts[:, None]
     q, k, v = (rnd(B, H, N, Dh) for _ in range(3))
     bias = rnd(B, H, N, N) if with_bias else None
@@ -136,10 +161,37 @@ def _flash_case(torch, rnd, g, dev, B, N, H, Dh, with_bias):
     o, kept = fm._launch_forward(*ins)
     cot = rnd(B, H, N, Dh)
     real = lambda out: tuple(t for t in out if t is not None)  # noqa: E731
+    f64 = [None if t is None else t.double() for t in ins]
+    f64[3] = mask
     return (lambda: fm._launch_forward(*ins)[0],
             lambda: real(fm.flash_mha_backward(*ins, o, cot, kept=kept)),
             lambda: fm.flash_mha_plain(*ins),
-            lambda: real(fm.flash_mha_backward_plain(*ins, cot)))
+            lambda: real(fm.flash_mha_backward_plain(*ins, cot)),
+            lambda out: _f32_ulps(torch, out,
+                                  fm.flash_mha_plain(*f64).float()))
+
+
+def _gatedgcn_case(torch, rnd, g, dev, B, N, E, d):
+    """gatedgcn's forward and backward calls on seeded inputs: ragged
+    prefix node and edge masks, graph-local endpoints."""
+    from graphgps_torch.ops.kernels import gatedgcn
+
+    idx = lambda: torch.randint(0, N, (B, E), generator=g,  # noqa: E731
+                                device=dev, dtype=torch.int32)
+    nodes = torch.randint(N // 4, N + 1, (B, 1), generator=g, device=dev)
+    edges = torch.randint(E // 4, E + 1, (B, 1), generator=g, device=dev)
+    nmask = (torch.arange(N, device=dev)[None] < nodes).float()
+    emask = (torch.arange(E, device=dev)[None] < edges).float()
+    w = lambda *s: rnd(*s, scale=s[0] ** -0.5)  # noqa: E731
+    vec = lambda n=d: rnd(n, scale=0.1)  # noqa: E731
+    args = (rnd(B, N, d), rnd(B, E, d), idx(), idx().sort(dim=1).values,
+            emask, nmask, vec(), vec(), w(d, 4 * d), vec(4 * d), w(d, d),
+            vec())
+    outs, proj = gatedgcn._launch_forward(args)
+    cots = [rnd(*o.shape) for o in outs]
+    return (lambda: gatedgcn._launch_forward(args)[0],
+            lambda: gatedgcn.gatedgcn_backward(
+                *args, *cots, kept=(outs[0], outs[1], proj)))
 
 
 def _wide_case(torch, rnd, g, dev, B, N, d, H, rate):
@@ -179,15 +231,21 @@ def _gps_attention_case(torch, rnd, g, dev, B, N, d, H, rate):
 
 
 def _ffn_case(torch, rnd, name, R, d):
-    """combine_ffn's or bn_ffn's forward and backward calls on seeded
+    """combine_ffn's, bn_ffn's or ffn's forward and backward calls on seeded
     inputs with dropout RATE on every site."""
-    from graphgps_torch.ops.kernels import bn_ffn, combine_ffn
+    from graphgps_torch.ops.kernels import bn_ffn, combine_ffn, ffn
 
     dh = 2 * d
     vec = lambda: rnd(d, scale=0.1)  # noqa: E731
     pos = lambda: 1.0 + rnd(d, scale=0.1).abs()  # noqa: E731
     ffn_w = (rnd(d, dh, scale=d ** -0.5), vec().repeat(2),
              rnd(dh, d, scale=dh ** -0.5), vec())
+    if name == "ffn":
+        args = (rnd(R, d), *ffn_w)
+        conf = (SEED, RATE, "relu", True)
+        cot = rnd(R, d)
+        return (lambda: ffn._launch_forward(args, *conf),
+                lambda: ffn.ffn_backward(*args, cot, *conf))
     if name == "combine_ffn":
         args = (rnd(R, d), rnd(R, d), vec(), pos(), pos(), vec(),
                 rnd(R, d), vec(), pos(), pos(), vec(), *ffn_w)
@@ -236,11 +294,14 @@ def _run_one(root: str, kernels) -> None:
 
     for name in kernels:
         for tag, *shape in SHAPES[name]:
-            plain = (None, None)
+            plain, ulps = (None, None), None
             if name == "gps_front":
                 fwd, bwd = _front_case(torch, rnd, g, dev, *shape)
+            elif name == "gatedgcn":
+                fwd, bwd = _gatedgcn_case(torch, rnd, g, dev, *shape)
             elif name == "flash_mha":
-                fwd, bwd, *plain = _flash_case(torch, rnd, g, dev, *shape)
+                fwd, bwd, *plain, ulps = _flash_case(torch, rnd, g, dev,
+                                                     *shape)
             elif name == "wide_attention":
                 fwd, bwd, *plain = _wide_case(torch, rnd, g, dev, *shape)
             elif name == "gps_attention":
@@ -256,6 +317,8 @@ def _run_one(root: str, kernels) -> None:
                 if ref is not None:
                     row["max_abs_err"], row["max_err_over_tensor_max"] = \
                         _errors(torch, out, ref())
+                if kind == "fwd" and ulps is not None:
+                    row["max_ulps_f64"] = int(ulps(out).max())
                 row["ms"] = _time(torch, fn)
                 print(json.dumps(row), flush=True)
 
@@ -285,7 +348,8 @@ def main(args) -> None:
         mean = {root: sum(r["ms"] for r in runs if r["root"] == root)
                 / roots.count(root) for root in dict.fromkeys(roots)}
         extra = {}
-        for err in ("max_abs_err", "max_err_over_tensor_max"):
+        for err in ("max_abs_err", "max_err_over_tensor_max",
+                    "max_ulps_f64"):
             if err in runs[0]:
                 extra[err] = {root: max(r[err] for r in runs
                                         if r["root"] == root)

@@ -27,6 +27,10 @@ from test_torch_wide import _hold_on_card, cuda_device  # noqa: F401
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
+# two f64 evaluations of an attention output part by about 1e-16 of the sum
+# of its terms' magnitudes; an entry that cancels to far below that sum is
+# held to this much of it (the card test of the forward's rounding)
+F64_CANCEL = 1e-14
 
 
 def _close(got, want, msg, rtol=RTOL, atol=ATOL):
@@ -316,3 +320,44 @@ def test_cuda_flash_matches_plain(cuda_device, B, H, N, Dh):  # noqa: F811
     _hold_on_card(lambda q_, k_, v_, b_: flash_mha(q_, k_, v_, mask, b_),
                   lambda q_, k_, v_, b_: flash_mha_plain(q_, k_, v_, mask, b_),
                   [q, k, v, b], wrappers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N,Dh,bias", [
+    (32, 4, 512, 24, False), (32, 4, 512, 24, True), (1, 4, 5248, 24, False),
+    (16, 4, 512, 20, False), (2, 4, 520, 24, True), (2, 4, 520, 20, False),
+    (2, 2, 384, 64, True), (2, 2, 384, 64, False), (1, 2, 200, 128, True),
+    (1, 2, 200, 128, False)])
+def test_cuda_flash_forward_correctly_rounded(cuda_device, B, H, N, Dh,
+                                              bias):  # noqa: F811
+    """On the card: the forward computes in f64 and rounds once, so every
+    output entry lies within 1 f32 ulp of the plain version evaluated in
+    f64 on the same inputs and rounded to f32 (VOC-like 32 x 512 slots and
+    wn-squirrel-like one graph of 5,248, heads of 20 to 128 columns, N = 520
+    no multiple of the tiles, with and without a bias; ragged graphs, one
+    with no real node), but where the entry cancels: two f64 evaluations of
+    o = sum_j w_j v_j part by f64 rounding of the terms' magnitudes, so an
+    entry further off lies within F64_CANCEL of sum_j w_j |v_j| from the
+    f64 value (at B 2, N 520, heads of 20 one entry is 4.4e-11 of a 0.74
+    sum, and the two f64 values lie 16 f32 ulps apart there). Two runs give
+    the same bits.
+    ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
+    tests/test_torch_flash.py``."""
+    from graphgps_torch.ops.kernels.flash_mha import (f32_ulps, flash_mha,
+                                                      flash_mha_plain)
+
+    q, k, v, mask, b = (None if a is None
+                        else torch.from_numpy(a).to(cuda_device)
+                        for a in _inputs(B, H, N, Dh, 5, bias))
+    with torch.no_grad():
+        o = flash_mha(q, k, v, mask, b)
+        again = flash_mha(q, k, v, mask, b)
+        wide = [q.double(), k.double(), v.double(), mask,
+                None if b is None else b.double()]
+        want = flash_mha_plain(*wide)
+        wide[2] = wide[2].abs()
+        magnitude = flash_mha_plain(*wide)
+    assert torch.equal(o, again)
+    far = f32_ulps(o, want.float()) > 1
+    assert bool(((o.double() - want).abs()[far]
+                 <= F64_CANCEL * magnitude[far]).all())

@@ -102,6 +102,35 @@ def test_combine_ffn_matches_jax(act):
                                atol=ATOL)
 
 
+def test_combine_ffn_relu_mask_is_relu():
+    """The plain version's ``relu_mask`` (the side of each FFN unit's kink
+    taken from another computation, for the card tests) given this
+    computation's own sides, a1 > 0, gives relu's output and gradients in
+    every bit."""
+    from graphgps_torch.ops.kernels.combine_ffn import (
+        combine_ffn_backward_plain, combine_ffn_plain)
+    from graphgps_torch.ops.kernels.common import apply_dropout
+
+    g = torch.Generator().manual_seed(5)
+    R, d = 64, 32
+    f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    inv = lambda: 0.5 + torch.rand(d, generator=g)  # noqa: E731
+    xs = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
+          f(d), f(d), f(d, 2 * d) / d ** 0.5, f(2 * d), f(2 * d, d) / 8,
+          f(d))
+    conf = (3, 0.1, "relu")
+    a = torch.relu((xs[1] - xs[2]) * xs[3] * xs[4] + xs[5])
+    h = (xs[0] + apply_dropout(a, 3, 0, 0.1)
+         + ((xs[6] - xs[7]) * xs[8] * xs[9] + xs[10]))
+    mask = (h @ xs[11] + xs[12] > 0).float()
+    assert torch.equal(combine_ffn_plain(*xs, *conf, mask),
+                       combine_ffn_plain(*xs, *conf))
+    cot = f(R, d)
+    for got, want in zip(combine_ffn_backward_plain(*xs, cot, *conf, mask),
+                         combine_ffn_backward_plain(*xs, cot, *conf)):
+        assert torch.equal(got, want)
+
+
 def test_wrappers_refuse_dropout():
     """Dropout runs inside the kernels now; a rate of 1 or more, or below
     0, is refused."""
@@ -210,3 +239,50 @@ def test_cuda_kernels_match_plain(cuda_device):
             assert torch.equal(gt, ag)
             torch.testing.assert_close(gt, w, rtol=1e-4,
                                        atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("R,d", [(10240, 256), (1280, 64), (10240, 304)],
+                         ids=["G", "M", "P"])
+def test_cuda_combine_ffn_matches_plain(cuda_device, R, d, act):
+    """On the card: ``combine_ffn``, whose FFN products run on the 3xTF32
+    tensor-core GEMM, at GPS-deep's (G), ogbg-molhiv's (M) and pcqm4m-GPS's
+    (P) rows and widths, dh = 2d, dropout 0.1 on every site, forward and
+    backward against its plain version at the tolerances above, one launch
+    per call, two backward runs equal in every bit. With relu the plain
+    version takes the kernel's side of each kink of the FFN (``relu_mask``
+    from the kernel's kept a1 > 0), and a unit whose side differs lies
+    within 1e-5 of the pre-activations' largest entry from 0.
+    ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
+    tests/test_torch_kernels.py``."""
+    from graphgps_torch.ops.kernels import combine_ffn as cf
+
+    g = torch.Generator().manual_seed(4)
+    f = lambda *s: torch.randn(*s, generator=g).to(cuda_device)  # noqa: E731
+    inv = lambda: (0.5 + torch.rand(d, generator=g)).to(cuda_device)  # noqa
+    xs = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
+          f(d), f(d), f(d, 2 * d) / d ** 0.5, f(2 * d) * 0.1,
+          f(2 * d, d) / (2 * d) ** 0.5, f(d))
+    conf = (7, 0.1, act)
+    before = cf.fused_combine_ffn.launches
+    out, h, z, a1 = cf._launch_forward(xs, *conf, True)
+    assert cf.fused_combine_ffn.launches == before + 1
+    mask = None
+    if act == "relu":
+        mask = (a1 > 0).float()
+        flips = (h @ xs[11] + xs[12] > 0).float() != mask
+        if bool(flips.any()):
+            assert float(a1[flips].abs().max()) <= 1e-5 * float(a1.abs().max())
+    torch.testing.assert_close(out, cf.combine_ffn_plain(*xs, *conf, mask),
+                               rtol=1e-4, atol=1e-4)
+    cot = torch.randn(R, d, generator=g).to(cuda_device)
+    before = cf.combine_ffn_backward.launches
+    got = cf.combine_ffn_backward(*xs, cot, *conf, kept=(h, a1, z))
+    again = cf.combine_ffn_backward(*xs, cot, *conf, kept=(h, a1, z))
+    assert cf.combine_ffn_backward.launches == before + 2
+    want = cf.combine_ffn_backward_plain(*xs, cot, *conf, mask)
+    for gt, ag, w in zip(got, again, want):
+        assert torch.equal(gt, ag)
+        torch.testing.assert_close(gt, w, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
