@@ -167,7 +167,8 @@ HBM rate and its operations at the rate ``bound_rate`` names: the f32 CUDA
 cores' 67 TFLOP/s, or for the kernels on the attention body and the
 tensor-core GEMM (``wide_attention`` and ``wide_attention_bwd``,
 ``flash_mha_bwd``, ``gps_front`` and ``gps_front_bwd``, ``gps_attention``
-and ``gps_attention_bwd``, ``combine_ffn`` and ``combine_ffn_bwd``: 3xTF32
+and ``gps_attention_bwd``, ``combine_ffn`` and ``combine_ffn_bwd``,
+``gatedgcn`` and ``gatedgcn_bwd``, ``ln_ffn`` and ``ln_ffn_bwd``: 3xTF32
 on the tensor cores) 495 / 3 = 165 TFLOP/s, or for ``flash_mha``'s forward
 (f64 on the FP64 tensor cores) 67 TFLOP/s. The line
 before the last is ``{"kernels": [...]}`` (the six kernels
@@ -284,8 +285,9 @@ SWITCH_RATE_BATCHES = 1
 # TF32 products for each f32 one, so the TF32 peak over 3, for the attention
 # body (csrc/attn_tc.cuh: wide_attention forward and backward, flash_mha's
 # backward, gps_attention's and gps_front's attention) and the tensor-core
-# GEMM (csrc/gemm_tc.cuh: gps_attention's, gps_front's and combine_ffn's
-# products); f64 on the FP64 tensor cores for flash_mha's forward
+# GEMM (csrc/gemm_tc.cuh: the products of gps_attention, gps_front,
+# combine_ffn, gatedgcn and ln_ffn); f64 on the FP64 tensor cores for
+# flash_mha's forward
 PEAK_BYTES = 3.35e12
 PEAK_F32 = "f32 CUDA cores, 67 TFLOP/s"
 PEAK_3XTF32 = "3xTF32 tensor cores, 165 TFLOP/s"
@@ -295,7 +297,8 @@ PEAKS = {PEAK_F32: 67e12, PEAK_3XTF32: 495e12 / 3, PEAK_F64_TC: 67e12}
 TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention", "gps_attention",
                        "gps_front")
 # the libraries whose products run on the tensor-core GEMM
-GEMM_TC_SOURCES = ("gps_attention", "gps_front", "combine_ffn")
+GEMM_TC_SOURCES = ("gps_attention", "gps_front", "combine_ffn", "gatedgcn",
+                   "ln_ffn")
 # the libraries with f64 tensor-core kernels (DMMA), by kernel name
 DMMA_KERNELS = {"flash_mha": "flash_fwd_dmma"}
 # kernel vs plain version, both f32 on the card: the sums run in another
@@ -1030,14 +1033,16 @@ def gatedgcn_cases(torch, gin, gg, batch, xo, gate, cots_for):
                                 gg.norm_x.running_mean),
                    moment_scale(torch, gate, batch.edge_mask,
                                 gg.norm_e.running_mean)],
-               flops=2 * n_real * d * 4 * d + 2 * e_real * d * d + core)
+               flops=2 * n_real * d * 4 * d + 2 * e_real * d * d + core,
+               peak=PEAK_3XTF32)
     bwd = dict(name="gatedgcn_bwd", run=run,
                plain=lambda c: gatedgcn.gatedgcn_backward_plain(*gin, *c),
                inputs=tensors(gin), source=src, replaces=f"{tpu}:349",
                sites=[],
                # dx, dWn (4d wide), de, dWc, and about twice the forward's
                # core (sigma and the quotient recomputed, five scatters)
-               flops=4 * n_real * d * 4 * d + 4 * e_real * d * d + 2 * core)
+               flops=4 * n_real * d * 4 * d + 4 * e_real * d * d + 2 * core,
+               peak=PEAK_3XTF32)
     return fwd, bwd
 
 
@@ -1368,31 +1373,13 @@ def check_ln_ffn(torch, cfg_path: str, opts, device):
     after layer 0's attention half, the graph token's included, at every
     rate pair of LN_FFN_RATES. Returns (rows, the seeded model's state
     dict); every row carries ``shape`` and its ``rates``."""
-    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
-    from graphgps_torch.data.datasets import load_dataset
-    from graphgps_torch.driver import create_loaders, infer_dims
-    from graphgps_torch.models.networks import build_model
     from graphgps_torch.ops.kernels import ln_ffn
+    from graphgps_torch.tools.ln_ffn_inputs import ln_ffn_inputs
 
-    cfg = new_cfg()
-    load_cfg(cfg, cfg_path)
-    update_from_list(cfg, opts)
-    splits = load_dataset(cfg)
-    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        model = build_model(cfg, infer_dims(cfg, splits))
-    model = model.to(device).eval()
-    layer, gb = model.layers[0], model.encoder.graphormer
-    with torch.no_grad():
-        x, _ = model.encoder(batch)
-        seq = layer.attention_block(batch, x, gb.token_state(batch.num_graphs),
-                                    gb.attn_bias(batch), [0, 0, 0])
-    B, S, d = seq.shape
-    R, dh = B * S, layer.w_ffn1.shape[1]
-    ins = tuple(t.detach().contiguous() for t in (
-        seq.reshape(R, d), layer.ln_ffn.weight, layer.ln_ffn.bias,
-        layer.w_ffn1, layer.b_ffn1, layer.w_ffn2, layer.b_ffn2))
+    batch, model, ins = ln_ffn_inputs(cfg_path, opts, device)
+    B = batch.num_graphs
+    (R, d), dh = ins[0].shape, ins[3].shape[1]
+    S = R // B
     # the rows whose output is read: real nodes and the graph tokens
     real = int(batch.node_mask.sum()) + B
     shapes = dict(B=B, S=S, R=R, d=d, dh=dh, real_rows=real)
@@ -1416,15 +1403,16 @@ def check_ln_ffn(torch, cfg_path: str, opts, device):
         fwd = dict(name="ln_ffn", fn=ln_ffn.fused_ln_ffn,
                    plain=ln_ffn.ln_ffn_plain, args=(*ins, *conf), tol=tol,
                    source=src, replaces=f"{tpu}:672",
-                   # the two products on the rows that are read
-                   flops=4 * real * d * dh)
+                   # the two products on the rows that are read (3xTF32
+                   # tensor cores)
+                   flops=4 * real * d * dh, peak=PEAK_3XTF32)
         bwd = dict(name="ln_ffn_bwd", run=run,
                    plain=lambda c, conf=conf: ln_ffn.ln_ffn_backward_plain(
                        *ins, c[0], *conf),
                    inputs=ins, source=src, replaces=f"{tpu}:713",
                    sites=sites, tol=tol,
                    # dU = dA2 W2^T, dY = dA1 W1^T, dW1 = Y^T dA1, dW2 = Z^T dA2
-                   flops=8 * real * d * dh)
+                   flops=8 * real * d * dh, peak=PEAK_3XTF32)
         # one rate per call: both sites' rates are equal where both are on
         at = dict(shapes, rates=[r1, r2])
         rows += [dict(forward_case(torch, fwd, at), rates=[r1, r2]),

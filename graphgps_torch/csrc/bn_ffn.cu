@@ -68,7 +68,7 @@ bn_bwd_col_kernel(const float* __restrict__ dh, const float* __restrict__ s,
       acc[3] += gi;
     }
   }
-  store_col_partials<4>(acc, part, gridDim.y, d, c);
+  store_col_partials<4>(acc, part, blockIdx.y, d, (size_t)gridDim.y * d, d, c);
 }
 
 }  // namespace

@@ -87,7 +87,7 @@ combine_tail_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ 
       acc[3] += dz;
     }
   }
-  store_col_partials<8>(acc, part, gridDim.y, d, c);
+  store_col_partials<8>(acc, part, blockIdx.y, d, (size_t)gridDim.y * d, d, c);
 }
 
 }  // namespace

@@ -115,11 +115,13 @@ constexpr int CHUNK_ROWS = 256;
 
 inline int row_chunks(long long rows) { return cdiv(rows > 0 ? rows : 1, CHUNK_ROWS); }
 
-// Store the block's NS per-thread sums as one partial per (sum, chunk, col).
+// Store the block's NS per-thread sums, each added over the warps in warp
+// order: sum s of column c of chunk k goes to part[s * sum_ld + k * ld + c].
 template <int NS>
 __device__ __forceinline__ void store_col_partials(const float (&acc)[NS],
-                                                   float* __restrict__ part,
-                                                   int nchunks, int n, int c) {
+                                                   float* __restrict__ part, int k,
+                                                   int ld, size_t sum_ld, int n,
+                                                   int c) {
   __shared__ float red[NS][ROW_WARPS][COLS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) red[s][threadIdx.y][threadIdx.x] = acc[s];
@@ -129,7 +131,7 @@ __device__ __forceinline__ void store_col_partials(const float (&acc)[NS],
     for (int s = 0; s < NS; ++s) {
       float t = 0.0f;
       for (int w = 0; w < ROW_WARPS; ++w) t += red[s][w][threadIdx.x];
-      part[((size_t)s * nchunks + blockIdx.y) * n + c] = t;
+      part[s * sum_ld + (size_t)k * ld + c] = t;
     }
   }
 }
@@ -154,11 +156,12 @@ inline cudaError_t reduce_partials(const float* part, float* out, int T, int B,
 }
 
 // out = drop(in) * act'(aux) (aux optional), with per-chunk column partials
-// of out. out may alias in. The FFN backward kernels' dropout and activation
-// gradient with its bias gradient's partials.
+// of out, chunk k's at part + k * ld. out may alias in. The FFN backward
+// kernels' dropout and activation gradient with its bias gradient's
+// partials.
 __global__ void __launch_bounds__(COLS* ROW_WARPS)
 drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
-                 float* __restrict__ part, int R, int n, int act, Drop drop) {
+                 float* __restrict__ part, int ld, int R, int n, int act, Drop drop) {
   const int c = blockIdx.x * COLS + threadIdx.x;
   const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
   float acc[1] = {0.0f};
@@ -171,7 +174,7 @@ drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
       acc[0] += o;
     }
   }
-  store_col_partials<1>(acc, part, gridDim.y, n, c);
+  store_col_partials<1>(acc, part, blockIdx.y, ld, 0, n, c);
 }
 
 // Column sums of X (R, n) into part (1, chunks, n).
@@ -184,7 +187,7 @@ colsum_partial_kernel(const float* __restrict__ X, float* __restrict__ part, int
   if (c < n)
     for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS)
       acc[0] += X[(size_t)r * n + c];
-  store_col_partials<1>(acc, part, gridDim.y, n, c);
+  store_col_partials<1>(acc, part, blockIdx.y, n, 0, n, c);
 }
 
 // out (n,) = sum over the R rows of X (R, n); part holds row_chunks(R) * n.

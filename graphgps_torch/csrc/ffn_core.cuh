@@ -71,13 +71,13 @@ inline cudaError_t ffn_core_backward(const float* h, const float* a1, const floa
   const dim3 blk(COLS, ROW_WARPS);
   // da2 = drop2(g), db2 = sum da2
   drop_grad_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(g, nullptr, da2, scratch,
-                                                                 R, d, act, drop2);
+                                                                 d, R, d, act, drop2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
   // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
   if ((err = Products::nt(da2, w2, da1, R, dhid, d, Epi(), st)) != cudaSuccess) return err;
   drop_grad_kernel<<<dim3(cdiv(dhid, COLS), chunks), blk, 0, st>>>(da1, a1, da1, scratch,
-                                                                    R, dhid, act, drop1);
+                                                                    dhid, R, dhid, act, drop1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce_partials(scratch, db1, 1, chunks, dhid, st)) != cudaSuccess)
     return err;

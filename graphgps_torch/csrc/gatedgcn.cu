@@ -17,24 +17,30 @@
 //   px, pg = [sum m(v-c) | sum m(v-c)^2] of xo (shift cx) and gate (cg)
 //
 // Bound on the H100: at a recipe's width (d = 64..304) the two products are
-// 2*B*N*d*4d + 2*B*E*d*d f32 operations against (B*N + B*E)*d*4 bytes in and
-// as many out, so the forward is bound by operations from d of about 30 up;
-// at ogbg-molhiv's shapes (1,280 x 64 rows) every launch is a fraction of one
-// wave of the card and the time is launch latency. Forward, on the caller's
-// stream: the two projections through the shared GEMM (gemm.cuh; ce is
-// written into the gate output and overwritten in place), ggcn_core_kernel
-// (ggcn_core.cuh, row stride 4d), then the per-graph moment partials added
-// over the graphs in order (the TPU summed across its sequential grid).
-// Backward: the forward's proj is kept (B*N*4d floats: 1.3 MB a layer at
-// molhiv's shapes, 50 MB at B=256, d=304; the TPU recomputed it in VMEM,
-// here recomputing would repeat the forward's largest product), and so are xo
-// and gate. ggcn_core_bwd_kernel folds the px/pg cotangents into the xo/gate
-// cotangents and forms dproj (B*N, 4d) and dgate; then dx = dproj Wn^T and
-// de = dgate C^T (NT), dWn = x^T dproj and dC = e^T dgate (TN, split over
-// rows, partials added in split order), dbn and dbc by fixed-order column
-// sums. No float atomics anywhere: two runs give the same bits. cx and cg get
-// no gradient (the caller stops it, as in the JAX package).
-#include "gemm.cuh"
+// 2*B*N*d*4d + 2*B*E*d*d operations against (B*N + B*E)*d*4 bytes in and as
+// many out; at the 3xTF32 tensor-core rate (495 / 3 = 165 TFLOP/s) the
+// forward is bound by operations at GPS-deep's d = 256 and pcqm4m-GPS's 304
+// and by bytes at ogbg-molhiv's 64 (the crossing lies near d = 100); at
+// ogbg-molhiv's shapes (1,280 x 64 rows) every launch is a fraction of one
+// wave of the card and the time is launch latency. Design: every product
+// runs on the 3xTF32 tensor-core GEMM (gemm_tc.cuh: mma.sync on 64 x 64
+// tiles, a cp.async ring of three stages, bias in its epilogue), the
+// GatedGCN core on ggcn_core.cuh, shared with the layer front. Forward, 4
+// launches on the caller's stream: the two projections (ce is written into
+// the gate output and overwritten in place), ggcn_core_kernel (row stride
+// 4d), then the per-graph moment partials added over the graphs in order
+// (the TPU summed across its sequential grid). Backward: the forward's proj
+// is kept (B*N*4d floats: 1.3 MB a layer at molhiv's shapes, 50 MB at
+// B=256, d=304; the TPU recomputed it in VMEM, here recomputing would repeat
+// the forward's largest product), and so are xo and gate. 9 launches, plus
+// a reduce for each TN product split over rows: ggcn_core_bwd_kernel folds
+// the px/pg cotangents into the xo/gate cotangents and forms dproj (B*N, 4d)
+// and dgate; then dx = dproj Wn^T and de = dgate C^T (NT), dWn = x^T dproj
+// and dC = e^T dgate (TN, split over rows, partials added in split order),
+// dbn and dbc by fixed-order column sums (two launches each). No float
+// atomics anywhere: two runs give the same bits. cx and cg get no gradient
+// (the caller stops it, as in the JAX package).
+#include "gemm_tc.cuh"
 #include "ggcn_core.cuh"
 
 using namespace ggps;
@@ -55,9 +61,10 @@ extern "C" int gatedgcn_forward(
   cudaError_t err;
   Epi eb;
   eb.bias = bn;
-  if ((err = gemm_nn(x, wn, proj, B * N, 4 * d, d, eb, st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_nn(x, wn, proj, B * N, 4 * d, d, eb, st)) != cudaSuccess)
+    return err;
   eb.bias = bc;
-  if ((err = gemm_nn(e, wc, gate, B * E, d, d, eb, st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_nn(e, wc, gate, B * E, d, d, eb, st)) != cudaSuccess) return err;
 
   const size_t smem = ggcn_core_smem(N);
   if ((err = allow_smem(ggcn_core_kernel, smem)) != cudaSuccess) return err;
@@ -73,8 +80,8 @@ extern "C" long long gatedgcn_backward_scratch(int B, int N, int E, int d) {
   const long long rn = (long long)B * N, re = (long long)B * E;
   long long s = (long long)row_chunks(rn) * 4 * d;
   const long long c[] = {(long long)row_chunks(re) * d,
-                         (long long)tn_scratch(d, 4 * d, (int)rn),
-                         (long long)tn_scratch(d, d, (int)re)};
+                         (long long)tc::tn_scratch(d, 4 * d, (int)rn),
+                         (long long)tc::tn_scratch(d, d, (int)re)};
   for (long long v : c) s = v > s ? v : s;
   return s;
 }
@@ -101,11 +108,12 @@ extern "C" int gatedgcn_backward(
       dgate, N, E, d, 4 * d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = gemm_nt(dproj, wn, dx, RN, d, 4 * d, Epi(), st)) != cudaSuccess) return err;
-  if ((err = gemm_nt(dgate, wc, de, RE, d, d, Epi(), st)) != cudaSuccess) return err;
-  if ((err = gemm_tn(x, dproj, dwn, d, 4 * d, RN, scratch, st)) != cudaSuccess)
+  if ((err = tc::gemm_nt(dproj, wn, dx, RN, d, 4 * d, Epi(), st)) != cudaSuccess)
+    return err;
+  if ((err = tc::gemm_nt(dgate, wc, de, RE, d, d, Epi(), st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_tn(x, dproj, dwn, d, 4 * d, RN, scratch, st)) != cudaSuccess)
     return err;
   if ((err = colsum(dproj, dbn, scratch, RN, 4 * d, st)) != cudaSuccess) return err;
-  if ((err = gemm_tn(e, dgate, dwc, d, d, RE, scratch, st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_tn(e, dgate, dwc, d, d, RE, scratch, st)) != cudaSuccess) return err;
   return colsum(dgate, dbc, scratch, RE, d, st);
 }

@@ -10,10 +10,11 @@
 // of the GPS layer front (gps_front.cu: the joint (B*N, d) x (d, 7d)
 // projection, the edge projection, the out-projection and their input and
 // weight gradients), of the GPS attention (gps_attention.cu: the QKV and
-// out-projections) and of the FFN block of combine_ffn.cu (ffn_core.cuh),
-// which the TPU kernels compute in their own bodies (_dot, _dot_nt, _dot_tn
-// of ops/pallas/fused_gatedgcn.py); the other kernels keep gemm.cuh's
-// CUDA-core loop.
+// out-projections), of the FFN block of combine_ffn.cu (ffn_core.cuh), of
+// the GatedGCN core (gatedgcn.cu) and of the Graphormer MLP block
+// (ln_ffn.cu), which the TPU kernels compute in their own bodies (_dot,
+// _dot_nt, _dot_tn of ops/pallas/fused_gatedgcn.py); ffn, bn_ffn and
+// wide_attention keep gemm.cuh's CUDA-core loop.
 //
 // Bound on the H100: at the main path's shapes operations, at the 3xTF32
 // rate (495 / 3 = 165 TFLOP/s). Design: a block of 64 x 64
@@ -32,10 +33,10 @@
 // at every main-path shape (PERF.md §6): a tile here is read by two
 // warps, not by all of them, so the split saves less than its extra pass,
 // stores and second plane of fragment reads cost. The epilogue works on the C
-// fragments in registers. A weight gradient has few output tiles and a long
-// K (all rows), so TN splits K over blockIdx.z into partials that a second
-// pass adds in split order: no float atomics, and two runs give the same
-// bits.
+// fragments in registers, its bias and residual loaded ahead of the stores.
+// A weight gradient has few output tiles and a long K (all rows), so TN
+// splits K over blockIdx.z into partials that a second pass adds in split
+// order: no float atomics, and two runs give the same bits.
 #pragma once
 
 #include "tc_mma.cuh"
@@ -228,10 +229,33 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 
   const bool split_k = gridDim.z > 1;
   float* Cz = C + (split_k ? (size_t)blockIdx.z * M * N : 0);
+  // The epilogue loads its bias, and a fragment's residual, ahead of that
+  // fragment's stores: C may alias them as far as the compiler knows, so a
+  // load after a store waits for it, and loaded in turn the residual's 32
+  // loads a thread ran one after another (ln_ffn's second product at ZINC's
+  // shapes: PERF.md §6). A fragment at a time keeps the registers in
+  // bounds (a row of fragments at a time spilled).
+  float bv[NI][2];
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + wn0 + 8 * j + 2 * t + e;
+      bv[j][e] = !split_k && epi.bias != nullptr && c < N ? epi.bias[c] : 0.0f;
+    }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
+    for (int j = 0; j < NI; ++j) {
+      float rv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm0 + 16 * i + g + 8 * (e >> 1);
+        const int c = col0 + wn0 + 8 * j + 2 * t + (e & 1);
+        rv[e] = !split_k && epi.res != nullptr && r < M && c < N
+                    ? epi.res[(size_t)r * N + c]
+                    : 0.0f;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + wm0 + 16 * i + g + 8 * (e >> 1);
@@ -243,12 +267,13 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
           continue;
         }
         float v = acc[i][j][e];
-        if (epi.bias != nullptr) v += epi.bias[c];
+        if (epi.bias != nullptr) v += bv[j][e & 1];
         if (epi.pre != nullptr) epi.pre[idx] = v;
         v = drop_apply(epi.drop, idx, apply_act(v, epi.act));
-        if (epi.res != nullptr) v += epi.res[idx];
+        if (epi.res != nullptr) v += rv[e];
         C[idx] = v;
       }
+    }
 }
 
 template <bool TA, bool TB>

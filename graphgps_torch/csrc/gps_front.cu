@@ -148,7 +148,7 @@ fold_sa_kernel(const float* __restrict__ gsa, const float* __restrict__ sa,
       acc[0] += y;
     }
   }
-  store_col_partials<1>(acc, part, gridDim.y, d, c);
+  store_col_partials<1>(acc, part, blockIdx.y, d, 0, d, c);
 }
 
 }  // namespace

@@ -11,30 +11,45 @@
 // padded. Dropout sites (common.cuh): 1 the inner (R, dh) view at rate r1, 2
 // the outer (R, d) view at rate r2, each with its own keep threshold.
 //
-// Bound on the H100: the two products (forward 4*R*d*dh f32 operations,
-// backward twice that), so operations. Design, in launches on the caller's
-// stream. Forward: one warp per row computes the row's mean and centred
-// variance with shuffle sums in a fixed order and writes y (and, when a
-// backward follows, the row's mean and rstd); the shared GEMM (gemm.cuh)
-// computes z = drop1(act(y W1 + b1)) with activation and dropout in its
-// epilogue, then out = drop2(z W2 + b2) + h0. With a backward to follow the
-// forward keeps y, z and the pre-activation a1 (recomputing them would cost
-// the first product again). Backward: da2 = drop2(g) with its column sum
-// (db2); du = da2 W2^T (NT GEMM); da1 = drop1(du) * act'(a1) with its column
-// sum (db1); dy = da1 W1^T (NT GEMM); dW1 = y^T da1 and dW2 = z^T da2 (TN
-// GEMMs split over rows); then a warp per row takes dy back through the
-// LayerNorm, dh0 = g + rstd (dy gamma - mean(dy gamma) - xhat mean(dy gamma
-// xhat)), and a column pass gives dgamma = sum dy xhat and dbeta = sum dy as
-// per-chunk partials. Every column sum adds partials in a fixed order (no
-// float atomics), so two runs give the same bits. The (R, dh) intermediates
-// make round trips through device memory; keeping them on chip, as the TPU
-// kernel does in VMEM, is later work.
-#include "gemm.cuh"
+// Bound on the H100: the two products (forward 4*R*d*dh operations,
+// backward twice that) at the 3xTF32 tensor-core rate (495 / 3 = 165
+// TFLOP/s); at ZINC's R = 10,496, d = dh = 80 that is 0.0016 ms forward,
+// below the 0.002 ms of h0 in and out, so there bytes bound it. At these
+// shapes each launch is a fraction of a wave, so fill, drain and launch
+// latency weigh as much as the work, and the design counts launches.
+// Forward, 3 launches on the caller's stream: a warp per two rows computes
+// each row's mean and centred variance with shuffle sums in a fixed order
+// and writes y (and, when a backward follows, the row's mean and rstd); the
+// 3xTF32 tensor-core GEMM (gemm_tc.cuh: mma.sync on 64 x 64 tiles, a
+// cp.async ring of three stages) computes z = drop1(act(y W1 + b1)) with
+// activation and dropout in its epilogue, then out = drop2(z W2 + b2) + h0.
+// The LayerNorm stays a launch of its own: the GEMM copies A by cp.async
+// straight from device memory, so it has no prologue to fold it into. With
+// a backward to follow the forward keeps y, z and the pre-activation a1
+// (recomputing them would cost the first product again). Backward, 8
+// launches plus a reduce for each TN product split over rows: da2 =
+// drop2(g); du = da2 W2^T (NT); da1 = drop1(du) * act'(a1) in place (both
+// by common.cuh's drop_grad_kernel, with their column partials); dy =
+// da1 W1^T (NT); dW1 = y^T da1 and dW2 = z^T da2 (TN); then one launch
+// through the LayerNorm: a warp per row writes dh0 = g + rstd (dy gamma -
+// mean(dy gamma) - xhat mean(dy gamma xhat)), and beside those blocks,
+// others write each chunk of CHUNK_ROWS rows' column partials of dgamma =
+// sum dy xhat and dbeta = sum dy (a block per chunk that also wrote dh0, a
+// warp carrying its rows' partials, left 41 blocks at ZINC's R, each warp
+// walking 32 rows in turn: PERF.md §6); last one launch adds every chunk's
+// partials of db2, db1, dgamma and dbeta, which the passes write into
+// disjoint columns of one (chunks, 3d + dh) array, in chunk order. Every
+// column sum adds rows in a fixed order (no float atomics), so two runs
+// give the same bits. The (R, dh) intermediates make round trips through
+// device memory; keeping them on chip, as the TPU kernel does in VMEM, is
+// later work.
+#include "gemm_tc.cuh"
 
 namespace ggps {
 namespace {
 
-constexpr int LN_WARPS = 8;  // rows per block, one warp each
+constexpr int LN_WARPS = 8;  // warps per block of the forward's LayerNorm
+constexpr int LN_ROWS = 2;   // rows a warp of it takes
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -43,39 +58,79 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // y = LN(h0) * gamma + beta per row; stats (R, 2) = [mean, rstd] if given.
+// A warp takes LN_ROWS rows side by side, so that their loads and shuffle
+// sums overlap: at a row a warp, ZINC's R = 10,496 rows stood in 1.7 waves
+// of warps, each waiting on its loads and shuffles in turn.
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_fwd_kernel(const float* __restrict__ h0, const float* __restrict__ ga,
               const float* __restrict__ be, float* __restrict__ y,
               float* __restrict__ stats, int R, int d, float eps) {
   const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * LN_WARPS + threadIdx.x / 32;
-  if (r >= R) return;
-  const float* x = h0 + (size_t)r * d;
-  float s = 0.0f;
-  for (int c = lane; c < d; c += 32) s += x[c];
-  const float mean = warp_sum(s) / (float)d;
-  float v = 0.0f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = x[c] - mean;
-    v += t * t;
+  const int r0 = (blockIdx.x * LN_WARPS + threadIdx.x / 32) * LN_ROWS;
+  if (r0 >= R) return;
+  const float* x[LN_ROWS];
+  float s[LN_ROWS], v[LN_ROWS], mean[LN_ROWS], rstd[LN_ROWS];
+#pragma unroll
+  for (int k = 0; k < LN_ROWS; ++k) {
+    x[k] = h0 + (size_t)min(r0 + k, R - 1) * d;  // a row past R is read, not written
+    s[k] = v[k] = 0.0f;
   }
-  const float rstd = 1.0f / sqrtf(warp_sum(v) / (float)d + eps);
-  float* yr = y + (size_t)r * d;
-  for (int c = lane; c < d; c += 32) yr[c] = (x[c] - mean) * rstd * ga[c] + be[c];
-  if (stats != nullptr && lane == 0) {
-    stats[2 * (size_t)r] = mean;
-    stats[2 * (size_t)r + 1] = rstd;
+  for (int c = lane; c < d; c += 32)
+#pragma unroll
+    for (int k = 0; k < LN_ROWS; ++k) s[k] += x[k][c];
+#pragma unroll
+  for (int k = 0; k < LN_ROWS; ++k) mean[k] = warp_sum(s[k]) / (float)d;
+  for (int c = lane; c < d; c += 32)
+#pragma unroll
+    for (int k = 0; k < LN_ROWS; ++k) {
+      const float t = x[k][c] - mean[k];
+      v[k] += t * t;
+    }
+#pragma unroll
+  for (int k = 0; k < LN_ROWS; ++k) rstd[k] = 1.0f / sqrtf(warp_sum(v[k]) / (float)d + eps);
+#pragma unroll
+  for (int k = 0; k < LN_ROWS && r0 + k < R; ++k) {
+    float* yr = y + (size_t)(r0 + k) * d;
+    for (int c = lane; c < d; c += 32)
+      yr[c] = (x[k][c] - mean[k]) * rstd[k] * ga[c] + be[c];
+    if (stats != nullptr && lane == 0) {
+      stats[2 * (size_t)(r0 + k)] = mean[k];
+      stats[2 * (size_t)(r0 + k) + 1] = rstd[k];
+    }
   }
 }
 
-// dh0 = g + rstd * (dyh - mean(dyh) - xhat * mean(dyh * xhat)), dyh = dy * gamma,
-// one warp per row.
-__global__ void __launch_bounds__(LN_WARPS * 32)
-ln_bwd_row_kernel(const float* __restrict__ h0, const float* __restrict__ ga,
-                  const float* __restrict__ stats, const float* __restrict__ dy,
-                  const float* __restrict__ g, float* __restrict__ dh0, int R, int d) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * LN_WARPS + threadIdx.x / 32;
+// Through the LayerNorm, in one launch of two kinds of block that do not
+// wait for each other. The first chunks * cblk blocks each take COLS of
+// the d = cblk * COLS (or fewer) columns of a chunk of CHUNK_ROWS rows,
+// their ROW_WARPS warps striding the rows, and write the chunk's partials
+// [dy * xhat | dy] (dgamma, dbeta) into row `chunk` of part (row stride
+// ld). The others take a row a warp: dh0 = g + rstd * (dyh - mean(dyh) -
+// xhat * mean(dyh * xhat)), dyh = dy * gamma.
+__global__ void __launch_bounds__(COLS* ROW_WARPS)
+ln_bwd_kernel(const float* __restrict__ h0, const float* __restrict__ ga,
+              const float* __restrict__ stats, const float* __restrict__ dy,
+              const float* __restrict__ g, float* __restrict__ dh0,
+              float* __restrict__ part, int ld, int chunks, int cblk, int R, int d) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  if ((int)blockIdx.x < chunks * cblk) {
+    const int chunk = blockIdx.x / cblk;
+    const int c = blockIdx.x % cblk * COLS + lane;
+    const int r_end = min(R, (chunk + 1) * CHUNK_ROWS);
+    float acc[2] = {0.0f, 0.0f};
+    if (c < d) {
+#pragma unroll 4
+      for (int r = chunk * CHUNK_ROWS + warp; r < r_end; r += ROW_WARPS) {
+        const size_t i = (size_t)r * d + c;
+        const float xhat = (h0[i] - stats[2 * (size_t)r]) * stats[2 * (size_t)r + 1];
+        acc[0] += dy[i] * xhat;
+        acc[1] += dy[i];
+      }
+    }
+    store_col_partials<2>(acc, part, chunk, ld, d, d, c);
+    return;
+  }
+  const int r = (blockIdx.x - chunks * cblk) * ROW_WARPS + warp;
   if (r >= R) return;
   const size_t base = (size_t)r * d;
   const float mean = stats[2 * (size_t)r], rstd = stats[2 * (size_t)r + 1];
@@ -93,24 +148,6 @@ ln_bwd_row_kernel(const float* __restrict__ h0, const float* __restrict__ ga,
   }
 }
 
-// Per-chunk column partials of [dy * xhat, dy] (dgamma, dbeta).
-__global__ void __launch_bounds__(COLS* ROW_WARPS)
-ln_bwd_col_kernel(const float* __restrict__ h0, const float* __restrict__ stats,
-                  const float* __restrict__ dy, float* __restrict__ part, int R, int d) {
-  const int c = blockIdx.x * COLS + threadIdx.x;
-  const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
-  float acc[2] = {0.0f, 0.0f};
-  if (c < d) {
-    for (int r = blockIdx.y * CHUNK_ROWS + threadIdx.y; r < r_end; r += ROW_WARPS) {
-      const size_t i = (size_t)r * d + c;
-      const float xhat = (h0[i] - stats[2 * (size_t)r]) * stats[2 * (size_t)r + 1];
-      acc[0] += dy[i] * xhat;
-      acc[1] += dy[i];
-    }
-  }
-  store_col_partials<2>(acc, part, gridDim.y, d, c);
-}
-
 }  // namespace
 }  // namespace ggps
 
@@ -126,8 +163,8 @@ extern "C" int ln_ffn_forward(const float* h0, const float* ga, const float* be,
                               unsigned int seed, int t1, float s1, int t2, float s2,
                               float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ln_fwd_kernel<<<cdiv(R, LN_WARPS), LN_WARPS * 32, 0, st>>>(h0, ga, be, y, stats, R,
-                                                            d, eps);
+  ln_fwd_kernel<<<cdiv(R, LN_WARPS * LN_ROWS), LN_WARPS * 32, 0, st>>>(h0, ga, be, y,
+                                                                      stats, R, d, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   Epi e1;
@@ -135,62 +172,57 @@ extern "C" int ln_ffn_forward(const float* h0, const float* ga, const float* be,
   e1.pre = a1;
   e1.act = act;
   e1.drop = make_drop(seed, 1, t1, s1);
-  if ((err = gemm_nn(y, w1, z, R, dh, d, e1, st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_nn(y, w1, z, R, dh, d, e1, st)) != cudaSuccess) return err;
   Epi e2;
   e2.bias = b2;
   e2.res = h0;
   e2.drop = make_drop(seed, 2, t2, s2);
-  return gemm_nn(z, w2, out, R, d, dh, e2, st);
+  return tc::gemm_nn(z, w2, out, R, d, dh, e2, st);
 }
 
-// floats of scratch ln_ffn_backward needs (reused by its passes in turn)
+// floats of scratch ln_ffn_backward needs: the (chunks, 3d + dh) column
+// partials, then the TN products' split partials
 extern "C" long long ln_ffn_backward_scratch(int R, int d, int dh) {
-  const long long chunks = row_chunks(R);
-  long long s = 2 * chunks * d;
-  s = s > chunks * dh ? s : chunks * dh;
-  s = s > (long long)tn_scratch(d, dh, R) ? s : (long long)tn_scratch(d, dh, R);
-  s = s > (long long)tn_scratch(dh, d, R) ? s : (long long)tn_scratch(dh, d, R);
-  return s;
+  const long long a = tc::tn_scratch(d, dh, R), b = tc::tn_scratch(dh, d, R);
+  return (long long)row_chunks(R) * (3 * d + dh) + (a > b ? a : b);
 }
 
 // Inputs: h0 (R, d), gamma (d,), W1 (d, dh), W2 (dh, d), the forward's kept y
 // (R, d), a1 (R, dh), z (R, dh) and stats (R, 2), the cotangent g (R, d).
-// Outputs: dh0 (R, d), dgb (2, d) = [dgamma, dbeta], dw1 (d, dh), db1 (dh,),
-// dw2 (dh, d), db2 (d,). Work: da2 (R, d), da1 (R, dh), dy (R, d), scratch.
+// Outputs: dh0 (R, d), dw1 (d, dh), dw2 (dh, d), dbias (3d + dh) = [db2 |
+// db1 | dgamma | dbeta]. Work: da2 (R, d), da1 (R, dh), dy (R, d), scratch.
 extern "C" int ln_ffn_backward(const float* h0, const float* ga, const float* w1,
                                const float* w2, const float* y, const float* a1,
                                const float* z, const float* stats, const float* g,
-                               float* dh0, float* dgb, float* dw1, float* db1, float* dw2,
-                               float* db2, float* da2, float* da1, float* dy,
-                               float* scratch, int R, int d, int dh, int act,
-                               unsigned int seed, int t1, float s1, int t2, float s2,
-                               void* stream) {
+                               float* dh0, float* dbias, float* dw1, float* dw2,
+                               float* da2, float* da1, float* dy, float* scratch, int R,
+                               int d, int dh, int act, unsigned int seed, int t1,
+                               float s1, int t2, float s2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int chunks = row_chunks(R);
+  const int chunks = row_chunks(R), ld = 3 * d + dh;
+  float* part = scratch;  // (chunks, ld): [db2 | db1 | dgamma | dbeta]
+  float* tn = scratch + (size_t)chunks * ld;
   const dim3 blk(COLS, ROW_WARPS);
-  // da2 = drop2(g), db2 = sum da2
+  // da2 = drop2(g) and its column partials
   drop_grad_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(
-      g, nullptr, da2, scratch, R, d, act, make_drop(seed, 2, t2, s2));
+      g, nullptr, da2, part, ld, R, d, act, make_drop(seed, 2, t2, s2));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db2, 1, chunks, d, st)) != cudaSuccess) return err;
-  // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place, db1 = sum da1
-  if ((err = gemm_nt(da2, w2, da1, R, dh, d, Epi(), st)) != cudaSuccess) return err;
+  // du = da2 W2^T, then da1 = drop1(du) * act'(a1) in place and its partials
+  if ((err = tc::gemm_nt(da2, w2, da1, R, dh, d, Epi(), st)) != cudaSuccess) return err;
   drop_grad_kernel<<<dim3(cdiv(dh, COLS), chunks), blk, 0, st>>>(
-      da1, a1, da1, scratch, R, dh, act, make_drop(seed, 1, t1, s1));
+      da1, a1, da1, part + d, ld, R, dh, act, make_drop(seed, 1, t1, s1));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(scratch, db1, 1, chunks, dh, st)) != cudaSuccess) return err;
   // dy = da1 W1^T: the cotangent of the LayerNorm's output
-  if ((err = gemm_nt(da1, w1, dy, R, d, dh, Epi(), st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_nt(da1, w1, dy, R, d, dh, Epi(), st)) != cudaSuccess) return err;
   // weight gradients over all R rows
-  if ((err = gemm_tn(y, da1, dw1, d, dh, R, scratch, st)) != cudaSuccess) return err;
-  if ((err = gemm_tn(z, da2, dw2, dh, d, R, scratch, st)) != cudaSuccess) return err;
-  // through the LayerNorm: dh0 per row, then dgamma and dbeta per column
-  ln_bwd_row_kernel<<<cdiv(R, LN_WARPS), LN_WARPS * 32, 0, st>>>(h0, ga, stats, dy, g,
-                                                                dh0, R, d);
+  if ((err = tc::gemm_tn(y, da1, dw1, d, dh, R, tn, st)) != cudaSuccess) return err;
+  if ((err = tc::gemm_tn(z, da2, dw2, dh, d, R, tn, st)) != cudaSuccess) return err;
+  // through the LayerNorm: the dgamma, dbeta partials beside dh0 per row
+  const int cblk = cdiv(d, COLS);
+  ln_bwd_kernel<<<chunks * cblk + cdiv(R, ROW_WARPS), blk, 0, st>>>(
+      h0, ga, stats, dy, g, dh0, part + d + dh, ld, chunks, cblk, R, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ln_bwd_col_kernel<<<dim3(cdiv(d, COLS), chunks), blk, 0, st>>>(h0, stats, dy, scratch,
-                                                                R, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return reduce_partials(scratch, dgb, 2, chunks, d, st);
+  // every bias and norm-vector gradient, chunks added in order
+  return reduce_partials(part, dbias, 1, chunks, ld, st);
 }

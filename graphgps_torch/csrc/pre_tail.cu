@@ -62,7 +62,7 @@ pre_tail_bwd_kernel(const float* __restrict__ v, const float* __restrict__ mu,
       acc[3] += dz;
     }
   }
-  store_col_partials<4>(acc, part, gridDim.y, d, c);
+  store_col_partials<4>(acc, part, blockIdx.y, d, (size_t)gridDim.y * d, d, c);
 }
 
 }  // namespace

@@ -17,7 +17,7 @@ EPS = 1e-6
 _FWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 
@@ -118,19 +118,19 @@ def ln_ffn_backward(h0, ga, be, w1, b1, w2, b2, g, seed, r1: float,
                                  [ctypes.c_int] * 3, ctypes.c_longlong)
     e = lambda *s: torch.empty(s, device=dev)  # noqa: E731
     scratch = e(scratch_floats(R, d, dh))
-    dh0, dgb, dw1, db1, dw2, db2 = e(R, d), e(2, d), e(d, dh), e(dh), \
-        e(dh, d), e(d)
+    # dbias = [db2 | db1 | dgamma | dbeta], added by the kernel's last launch
+    dh0, dbias, dw1, dw2 = e(R, d), e(3 * d + dh), e(d, dh), e(dh, d)
     da2, da1, dy = e(R, d), e(R, dh), e(R, d)
     t1, s1 = keep_rule(r1)
     t2, s2 = keep_rule(r2)
     fn = build.cfunc("ln_ffn", "ln_ffn_backward", _BWD_ARGTYPES)
-    err = fn(*map(build.ptr, (h0, ga, w1, w2, y, a1, z, stats, g, dh0, dgb,
-                              dw1, db1, dw2, db2, da2, da1, dy, scratch)),
+    err = fn(*map(build.ptr, (h0, ga, w1, w2, y, a1, z, stats, g, dh0, dbias,
+                              dw1, dw2, da2, da1, dy, scratch)),
              R, d, dh, build.ACTS[act], int(seed), t1, s1, t2, s2,
              build.stream_of(dev))
     build.check_launch("ln_ffn_backward", err)
     ln_ffn_backward.launches += 1
-    dga, dbe = dgb.unbind(0)
+    db2, db1, dga, dbe = dbias.split((d, dh, d, d))
     return dh0, dga, dbe, dw1, db1, dw2, db2
 
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Device times and output bits of kernels of two checkouts, in turns, on
 one GPU: the FFN-block kernels ``combine_ffn``, ``bn_ffn`` and ``ffn``, the
-GatedGCN core ``gatedgcn``, the layer front ``gps_front``, the GPS
-attention ``gps_attention`` and the long-graph attention ``flash_mha`` and
-``wide_attention``, forward and backward, at the shapes of
-``chip_smoke.py`` phases 3, 3c, 3d, 3f, 3g, 3h and 3i and of GPS-deep's
-layers with the front off (G'). Used to hold a change to a shared body
-(``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``, ``csrc/gemm_tc.cuh``,
-``csrc/tc_mma.cuh``) to its parent's times and bits.
+GatedGCN core ``gatedgcn``, the Graphormer MLP block ``ln_ffn``, the layer
+front ``gps_front``, the GPS attention ``gps_attention`` and the long-graph
+attention ``flash_mha`` and ``wide_attention``, forward and backward, at
+the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i and
+of GPS-deep's layers with the front off (G'). Used to hold a change to a
+shared body (``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``,
+``csrc/gemm_tc.cuh``, ``csrc/tc_mma.cuh``) to its parent's times and bits,
+and a redesigned kernel to its parent's times.
 
 Usage, from anywhere, each ROOT a checkout holding ``graphgps_torch/``::
 
@@ -20,22 +21,30 @@ shape it prints one JSON line per run (device ms per call by
 0.1 on every site, and a sha256 of the outputs' bytes), then one summary
 line per kernel and shape: the mean ms of each ROOT, the ratio of the last
 distinct ROOT to the first, whether every run gave the same bits, and the
-card's name and power limit. The attention kernels' runs also carry the
-largest difference from their plain versions on the same inputs
-(``max_abs_err``; the summary gives each ROOT's largest), since a redesign
-of their body changes the summation order and so the bits. ``--kernels``
-picks some of ``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``,
+card's name and power limit. Each run also carries its device ms and
+launches per call by CUDA kernel name (``by_kernel``). The runs of the
+attention kernels, ``gatedgcn`` and ``ln_ffn`` also carry the largest
+difference from their plain versions on the same inputs (``max_abs_err``;
+the summary gives each ROOT's largest), since a redesign of their body
+changes the summation order and so the bits. ``--kernels`` picks some of
+``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``,
 ``gps_front``, ``gps_attention``, ``flash_mha``, ``wide_attention`` (by
 default all). ``flash_mha``'s forward runs also carry the largest distance
 in f32 ulps from its plain version evaluated in f64 and rounded
-(``max_ulps_f64``).
+(``max_ulps_f64``). A run whose profile lost events (a kernel's launches
+not a whole number a call) has ``profile_whole`` false; the summary's mean
+leaves it out (unless all of a ROOT's runs lost events) and gives each
+ROOT's count of such runs.
 """
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+from pathlib import Path
 
 # (tag, rows, width): phase 3's GPS-deep layer (batch 256 x 40 node
 # slots, d 256), 3c's ogbg-molhiv (32 x 40, d 64) and pcqm4m-GPS (256 x
@@ -52,7 +61,8 @@ import sys
 # layer at the recipe's rate and at 0; gps_attention (tag, B, N, d, H,
 # attention dropout) at 3h's GPS-deep layer (256 graphs of 40 slots, 8 heads
 # of 32), at 64 graphs of 128 slots in 4 heads of 64 and at the pcqm4m-GPS
-# width (d 304 in 4 heads of 76, rate 0.5)
+# width (d 304 in 4 heads of 76, rate 0.5); ln_ffn (tag, dropout inner,
+# outer) on 3e's inputs (R 10,496 rows of d = dh = 80) at 0.1 / 0.1 and 0 / 0
 VOC_MIN_REAL = 400
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
@@ -60,6 +70,7 @@ SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
           "ffn": [("Q", 5248, 96), ("A", 7680, 64)],
           "gatedgcn": [("M", 32, 40, 96, 64), ("G'", 256, 40, 96, 256),
                        ("P", 256, 40, 96, 304)],
+          "ln_ffn": [("Z", 0.1, 0.1), ("Z0", 0.0, 0.0)],
           "gps_front": [("G", 10240, 256)],
           "gps_attention": [("G", 256, 40, 256, 8, 0.1),
                             ("E", 64, 128, 256, 4, 0.1),
@@ -71,12 +82,23 @@ SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                              ("V0", 32, 512, 96, 4, 0.0)]}
 FRONT_GRAPHS, FRONT_NODES, FRONT_EDGES, FRONT_HEADS = 256, 40, 96, 8
 ITERS, WARMUP, RATE, SEED = 50, 5, 0.1, 20260
+# phase 3e's recipe and its model seed (chip_smoke.py ZINC_CFG, SEED)
+ZINC_CFG, ZINC_SEED = "configs/Graphormer/zinc-Graphormer.yaml", 0
 
 
-def _time(torch, fn) -> float:
-    """Device ms per call of ``fn``: the CUDA kernels it launches, summed
-    by ``torch.profiler`` over ITERS calls, so that the host's launch gaps
-    (which decide a back-to-back timing at small shapes) do not count."""
+def _short(name: str) -> str:
+    """A CUDA kernel's name without its arguments and namespaces."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].removeprefix("ggps::").strip()
+
+
+def _time(torch, fn):
+    """(Device ms per call of ``fn``, {kernel: [ms, launches] per call},
+    whether every kernel's launches are a whole number a call): the CUDA
+    kernels it launches, summed by ``torch.profiler`` over ITERS calls, so
+    that the host's launch gaps (which decide a back-to-back timing at
+    small shapes) do not count. The profiler has lost a call's events now
+    and then; such a run reads low and says so."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -86,11 +108,19 @@ def _time(torch, fn) -> float:
         for _ in range(ITERS):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in events)
     if us <= 0:
         raise SystemExit("kernel_ab: the profiler recorded no device time")
-    return us / ITERS / 1e3
+    by_kernel = {}
+    for e in sorted(events, key=lambda e: -e.self_device_time_total):
+        ms, n = by_kernel.get(_short(e.key), (0.0, 0.0))
+        by_kernel[_short(e.key)] = [ms + e.self_device_time_total / ITERS / 1e3,
+                                    n + e.count / ITERS]
+    whole = all(n == int(n) for _, n in by_kernel.values())
+    return us / ITERS / 1e3, by_kernel, whole
 
 
 def _digest(torch, out) -> str:
@@ -172,8 +202,9 @@ def _flash_case(torch, rnd, g, dev, B, N, H, Dh, with_bias, min_real):
 
 
 def _gatedgcn_case(torch, rnd, g, dev, B, N, E, d):
-    """gatedgcn's forward and backward calls on seeded inputs: ragged
-    prefix node and edge masks, graph-local endpoints."""
+    """gatedgcn's forward and backward calls and their plain versions on
+    seeded inputs: ragged prefix node and edge masks, graph-local
+    endpoints."""
     from graphgps_torch.ops.kernels import gatedgcn
 
     idx = lambda: torch.randint(0, N, (B, E), generator=g,  # noqa: E731
@@ -191,7 +222,35 @@ def _gatedgcn_case(torch, rnd, g, dev, B, N, E, d):
     cots = [rnd(*o.shape) for o in outs]
     return (lambda: gatedgcn._launch_forward(args)[0],
             lambda: gatedgcn.gatedgcn_backward(
-                *args, *cots, kept=(outs[0], outs[1], proj)))
+                *args, *cots, kept=(outs[0], outs[1], proj)),
+            lambda: gatedgcn.gatedgcn_plain(*args),
+            lambda: gatedgcn.gatedgcn_backward_plain(*args, *cots))
+
+
+def _zinc_rows(root, dev):
+    """Phase 3e's inputs by ``ln_ffn_inputs.py`` beside this file, loaded
+    by its path (a parent checkout may predate it), on ``root``'s
+    ``graphgps_torch`` and recipe."""
+    spec = importlib.util.spec_from_file_location(
+        "ln_ffn_inputs", Path(__file__).with_name("ln_ffn_inputs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.ln_ffn_inputs(os.path.join(root, ZINC_CFG),
+                             ["seed", str(ZINC_SEED)], dev)[2]
+
+
+def _ln_ffn_case(torch, rnd, ins, r1, r2):
+    """ln_ffn's forward and backward calls and their plain versions on
+    phase 3e's inputs ``ins`` at dropout r1 (inner) and r2 (outer)."""
+    from graphgps_torch.ops.kernels import ln_ffn
+
+    conf = (SEED, r1, r2, "gelu")
+    out, kept = ln_ffn._launch_forward(ins, *conf, ln_ffn.EPS, True)
+    cot = rnd(*out.shape)
+    return (lambda: ln_ffn._launch_forward(ins, *conf, ln_ffn.EPS, False)[0],
+            lambda: ln_ffn.ln_ffn_backward(*ins, cot, *conf, kept=kept),
+            lambda: ln_ffn.ln_ffn_plain(*ins, *conf),
+            lambda: ln_ffn.ln_ffn_backward_plain(*ins, cot, *conf))
 
 
 def _wide_case(torch, rnd, g, dev, B, N, d, H, rate):
@@ -292,13 +351,17 @@ def _run_one(root: str, kernels) -> None:
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g, device=dev) * scale + shift
 
+    zinc = None
     for name in kernels:
         for tag, *shape in SHAPES[name]:
             plain, ulps = (None, None), None
             if name == "gps_front":
                 fwd, bwd = _front_case(torch, rnd, g, dev, *shape)
             elif name == "gatedgcn":
-                fwd, bwd = _gatedgcn_case(torch, rnd, g, dev, *shape)
+                fwd, bwd, *plain = _gatedgcn_case(torch, rnd, g, dev, *shape)
+            elif name == "ln_ffn":
+                zinc = zinc or _zinc_rows(root, dev)
+                fwd, bwd, *plain = _ln_ffn_case(torch, rnd, zinc, *shape)
             elif name == "flash_mha":
                 fwd, bwd, *plain, ulps = _flash_case(torch, rnd, g, dev,
                                                      *shape)
@@ -319,7 +382,8 @@ def _run_one(root: str, kernels) -> None:
                         _errors(torch, out, ref())
                 if kind == "fwd" and ulps is not None:
                     row["max_ulps_f64"] = int(ulps(out).max())
-                row["ms"] = _time(torch, fn)
+                row["ms"], row["by_kernel"], row["profile_whole"] = \
+                    _time(torch, fn)
                 print(json.dumps(row), flush=True)
 
 
@@ -342,11 +406,17 @@ def main(args) -> None:
         for line in out.stdout.splitlines():
             print(line, flush=True)
             rows.append(json.loads(line))
-    first, last = roots[0], [r for r in roots if r != roots[0]][-1]
+    first = roots[0]
+    last = ([r for r in roots if r != first] or [first])[-1]
     for key in sorted({(r["kernel"], r["shape"]) for r in rows}):
         runs = [r for r in rows if (r["kernel"], r["shape"]) == key]
-        mean = {root: sum(r["ms"] for r in runs if r["root"] == root)
-                / roots.count(root) for root in dict.fromkeys(roots)}
+        # a run whose profile lost events reads low: a ROOT's mean leaves
+        # it out while the ROOT has a whole one
+        mean = {}
+        for root in dict.fromkeys(roots):
+            mine = [r for r in runs if r["root"] == root]
+            mine = [r for r in mine if r["profile_whole"]] or mine
+            mean[root] = sum(r["ms"] for r in mine) / len(mine)
         extra = {}
         for err in ("max_abs_err", "max_err_over_tensor_max",
                     "max_ulps_f64"):
@@ -354,6 +424,10 @@ def main(args) -> None:
                 extra[err] = {root: max(r[err] for r in runs
                                         if r["root"] == root)
                               for root in dict.fromkeys(roots)}
+        lost = {root: sum(not r["profile_whole"] for r in runs
+                          if r["root"] == root) for root in dict.fromkeys(roots)}
+        if any(lost.values()):
+            extra["profiles_lost_events"] = lost
         print(json.dumps(dict(kernel=key[0], shape=key[1], mean_ms=mean,
                               ratio=mean[last] / mean[first],
                               same_bits=len({r["bits"] for r in runs}) == 1,

@@ -191,10 +191,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 40, 96, 64), (16, 24, 56, 304)])
+@pytest.mark.parametrize("shape", [(32, 40, 96, 64), (16, 24, 56, 304),
+                                   (256, 40, 96, 256), (256, 40, 96, 304)])
 def test_cuda_gatedgcn_drop_add_match_plain(cuda_device, shape):
-    """On the card, at the molhiv layer shape and at a width that is no
-    multiple of 64: ``gatedgcn`` and ``drop_add`` forward and backward
+    """On the card, at the molhiv layer shape, at a width that is no
+    multiple of 64, at GPS-deep's layer with the front off (G') and at
+    pcqm4m-GPS's (P): ``gatedgcn`` and ``drop_add`` forward and backward
     against their plain versions on the same tensors, one launch counted per
     call, two backward runs equal in every bit. f32; rtol = atol = 1e-4 for
     another summation order, a gradient's atol scaled by its tensor's

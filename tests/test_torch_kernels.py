@@ -4,6 +4,9 @@ numpy inputs: ``fused_gps_front`` (rate 0), ``fused_pre_tail`` and
 ``fused_combine_ffn``. f32 throughout; tolerance rtol = atol = 1e-5 (the
 sums run in another order; gelu's erf is exact here and a rational
 approximation with |err| < 1.5e-7 inside the TPU kernels)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +149,29 @@ def test_wrappers_refuse_dropout():
     for rate in (1.0, -0.1):
         with pytest.raises(ValueError, match="dropout"):
             fused_pre_tail(t, t, v, v, v, v, 0, rate, "relu")
+
+
+# The GEMM each kernel source computes its products on (README, Layout):
+# the 3xTF32 tensor-core GEMM, gemm.cuh's f32 CUDA-core loop, or none (no
+# dense product, or products inside the kernel's own attention body).
+CSRC = Path(__file__).resolve().parents[1] / "graphgps_torch" / "csrc"
+TC, FMA = "gemm_tc.cuh", "gemm.cuh"
+PRODUCTS = {"gps_front": TC, "gps_attention": TC, "combine_ffn": TC,
+            "gatedgcn": TC, "ln_ffn": TC, "gemm_tc": TC, "ffn": FMA,
+            "bn_ffn": FMA, "wide_attention": FMA, "pre_tail": None,
+            "drop_add": None, "edge_gate": None, "flash_mha": None,
+            "segment_sum": None, "bigbird": None}
+
+
+@pytest.mark.parametrize("src", sorted(p.stem for p in CSRC.glob("*.cu")))
+def test_products_on_tensor_cores(src):
+    """Each kernel source includes the GEMM header its products run on and
+    not the other: a revert of ``gatedgcn`` or ``ln_ffn`` to the CUDA-core
+    GEMM fails here, on the CPU. A new source needs its entry."""
+    assert src in PRODUCTS, f"{src}.cu: add it to PRODUCTS and the README"
+    text = (CSRC / f"{src}.cu").read_text()
+    included = set(re.findall(r'^#include "([^"]+)"', text, re.M))
+    assert included & {TC, FMA} == ({PRODUCTS[src]} - {None})
 
 
 @pytest.fixture

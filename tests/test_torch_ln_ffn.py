@@ -118,8 +118,9 @@ def test_cuda_ln_ffn_matches_plain(cuda_device, R, d, r1, r2):
     """On the card: the forward kernel (alone, as evaluation runs it, and
     under autograd) and the backward kernel against the plain version and
     autograd through it on the same CUDA tensors; two backward runs equal in
-    every bit; one launch counted per call. rtol 1e-4, atol 1e-5 × the
-    tensor's largest entry (another summation order).
+    every bit, under autograd and as two calls of the backward kernel on
+    the same kept tensors; one launch counted per call. rtol 1e-4, atol
+    1e-5 × the tensor's largest entry (another summation order).
 
     Runs on the card without JAX or this directory's conftest:
     ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
@@ -148,5 +149,13 @@ def test_cuda_ln_ffn_matches_plain(cuda_device, R, d, r1, r2):
     assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
     want = ln_ffn.ln_ffn_backward_plain(*ins, g, *conf)
     for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, **tol(w))
+
+    _, kept = ln_ffn._launch_forward(tuple(ins), *conf, ln_ffn.EPS, True)
+    before = bwd.launches
+    first, second = (bwd(*ins, g, *conf, kept=kept) for _ in range(2))
+    assert bwd.launches == before + 2
+    for a, b, w in zip(first, second, want):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, w, **tol(w))
