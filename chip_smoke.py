@@ -10,9 +10,10 @@ one. Phases, each fatal on failure:
    ``nvcc`` per source, all at once), and find tensor-core instructions
    (HMMA) in the SASS of every kernel of the attention body in the
    ``flash_mha``, ``wide_attention``, ``gps_attention`` and ``gps_front``
-   libraries, and of every kernel of the tensor-core GEMM in the last two
-   and ``combine_ffn``, and f64 tensor-core instructions (DMMA) in every
-   instance of ``flash_mha``'s forward kernel;
+   libraries, of every kernel of the tensor-core GEMM in the last two,
+   ``combine_ffn``, ``gatedgcn``, ``ln_ffn`` and ``bn_ffn``, and of
+   ``bn_ffn``'s two fused kernels, and f64 tensor-core instructions (DMMA)
+   in every instance of ``flash_mha``'s forward kernel;
 3. hold each forward kernel of the merged layer path against its plain
    PyTorch version on the card, on the inputs layer 0 of the first main path
    gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
@@ -33,7 +34,12 @@ one. Phases, each fatal on failure:
    third main path (VOC superpixels GPS: batch 32, 512 node slots and 1,024
    edge slots per graph, d=96, 4 heads; attention dropout 0.5 and 0), and
    the edge gate also at 3,072 edge slots per graph (the real data's edge
-   count) on seeded random inputs; the attention mask keeps 128/256 at 0.5;
+   count), on a batch with a hub receiver (a third of a graph's edges into
+   one node), a graph with no real edge and stray endpoints, and on graphs
+   of 1,024 node slots, all on seeded random inputs, every edge-gate call
+   over its batch's edge orders built beforehand (one launch of the plan
+   kernel ``segment_plan``, held against its plain version and timed
+   beside ``torch.argsort``); the attention mask keeps 128/256 at 0.5;
    ``F.multi_head_attention_forward``, the one PyTorch call that computes
    the wide attention's function, is held against the kernel at rate 0 and
    timed forward and backward as those rows' ``library_ms``; the wide
@@ -56,7 +62,9 @@ one. Phases, each fatal on failure:
    reruns, each kept fraction on the u8 grid, and relu's derivative in the
    plain backward on the kernel's side of each kink (a unit that the two
    computations' rounding puts on different sides must lie within rounding
-   of 0); no single PyTorch call computes the norm apply and the FFN, so
+   of 0); each row names its route (``fused``: one launch forward, two
+   backward; ``sequence``: the launch sequence over the tensor-core GEMM);
+   no single PyTorch call computes the norm apply and the FFN, so
    these rows have no ``library_ms``;
 3g. the GPS FFN block's kernel, ``ffn``, forward and backward, on layer
    0's inputs of the sixth main path in training (wn-squirrel
@@ -168,8 +176,9 @@ cores' 67 TFLOP/s, or for the kernels on the attention body and the
 tensor-core GEMM (``wide_attention`` and ``wide_attention_bwd``,
 ``flash_mha_bwd``, ``gps_front`` and ``gps_front_bwd``, ``gps_attention``
 and ``gps_attention_bwd``, ``combine_ffn`` and ``combine_ffn_bwd``,
-``gatedgcn`` and ``gatedgcn_bwd``, ``ln_ffn`` and ``ln_ffn_bwd``: 3xTF32
-on the tensor cores) 495 / 3 = 165 TFLOP/s, or for ``flash_mha``'s forward
+``gatedgcn`` and ``gatedgcn_bwd``, ``ln_ffn`` and ``ln_ffn_bwd``,
+``bn_ffn`` and ``bn_ffn_bwd``: 3xTF32 on the tensor cores) 495 / 3 = 165
+TFLOP/s, or for ``flash_mha``'s forward
 (f64 on the FP64 tensor cores) 67 TFLOP/s. The line
 before the last is ``{"kernels": [...]}`` (the six kernels
 of the merged path at GPS-deep's shapes, the four of the unmerged path at
@@ -185,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -212,6 +222,10 @@ VOC_OPTS = ["dataset.synth_min_nodes", "400", "dataset.synth_max_nodes", "500",
             "dataset.synth_num_tasks", "21", "dataset.synth_num_graphs", "160"]
 # edge slots per graph of the real PascalVOC-SP graphs
 VOC_REAL_EDGES = 3072
+# the edge gate on graphs wider than the 900 node slots its shared-memory
+# kernel took before the edge orders: (graphs, node slots, edge slots)
+EDGE_GATE_WIDE_SLOTS = 1024
+EDGE_GATE_WIDE = (8, EDGE_GATE_WIDE_SLOTS, 2 * EDGE_GATE_WIDE_SLOTS)
 SEED = 0
 # launches per layer of each kernel: (per training step, per evaluated
 # batch). GPS-deep takes the merged path in training and evaluation; at
@@ -225,10 +239,11 @@ MOLHIV_LAUNCHES = {
     "drop_add_bwd": (1, 0), "pre_tail": (1, 0), "pre_tail_bwd": (1, 0),
     "combine_ffn": (1, 0), "combine_ffn_bwd": (1, 0)}
 # VOC takes the long-graph rung: the Linears as torch.matmul, the edge gate,
-# plain tails; the wide attention; plain FFN -- in training and evaluation
+# plain tails; the wide attention; plain FFN -- in training and evaluation.
+# The edge gate's orders: one plan launch per batch (PER_BATCH_KERNELS)
 VOC_LAUNCHES = {
     "edge_gate": (1, 1), "edge_gate_bwd": (1, 0), "wide_attention": (1, 1),
-    "wide_attention_bwd": (1, 0)}
+    "wide_attention_bwd": (1, 0), "segment_plan": (1, 1)}
 # the Graphormer: the MLP block per layer, every other part in PyTorch ops
 ZINC_LAUNCHES = {"ln_ffn": (1, 1), "ln_ffn_bwd": (1, 0)}
 # SAN: the norm apply + FFN per layer in training only. In evaluation
@@ -247,7 +262,7 @@ GPSDEEP_UNMERGED_LAUNCHES = {
 # flash attention in place of the wide one
 VOC_FLASH_LAUNCHES = {
     "edge_gate": (1, 1), "edge_gate_bwd": (1, 0), "flash_mha": (1, 1),
-    "flash_mha_bwd": (1, 0)}
+    "flash_mha_bwd": (1, 0), "segment_plan": (1, 1)}
 # the switches of the two paths: the JAX package's merged-front switch, and
 # the attention rung (training at attention dropout 0: flash takes none)
 FRONT_OFF = ("GGPS_FUSED_FRONT", "0")
@@ -266,7 +281,7 @@ TILED_ON = ("GGPS_TILED_SEGMENT", "1")
 CSR_ON = ("GGPS_USE_CSR_KERNEL", "1")
 # the plan kernel runs per batch, not per layer: one per id vector (the
 # tiled rung's receivers and, in the backward, senders; the CSR rung's
-# receivers)
+# receivers; the edge gate's two orders, one joint plan)
 SQUIRREL_TILED_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_tiled": (2, 1),
                            "segment_plan": (2, 1)}
 SQUIRREL_CSR_LAUNCHES = {**SQUIRREL_LAUNCHES, "segment_csr": (1, 1),
@@ -286,7 +301,9 @@ SWITCH_RATE_BATCHES = 1
 # body (csrc/attn_tc.cuh: wide_attention forward and backward, flash_mha's
 # backward, gps_attention's and gps_front's attention) and the tensor-core
 # GEMM (csrc/gemm_tc.cuh: the products of gps_attention, gps_front,
-# combine_ffn, gatedgcn and ln_ffn); f64 on the FP64 tensor cores for
+# combine_ffn, gatedgcn, ln_ffn and bn_ffn's wide shapes; bn_ffn's fused
+# route, csrc/ffn_fused.cuh, on the same 3xTF32 mma.sync); f64 on the FP64
+# tensor cores for
 # flash_mha's forward
 PEAK_BYTES = 3.35e12
 PEAK_F32 = "f32 CUDA cores, 67 TFLOP/s"
@@ -298,7 +315,11 @@ TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention", "gps_attention",
                        "gps_front")
 # the libraries whose products run on the tensor-core GEMM
 GEMM_TC_SOURCES = ("gps_attention", "gps_front", "combine_ffn", "gatedgcn",
-                   "ln_ffn")
+                   "ln_ffn", "bn_ffn")
+# kernels with their own tensor-core products (HMMA), by library: bn_ffn's
+# fused route (csrc/ffn_fused.cuh)
+HMMA_KERNELS = {"bn_ffn": ("bn_ffn_fused_fwd_kernel",
+                           "bn_ffn_fused_bwd_kernel")}
 # the libraries with f64 tensor-core kernels (DMMA), by kernel name
 DMMA_KERNELS = {"flash_mha": "flash_fwd_dmma"}
 # kernel vs plain version, both f32 on the card: the sums run in another
@@ -423,15 +444,16 @@ def check_tensor_cores(build) -> None:
     """Every kernel of the attention body (``attn_*``, csrc/attn_tc.cuh) in
     the libraries of TENSOR_CORE_SOURCES, and every kernel of the
     tensor-core GEMM (``gemm_tc_kernel``, csrc/gemm_tc.cuh) in those of
-    GEMM_TC_SOURCES, holds tensor-core products: HMMA in ``cuobjdump
-    -sass``; every kernel named in DMMA_KERNELS holds f64 tensor-core
+    GEMM_TC_SOURCES, and every kernel HMMA_KERNELS names, holds tensor-core
+    products: HMMA in ``cuobjdump -sass``; every kernel named in
+    DMMA_KERNELS holds f64 tensor-core
     products, DMMA. Prints the counts (and the attention kernels' SHFL
     count: a quad's row max and sum, no shuffle-broadcast loop) per library;
     fails on such a kernel without them, or on a library without the
     kernels its list names."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     names = dict.fromkeys(TENSOR_CORE_SOURCES + GEMM_TC_SOURCES
-                          + tuple(DMMA_KERNELS))
+                          + tuple(DMMA_KERNELS) + tuple(HMMA_KERNELS))
     for name in names:
         sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
                               capture_output=True, text=True,
@@ -446,11 +468,14 @@ def check_tensor_cores(build) -> None:
                     counts[fn][op] += op in line
         attn = {f: c for f, c in counts.items() if "attn_" in f}
         gemm = {f: c for f, c in counts.items() if "gemm_tc_kernel" in f}
+        own = {f: c for f, c in counts.items()
+               if any(k in f for k in HMMA_KERNELS.get(name, ()))}
         dmma = {f: c for f, c in counts.items()
                 if name in DMMA_KERNELS and DMMA_KERNELS[name] in f}
-        tc_kernels = {**attn, **gemm}
+        tc_kernels = {**attn, **gemm, **own}
         print(json.dumps(dict(
             sass=name, attention_kernels=len(attn), gemm_tc_kernels=len(gemm),
+            fused_tc_kernels=len(own),
             hmma_per_kernel_min=min((c["HMMA"] for c in tc_kernels.values()),
                                     default=0),
             hmma_total=sum(c["HMMA"] for c in tc_kernels.values()),
@@ -466,6 +491,9 @@ def check_tensor_cores(build) -> None:
             fail(f"{name}: no tensor-core attention kernel in its SASS")
         if name in GEMM_TC_SOURCES and not gemm:
             fail(f"{name}: no tensor-core GEMM kernel in its SASS")
+        if len(own) < len(HMMA_KERNELS.get(name, ())):
+            fail(f"{name}: a kernel of {HMMA_KERNELS[name]} is missing from "
+                 "its SASS")
         if name in DMMA_KERNELS and (
                 not dmma or any(c["DMMA"] == 0 for c in dmma.values())):
             fail(f"{name}: no {DMMA_KERNELS[name]} kernel with f64 "
@@ -692,7 +720,7 @@ def bound(n_bytes: int, flops: int, peak: str = PEAK_F32) -> dict:
                 bound_rate=peak)
 
 
-def forward_case(torch, c, shapes: dict) -> dict:
+def forward_case(torch, c, shapes: dict, timed: bool = True) -> dict:
     """One forward kernel against its plain version on the same tensors:
     prints and returns its row; fails when they disagree. ``c``: name, fn,
     plain, args, flops (on the real rows), source, replaces, ``library``
@@ -701,7 +729,9 @@ def forward_case(torch, c, shapes: dict) -> dict:
     function whose last outputs are (1, 2d) moment sums the
     ``moment_scales`` of those; ``tol`` = (rtol, atol) makes the atol
     relative to each tensor's largest entry; ``peak`` the rate of the bound's
-    operations (PEAK_F32 by default)."""
+    operations (PEAK_F32 by default). Without ``timed`` the row has no
+    times and no bound (no profile: the card's profiler loses events after
+    some tens of them)."""
     with torch.no_grad():
         got = as_tuple(c["fn"](*c["args"]))
         ref = as_tuple(c["plain"](*c["args"]))
@@ -730,15 +760,15 @@ def forward_case(torch, c, shapes: dict) -> dict:
                       for g_, r_, scale in zip(got[n_t:], ref[n_t:], scales))
             ok &= rel <= MOMENT_RTOL
             extra = dict(moments_max_rel_err=rel, moments_rtol=MOMENT_RTOL)
+        timed_keys = dict(
+            **timings(torch, lambda: c["fn"](*c["args"]),
+                      lambda: c["plain"](*c["args"]), c.get("library")),
+            **bound(nbytes(*tensors(c["args"]), *got), c["flops"],
+                    c.get("peak", PEAK_F32))) if timed else {}
         row = dict(name=c["name"], route="cuda", source=c["source"],
                    replaces=c["replaces"], max_abs_err=err,
-                   rtol=rtol, atol=atol,
-                   **timings(torch, lambda: c["fn"](*c["args"]),
-                             lambda: c["plain"](*c["args"]),
-                             c.get("library")),
-                   **bound(nbytes(*tensors(c["args"]), *got), c["flops"],
-                           c.get("peak", PEAK_F32)),
-                   shapes=shapes, **extra)
+                   rtol=rtol, atol=atol, **timed_keys, shapes=shapes,
+                   **extra)
     print(json.dumps(row), flush=True)
     if not ok:
         fail(f"{c['name']}: kernel disagrees with its plain version "
@@ -841,7 +871,8 @@ def grads_close(torch, got, want, rtol, atol, floor: float = 1.0):
     return ok, err, rel
 
 
-def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
+def backward_case(torch, c, seed: int, rate: float, shapes: dict,
+                  timed: bool = True) -> dict:
     """One backward kernel, after its forward kernel with dropout ``rate``
     on every site, against autograd of the plain version on the same
     inputs and cotangents: prints and returns its row; fails on a gradient
@@ -854,7 +885,8 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
     computes the same forward, where there is one: timed, used nowhere in
     the port), and ``tol`` = (rtol, atol) to make the atol relative to each
     tensor's largest entry with no floor (by default GRAD_RTOL and GRAD_ATOL
-    × max(1, largest entry)); ``peak`` as in ``forward_case``."""
+    × max(1, largest entry)); ``peak`` and ``timed`` as in
+    ``forward_case``."""
     from graphgps_torch.ops.kernels.common import dropout_mask, keep_rule
 
     cots, bwd = c["run"]()
@@ -877,10 +909,12 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict) -> dict:
                atol=(f"{atol} x max|grad|" if floor == 0.0
                      else f"{atol} x max(1, max|grad|)"),
                bit_identical_reruns=same,
-               **timings(torch, bwd, lambda: c["plain"](cots),
-                         c["library"](cots) if "library" in c else None),
-               **bound(nbytes(*c["inputs"], *cots, *got), c["flops"],
-                       c.get("peak", PEAK_F32)),
+               **(dict(**timings(torch, bwd, lambda: c["plain"](cots),
+                                 c["library"](cots) if "library" in c
+                                 else None),
+                       **bound(nbytes(*c["inputs"], *cots, *got),
+                               c["flops"], c.get("peak", PEAK_F32)))
+                  if timed else {}),
                rate=rate, kept_fraction=kept, shapes=shapes)
     print(json.dumps(row), flush=True)
     if not same:
@@ -1145,6 +1179,46 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
         {k: v.clone() for k, v in model.state_dict().items()}
 
 
+def edge_gate_orders_note(torch, s_loc, r_loc, N: int, tag: str,
+                          timed: bool = False):
+    """The edge gate's orders of endpoints ``s_loc``/``r_loc`` (B, E) at N
+    node slots: built on the card (one plan launch after one stable
+    argsort) and held equal to their plain version on the CPU; with
+    ``timed``, timed (device ms) beside the plain version on the card and
+    ``torch.argsort`` of the same keys, the one PyTorch call for the
+    permutation (three more profiles: the card's profiler loses events
+    after some tens of them, so only the recipe's shape is timed). Printed
+    as a note (the plan kernel's own row is 3j's). Returns the orders, with
+    ``.ms`` their device ms (None untimed)."""
+    from graphgps_torch.ops.kernels import edge_gate, segment_sum
+
+    before = segment_sum.segment_plan.launches
+    orders = edge_gate.edge_gate_orders(s_loc, r_loc, N)
+    launches = segment_sum.segment_plan.launches - before
+    plain = edge_gate.edge_gate_orders(s_loc.cpu(), r_loc.cpu(), N)
+    same = (torch.equal(orders.perm.cpu(), plain.perm)
+            and torch.equal(orders.plan.ptr.cpu(), plain.plan.ptr))
+    t = {}
+    if timed:
+        keys = edge_gate.order_keys(s_loc, r_loc, N)
+        S2 = 2 * (s_loc.shape[0] * N + 1)
+        t = timings(torch,
+                    lambda: edge_gate.edge_gate_orders(s_loc, r_loc, N),
+                    lambda: segment_sum.plan_plain(keys, S2, True),
+                    lambda: torch.argsort(keys, stable=True))
+        t = {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                               "profile_whole")}
+    print(json.dumps(dict(note="edge gate orders", shape=tag,
+                          plan_launches=launches, same_as_plain=same,
+                          B=s_loc.shape[0], N=N, E=s_loc.shape[1], **t)),
+          flush=True)
+    if not same or launches != 1:
+        fail(f"phase 3d: the edge gate's orders ({tag}) differ from their "
+             f"plain version, or took {launches} plan launches")
+    orders.ms = t.get("ms")
+    return orders
+
+
 def check_long_graphs(torch, cfg_path: str, opts, device):
     """Phase 3d: the two functions of the long-graph rung (edge gate, wide
     attention), forward and backward, kernels against plain versions, on
@@ -1177,6 +1251,9 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
         x, e = model.encoder(batch)
         _, gate_in = layer.local.edge_gate_args(batch, x, e)
         gate_in = tuple(t.contiguous() for t in gate_in)
+    # the batch's edge orders, built once as a step's eight calls share them
+    orders = edge_gate_orders_note(torch, gate_in[3], gate_in[4], N, "voc",
+                                   timed=True)
     attn_in = (x.reshape(B, N, d), batch.counts, layer.w_qkv.detach(),
                layer.b_qkv.detach(), layer.w_out.detach(),
                layer.b_out.detach())
@@ -1187,17 +1264,19 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
     wa_tpu = "graphgps_tpu/ops/pallas/fused_attn_wide.py"
     tol = (LONG_RTOL, LONG_ATOL)
 
-    def gate_cases(args, e_real, n_real):
+    def gate_cases(args, e_real, n_real, orders):
         # per real edge and column: three gathers' adds, the sigmoid (~6),
         # the message product and two accumulations; the backward about
         # twice that (sigma twice, five scatters)
         flops = 12 * e_real * d
         def run(cots=None):
-            gate, nd = edge_gate._launch_forward(args)
+            gate, nd = edge_gate._launch_forward(args, orders)
             cots = cots or cots_for((gate, nd))
             return cots, lambda: edge_gate.edge_gate_backward(
-                *args, *cots, kept=(gate,))
-        return (dict(name="edge_gate", fn=edge_gate.fused_edge_gate,
+                *args, *cots, kept=(gate,), orders=orders)
+        return (dict(name="edge_gate",
+                     fn=lambda *a: edge_gate.fused_edge_gate(*a,
+                                                             orders=orders),
                      plain=edge_gate.edge_gate_plain, args=args, tol=tol,
                      source=eg_src, replaces=f"{eg_tpu}:120", flops=flops),
                 dict(name="edge_gate_bwd", run=run,
@@ -1266,9 +1345,15 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
                   real_edges=e_real)
     rows = []
-    gf, gb = gate_cases(gate_in, e_real, n_real)
+    gf, gb = gate_cases(gate_in, e_real, n_real, orders)
     rows += [forward_case(torch, gf, shapes),
              backward_case(torch, gb, seed, 0.0, shapes)]
+    print(json.dumps(dict(
+        note="the edge gate's device ms a VOC training step: the orders "
+             "once, then 4 layers' forward and backward over them",
+        orders_ms=orders.ms, kernels_ms=4 * (rows[0]["ms"] + rows[1]["ms"]),
+        step_ms=orders.ms + 4 * (rows[0]["ms"] + rows[1]["ms"]),
+        shapes=shapes)), flush=True)
     for rate in (cfg.gt.attn_dropout, 0.0):
         af, ab = attn_cases(rate)
         rows += [dict(forward_case(torch, af, dict(shapes, attn_rate=rate)),
@@ -1357,11 +1442,47 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
     big = (rnd(B, N, d), rnd(B, N, 2 * d), rnd(B, E3, d), idx(),
            idx().sort(dim=1).values, torch.ones(B, E3, device=device))
     shapes3 = dict(B=B, N=N, E=E3, d=d, real_nodes=B * N, real_edges=B * E3)
-    gf, gb = gate_cases(big, B * E3, B * N)
+    tag3 = f"voc, E={E3}"
+    gf, gb = gate_cases(big, B * E3, B * N,
+                        edge_gate_orders_note(torch, big[3], big[4], N, tag3))
     for r in (forward_case(torch, gf, shapes3),
               backward_case(torch, gb, seed, 0.0, shapes3)):
-        r["shape"] = f"voc, E={E3}"
+        r["shape"] = tag3
         rows.append(r)
+
+    # a hub receiver (a third of graph 0's edges into node 5), a graph with
+    # no real edge (graph 1), stray endpoints (graph 2's every 7th sender,
+    # graph 3's every 5th receiver outside [0, N)); then graphs of
+    # EDGE_GATE_WIDE_SLOTS node slots, more than the shared-memory kernel
+    # before the orders took. Held, not timed (kernel_ab.py times the edge
+    # gate on hubs)
+    for tag, (Bx, Nx, Ex) in (("voc, hub, empty graph, stray endpoints",
+                               (B, N, E)),
+                              (f"{EDGE_GATE_WIDE_SLOTS} node slots",
+                               EDGE_GATE_WIDE)):
+        s_ = torch.randint(0, Nx, (Bx, Ex), generator=g, device=device,
+                           dtype=torch.int32)
+        r_ = torch.randint(0, Nx, (Bx, Ex), generator=g, device=device,
+                           dtype=torch.int32)
+        em = (torch.rand(Bx, Ex, generator=g, device=device) < 0.9).float()
+        if Nx == N:
+            r_[0, torch.randperm(Ex, generator=g, device=device)[:Ex // 3]] = 5
+            s_[1], r_[1], em[1] = 0, 0, 0.0
+        r_ = r_.sort(dim=1).values
+        if Nx == N:
+            s_[2, ::7] = Nx + 3
+            r_[3, ::5] = -1
+        args = (rnd(Bx, Nx, d), rnd(Bx, Nx, 2 * d), rnd(Bx, Ex, d), s_, r_,
+                em)
+        ok = (r_ >= 0) & (r_ < Nx)
+        e_n = int((em.bool() & ok).sum())
+        at = dict(B=Bx, N=Nx, E=Ex, d=d, real_nodes=Bx * Nx, real_edges=e_n)
+        gf, gb = gate_cases(args, e_n, Bx * Nx,
+                            edge_gate_orders_note(torch, s_, r_, Nx, tag))
+        for r in (forward_case(torch, gf, at, timed=False),
+                  backward_case(torch, gb, seed, 0.0, at, timed=False)):
+            r["shape"] = tag
+            rows.append(r)
     return cfg, splits, rows, \
         {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -1465,7 +1586,7 @@ def bn_ffn_cases(torch, ins, rate: float, n_real: int, shapes: dict,
 
     fwd = dict(name="bn_ffn", fn=bn_ffn.fused_bn_ffn,
                plain=bn_ffn.bn_ffn_plain, args=(*ins, *conf), tol=tol,
-               source=src, replaces=f"{tpu}:440",
+               source=src, replaces=f"{tpu}:440", peak=PEAK_3XTF32,
                # the norm apply (4 per element) and the two products on the
                # rows that are read
                flops=4 * n_real * d * dh + 4 * n_real * d)
@@ -1473,6 +1594,7 @@ def bn_ffn_cases(torch, ins, rate: float, n_real: int, shapes: dict,
                plain=lambda c: bn_ffn.bn_ffn_backward_plain(
                    *ins, c[0], *conf, relu_mask=mask),
                inputs=ins, source=src, replaces=f"{tpu}:483",
+               peak=PEAK_3XTF32,
                sites=[("FFN inner", R, dh, 1)] if rate > 0 else [], tol=tol,
                # dU = dA2 W2^T, dH = dA1 W1^T, dW1 = H^T dA1, dW2 = U^T dA2;
                # ds and the four column sums
@@ -1480,8 +1602,9 @@ def bn_ffn_cases(torch, ins, rate: float, n_real: int, shapes: dict,
     at = dict(shapes, rate=rate)
     rows = [forward_case(torch, fwd, at), backward_case(torch, bwd, DROP_SEED,
                                                         rate, at)]
+    route = "fused" if bn_ffn.takes_fused(d, dh) else "sequence"
     for r in rows:
-        r.update(shape=tag, rate=rate, relu_kink_flips=n_flips)
+        r.update(shape=tag, rate=rate, relu_kink_flips=n_flips, ffn_route=route)
     return rows
 
 
@@ -2263,7 +2386,9 @@ def check_rung_switch(torch, name: str, cfg_path: str, opts, state, device,
     each of two ``settings`` (callables that switch the model's path), with
     the launches of each: equal on every real row (graph or node) within
     MODEL_RTOL and MODEL_ATOL, and each run's launches per layer what its
-    table in ``tables`` says."""
+    table in ``tables`` says. Each run takes its own copy of the batch, so
+    per-batch state (the edge gate's orders) is built in each, as for a new
+    batch."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders
@@ -2281,7 +2406,7 @@ def check_rung_switch(torch, name: str, cfg_path: str, opts, state, device,
     for setting, table in zip(settings, tables):
         kernels.reset_launch_counts()
         with setting(model), torch.no_grad():
-            preds.append(model(batch)[0])
+            preds.append(model(dataclasses.replace(batch))[0])
         counts = kernels.launch_counts()
         check_launches(f"{name} evaluation, {setting.__name__}", counts,
                        expected_launches(table, layers_of(cfg), 0, 1,
@@ -3026,6 +3151,9 @@ def main() -> None:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
             path, counts = "ogbg-molhiv", mol_counts
+        elif r["name"] in ("segment_csr", "segment_plan"):
+            # the plan kernel also builds the edge gate's orders on VOC
+            path, counts = "wn-squirrel csr", csr_counts
         elif r["name"] in VOC_LAUNCHES:
             path, counts = "vocsuperpixels", voc_counts
         elif r["name"] in ZINC_LAUNCHES:
@@ -3040,8 +3168,6 @@ def main() -> None:
             path, counts = "vocsuperpixels flash", flash_counts
         elif r["name"] == "segment_tiled":
             path, counts = "wn-squirrel tiled", tiled_counts
-        elif r["name"] in ("segment_csr", "segment_plan"):
-            path, counts = "wn-squirrel csr", csr_counts
         elif r["name"] in ("bigbird", "bigbird_bwd"):
             path, counts = "wn-squirrel bigbird", bb_counts
         r["launches"] = counts[r["name"]]

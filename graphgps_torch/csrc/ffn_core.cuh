@@ -9,16 +9,18 @@
 // Forward: two GEMMs with bias, activation, dropout and the residual in
 // their epilogues; a1 is stored when a backward will need it. The includer
 // picks the GEMM as the template argument Products: tc::Gemm (gemm_tc.cuh,
-// 3xTF32 on the tensor cores) for combine_ffn.cu, Gemm (gemm.cuh, f32 on the
-// CUDA cores) for ffn.cu and bn_ffn.cu; both share common.cuh's epilogue.
+// 3xTF32 on the tensor cores) for combine_ffn.cu and bn_ffn.cu's wide
+// shapes, Gemm (gemm.cuh, f32 on the CUDA cores) for ffn.cu; both share
+// common.cuh's epilogue.
 // Backward, given g = d out and the forward's h, a1 and z: da2 = drop2(g) with
 // its column sum (db2); du = da2 W2^T (NT GEMM); da1 = drop1(du) * act'(a1)
 // with its column sum (db1); dh = g + da1 W1^T (NT GEMM, residual epilogue);
 // dW1 = h^T da1 and dW2 = z^T da2 (TN GEMMs split over rows). Every column sum
 // adds per-chunk partials in a fixed order (no float atomics), so two runs
 // give the same bits. Dropout: the caller's two sites (common.cuh). The
-// (R, dh) intermediates make round trips through device memory; keeping them
-// on chip, as the TPU kernels do in VMEM, is later work.
+// (R, dh) intermediates make round trips through device memory; where the
+// weights fit in shared memory, ffn_fused.cuh keeps them on chip, as the TPU
+// kernels do in VMEM (bn_ffn.cu's narrow widths).
 #pragma once
 
 #include "common.cuh"

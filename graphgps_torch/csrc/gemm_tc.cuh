@@ -12,9 +12,10 @@
 // weight gradients), of the GPS attention (gps_attention.cu: the QKV and
 // out-projections), of the FFN block of combine_ffn.cu (ffn_core.cuh), of
 // the GatedGCN core (gatedgcn.cu) and of the Graphormer MLP block
-// (ln_ffn.cu), which the TPU kernels compute in their own bodies (_dot,
-// _dot_nt, _dot_tn of ops/pallas/fused_gatedgcn.py); ffn, bn_ffn and
-// wide_attention keep gemm.cuh's CUDA-core loop.
+// (ln_ffn.cu) and of bn_ffn.cu's FFN at widths beyond its fused route,
+// which the TPU kernels compute in their own bodies (_dot, _dot_nt, _dot_tn
+// of ops/pallas/fused_gatedgcn.py); ffn and wide_attention keep gemm.cuh's
+// CUDA-core loop.
 //
 // Bound on the H100: at the main path's shapes operations, at the 3xTF32
 // rate (495 / 3 = 165 TFLOP/s). Design: a block of 64 x 64

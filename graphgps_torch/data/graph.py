@@ -105,6 +105,18 @@ class GraphBatch:
                 self.node_mask.reshape(B, N).float())
 
     @functools.cached_property
+    def edge_gate_orders(self):
+        """The long-graph edge gate's two edge orders of this batch (by
+        receiver and by sender, with CSR offsets over the node slots:
+        ``ops/kernels/edge_gate.py`` ``EdgeOrders``), built from
+        ``front_index`` at first use and shared by every layer's forward
+        and backward calls. A new batch builds its own."""
+        from ..ops.kernels.edge_gate import edge_gate_orders
+
+        s_loc, r_loc = self.front_index[:2]
+        return edge_gate_orders(s_loc, r_loc, self.max_nodes)
+
+    @functools.cached_property
     def counts(self):
         """(B,) int32 real nodes per graph (0 for a padded graph): the node
         masks are prefixes, so the wide attention kernel takes its key masks

@@ -33,8 +33,10 @@ beyond that the five Linears are ``torch.matmul`` products here (the JAX
 package computes them outside its kernel too), ``fused_edge_gate`` does the
 gathers, the gate and the aggregation, and ``x_new = A x + num / (den +
 1e-6)`` follows in PyTorch. The rule is this card's shared memory, not the
-TPU's VMEM arithmetic (``edge_gate_eligible``). The edge gate returns no
-moment partials: on this rung the norms take their own masked statistics.
+TPU's VMEM arithmetic (``edge_gate_eligible``). The edge gate walks the
+batch's edge orders (``GraphBatch.edge_gate_orders``, built once per batch
+and shared by every layer), and returns no moment partials: on this rung
+the norms take their own masked statistics.
 """
 from __future__ import annotations
 
@@ -173,7 +175,7 @@ class GatedGCNLayer(nn.Module):
         d = self.dim
         if batch.max_nodes > CORE_MAX_NODES:
             ax, args = self.edge_gate_args(batch, x, e, node)
-            gate, nd = fused_edge_gate(*args)
+            gate, nd = fused_edge_gate(*args, orders=batch.edge_gate_orders)
             nd = nd.reshape(-1, 2 * d)
             return (ax + nd[:, :d] / (nd[:, d:] + 1e-6), gate.reshape(-1, d),
                     None, None)

@@ -1,7 +1,12 @@
 """SAN's attention-norm apply + FFN block: the CUDA kernels of
 ``csrc/bn_ffn.cu`` (replacing ``graphgps_tpu/ops/pallas/fused_combine.py:440``
 ``fused_bn_ffn`` and its backward ``_bf_vjp_bwd`` :483) and their plain
-PyTorch versions."""
+PyTorch versions.
+
+Two routes by width (:func:`takes_fused`): where W1, W2 and a block of
+``FUSED_ROWS`` rows fit in a block's shared memory (``csrc/ffn_fused.cuh``;
+SAN's d = 64 among them) one fused launch forward and one plus a fixed-order
+reduce backward; wider FFNs a launch sequence over the tensor-core GEMM."""
 from __future__ import annotations
 
 import ctypes
@@ -13,11 +18,48 @@ from .common import (act_fn, apply_dropout, check_rate, keep_rule,
                      needs_grad, true_f32)
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
+
+# The fused route's rule, as csrc/ffn_fused.cuh's FfnLayout and fused::fits
+# compute it: rows a block, the bytes a block may take (the H100's 227 KB)
+FUSED_ROWS = 16
+FUSED_SMEM_LIMIT = 232448
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _ld(n: int, r: int) -> int:
+    """The least stride >= n that is r mod 32 (``ld4``/``ld8``)."""
+    return n + (r - n % 32) % 32
+
+
+def fused_smem(d: int, dh: int, backward: bool) -> int:
+    """Bytes of shared memory a block of the fused route takes at widths d
+    and dh: W1 and W2, and the block's row tiles (h and z forward; h, z,
+    da2, da1 and dh backward), each row at a stride that spreads a tensor-
+    core fragment's reads over the 32 banks."""
+    dp, dhp, R = _pad16(d), _pad16(dh), FUSED_ROWS
+    if backward:
+        floats = (dp * _ld(dhp, 4) + dhp * _ld(dp, 4)
+                  + R * (_ld(dp, 8) + _ld(dhp, 8) + 2 * _ld(dp, 4)
+                         + _ld(dhp, 4)))
+    else:
+        floats = (dp * _ld(dhp, 8) + dhp * _ld(dp, 8)
+                  + R * (_ld(dp, 4) + _ld(dhp, 4)))
+    return 4 * floats
+
+
+def takes_fused(d: int, dh: int) -> bool:
+    """Whether widths (d, dh) take the fused route: both ways' blocks fit in
+    FUSED_SMEM_LIMIT bytes."""
+    return max(fused_smem(d, dh, False),
+               fused_smem(d, dh, True)) <= FUSED_SMEM_LIMIT
 
 
 def bn_ffn_plain(s, mu, inv, ga, be, w1, b1, w2, b2, seed, rate: float,
@@ -88,15 +130,18 @@ def _launch_forward(args, seed, rate, act, drop2, keep: bool):
     dropout, when ``keep`` (a backward follows), else None."""
     _check_conf("fused_bn_ffn", rate, act)
     R, d, dh, dev = _require_args(*args)
+    fused = takes_fused(d, dh)
     out = torch.empty_like(args[0])
-    h = torch.empty((R, d), device=dev)
-    z = torch.empty((R, dh), device=dev)
-    a1 = torch.empty((R, dh), device=dev) if keep else None
+    e = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
+    work = not fused or keep
+    h, z = (e(R, d), e(R, dh)) if work else (None, None)
+    a1 = e(R, dh) if keep else None
+    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("bn_ffn", "bn_ffn_forward", _FWD_ARGTYPES)
-    err = fn(*map(build.ptr, args + (out, h, z)),
-             build.ptr(a1) if keep else ctypes.c_void_p(0), R, d, dh,
-             build.ACTS[act], int(seed), t1, t2, scale, build.stream_of(dev))
+    err = fn(*map(build.ptr, args + (out,)), opt(h), opt(z), opt(a1), R, d,
+             dh, build.ACTS[act], int(seed), t1, t2, scale, int(fused),
+             build.stream_of(dev))
     build.check_launch("fused_bn_ffn", err)
     fused_bn_ffn.launches += 1
     return out, ((h, a1, z) if keep else None)
@@ -117,23 +162,27 @@ def bn_ffn_backward(s, mu, inv, ga, be, w1, b1, w2, b2, g, seed,
         raise ValueError(f"bn_ffn_backward: unsupported device {g.device}, "
                          "or no kept tensors")
     R, d, dh, dev = _require_args(*args)
+    fused = takes_fused(d, dh)
     h, a1, z = kept
     for name, t in (("h", h), ("g", g)):
         build.require(name, t, (R, d), dev)
     for name, t in (("a1", a1), ("z", z)):
         build.require(name, t, (R, dh), dev)
     scratch_floats = build.cfunc("bn_ffn", "bn_ffn_backward_scratch",
-                                 [ctypes.c_int] * 3, ctypes.c_longlong)
+                                 [ctypes.c_int] * 4, ctypes.c_longlong)
     e = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
-    scratch = e(scratch_floats(R, d, dh))
+    scratch = e(scratch_floats(R, d, dh, int(fused)))
     ds, dvec, dw1, db1, dw2, db2 = e(R, d), e(4, d), e(d, dh), e(dh), \
         e(dh, d), e(d)
-    da2, da1, dhh = e(R, d), e(R, dh), e(R, d)
+    # the launch sequence's work (the fused route keeps it on chip)
+    da2, da1, dhh = (None,) * 3 if fused else (e(R, d), e(R, dh), e(R, d))
+    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("bn_ffn", "bn_ffn_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (s, mu, inv, ga, w1, w2, h, a1, z, g, ds, dvec,
-                              dw1, db1, dw2, db2, da2, da1, dhh, scratch)),
-             R, d, dh, build.ACTS[act], int(seed), t1, t2, scale,
+                              dw1, db1, dw2, db2)),
+             opt(da2), opt(da1), opt(dhh), build.ptr(scratch), R, d, dh,
+             build.ACTS[act], int(seed), t1, t2, scale, int(fused),
              build.stream_of(dev))
     build.check_launch("bn_ffn_backward", err)
     bn_ffn_backward.launches += 1

@@ -2,10 +2,11 @@
 """Device times and output bits of kernels of two checkouts, in turns, on
 one GPU: the FFN-block kernels ``combine_ffn``, ``bn_ffn`` and ``ffn``, the
 GatedGCN core ``gatedgcn``, the Graphormer MLP block ``ln_ffn``, the layer
-front ``gps_front``, the GPS attention ``gps_attention`` and the long-graph
-attention ``flash_mha`` and ``wide_attention``, forward and backward, at
-the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i and
-of GPS-deep's layers with the front off (G'). Used to hold a change to a
+front ``gps_front``, the GPS attention ``gps_attention``, the long-graph
+attention ``flash_mha`` and ``wide_attention`` and the long-graph edge gate
+``edge_gate``, forward and backward, at the shapes of ``chip_smoke.py``
+phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i and of GPS-deep's layers with the
+front off (G'). Used to hold a change to a
 shared body (``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``,
 ``csrc/gemm_tc.cuh``, ``csrc/tc_mma.cuh``) to its parent's times and bits,
 and a redesigned kernel to its parent's times.
@@ -26,9 +27,12 @@ launches per call by CUDA kernel name (``by_kernel``). The runs of the
 attention kernels, ``gatedgcn`` and ``ln_ffn`` also carry the largest
 difference from their plain versions on the same inputs (``max_abs_err``;
 the summary gives each ROOT's largest), since a redesign of their body
-changes the summation order and so the bits. ``--kernels`` picks some of
-``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``,
-``gps_front``, ``gps_attention``, ``flash_mha``, ``wide_attention`` (by
+changes the summation order and so the bits. ``edge_gate``'s calls walk
+the batch's edge orders built beforehand, where ROOT has them
+(``edge_gate_orders``), and a row ``edge_gate_orders_fwd`` times building
+them (those ROOTs only). ``--kernels`` picks some of ``combine_ffn``,
+``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``, ``gps_front``,
+``gps_attention``, ``flash_mha``, ``wide_attention``, ``edge_gate`` (by
 default all). ``flash_mha``'s forward runs also carry the largest distance
 in f32 ulps from its plain version evaluated in f64 and rounded
 (``max_ulps_f64``). A run whose profile lost events (a kernel's launches
@@ -62,7 +66,9 @@ from pathlib import Path
 # attention dropout) at 3h's GPS-deep layer (256 graphs of 40 slots, 8 heads
 # of 32), at 64 graphs of 128 slots in 4 heads of 64 and at the pcqm4m-GPS
 # width (d 304 in 4 heads of 76, rate 0.5); ln_ffn (tag, dropout inner,
-# outer) on 3e's inputs (R 10,496 rows of d = dh = 80) at 0.1 / 0.1 and 0 / 0
+# outer) on 3e's inputs (R 10,496 rows of d = dh = 80) at 0.1 / 0.1 and 0 / 0;
+# edge_gate (tag, B, N, E, d) at 3d's VOC layer (32 graphs of 512 node and
+# 1,024 edge slots, d 96) and at the real data's 3,072 edge slots a graph
 VOC_MIN_REAL = 400
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
@@ -79,7 +85,8 @@ SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                         ("V'b", 32, 512, 4, 24, True, VOC_MIN_REAL),
                         ("Q'", 1, 5248, 4, 24, False, 5201)],
           "wide_attention": [("V", 32, 512, 96, 4, 0.5),
-                             ("V0", 32, 512, 96, 4, 0.0)]}
+                             ("V0", 32, 512, 96, 4, 0.0)],
+          "edge_gate": [("V", 32, 512, 1024, 96), ("V3", 32, 512, 3072, 96)]}
 FRONT_GRAPHS, FRONT_NODES, FRONT_EDGES, FRONT_HEADS = 256, 40, 96, 8
 ITERS, WARMUP, RATE, SEED = 50, 5, 0.1, 20260
 # phase 3e's recipe and its model seed (chip_smoke.py ZINC_CFG, SEED)
@@ -289,6 +296,38 @@ def _gps_attention_case(torch, rnd, g, dev, B, N, d, H, rate):
             lambda: ga.gps_attention_backward_plain(*args, *conf, cot))
 
 
+def _edge_gate_case(torch, rnd, g, dev, B, N, E, d):
+    """edge_gate's forward and backward calls, their plain versions and the
+    call that builds the batch's edge orders (None on a ROOT without them)
+    on seeded inputs laid out as the loader lays out a VOC batch: 400-500
+    real nodes a graph, 85-100% of the edge slots real with random
+    endpoints among them, receivers sorted per graph, and every padded edge
+    slot masked on the graph's last real node (a hub). The kernel calls take
+    the orders built beforehand, as a batch's layers share them."""
+    from graphgps_torch.ops.kernels import edge_gate as eg
+
+    nodes = _voc_counts(torch, g, dev, B, N).long()[:, None]
+    real = torch.randint(int(0.85 * E), E + 1, (B, 1), generator=g,
+                         device=dev)
+    slot = torch.arange(E, device=dev)[None]
+    ends = lambda: (torch.rand(B, E, generator=g, device=dev)  # noqa: E731
+                    * nodes).long()
+    emask = (slot < real).float()
+    pad = lambda t: torch.where(slot < real, t, nodes - 1).int()  # noqa: E731
+    r_loc = pad(ends().sort(dim=1).values)
+    args = (rnd(B, N, d), rnd(B, N, 2 * d), rnd(B, E, d), pad(ends()), r_loc,
+            emask)
+    make = getattr(eg, "edge_gate_orders", None)
+    orders = (lambda: make(args[3], args[4], N)) if make else None
+    kw = dict(orders=orders()) if make else {}
+    gate, nd = eg._launch_forward(args, *kw.values())
+    cots = (rnd(B, E, d), rnd(B, N, 2 * d))
+    return (lambda: eg._launch_forward(args, *kw.values()),
+            lambda: eg.edge_gate_backward(*args, *cots, kept=(gate,), **kw),
+            lambda: eg.edge_gate_plain(*args),
+            lambda: eg.edge_gate_backward_plain(*args, *cots), orders)
+
+
 def _ffn_case(torch, rnd, name, R, d):
     """combine_ffn's, bn_ffn's or ffn's forward and backward calls on seeded
     inputs with dropout RATE on every site."""
@@ -354,7 +393,7 @@ def _run_one(root: str, kernels) -> None:
     zinc = None
     for name in kernels:
         for tag, *shape in SHAPES[name]:
-            plain, ulps = (None, None), None
+            plain, ulps, extra = (None, None), None, []
             if name == "gps_front":
                 fwd, bwd = _front_case(torch, rnd, g, dev, *shape)
             elif name == "gatedgcn":
@@ -370,12 +409,20 @@ def _run_one(root: str, kernels) -> None:
             elif name == "gps_attention":
                 fwd, bwd, *plain = _gps_attention_case(torch, rnd, g, dev,
                                                        *shape)
+            elif name == "edge_gate":
+                fwd, bwd, *plain, orders = _edge_gate_case(torch, rnd, g,
+                                                           dev, *shape)
+                if orders is not None:
+                    extra = [("edge_gate_orders", "fwd", orders, None)]
             else:
                 fwd, bwd = _ffn_case(torch, rnd, name, *shape)
-            for kind, fn, ref in (("fwd", fwd, plain[0]),
-                                  ("bwd", bwd, plain[1])):
+            for kname, kind, fn, ref in [(name, "fwd", fwd, plain[0]),
+                                         (name, "bwd", bwd, plain[1]),
+                                         *extra]:
                 out = fn()
-                row = dict(root=root, kernel=f"{name}_{kind}", shape=tag,
+                if kname == "edge_gate_orders":
+                    out = (out.perm, out.plan.ptr)
+                row = dict(root=root, kernel=f"{kname}_{kind}", shape=tag,
                            dims=shape, bits=_digest(torch, out))
                 if ref is not None:
                     row["max_abs_err"], row["max_err_over_tensor_max"] = \
@@ -412,8 +459,12 @@ def main(args) -> None:
         runs = [r for r in rows if (r["kernel"], r["shape"]) == key]
         # a run whose profile lost events reads low: a ROOT's mean leaves
         # it out while the ROOT has a whole one
+        # the ROOTs with runs of this kernel (edge_gate_orders: those that
+        # build orders)
+        have = [root for root in dict.fromkeys(roots)
+                if any(r["root"] == root for r in runs)]
         mean = {}
-        for root in dict.fromkeys(roots):
+        for root in have:
             mine = [r for r in runs if r["root"] == root]
             mine = [r for r in mine if r["profile_whole"]] or mine
             mean[root] = sum(r["ms"] for r in mine) / len(mine)
@@ -423,13 +474,15 @@ def main(args) -> None:
             if err in runs[0]:
                 extra[err] = {root: max(r[err] for r in runs
                                         if r["root"] == root)
-                              for root in dict.fromkeys(roots)}
+                              for root in have}
         lost = {root: sum(not r["profile_whole"] for r in runs
-                          if r["root"] == root) for root in dict.fromkeys(roots)}
+                          if r["root"] == root) for root in have}
         if any(lost.values()):
             extra["profiles_lost_events"] = lost
+        ratio = (mean[last] / mean[first] if first in mean and last in mean
+                 else None)
         print(json.dumps(dict(kernel=key[0], shape=key[1], mean_ms=mean,
-                              ratio=mean[last] / mean[first],
+                              ratio=ratio,
                               same_bits=len({r["bits"] for r in runs}) == 1,
                               card=smi, **extra)), flush=True)
 

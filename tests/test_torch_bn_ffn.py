@@ -136,6 +136,28 @@ def test_bn_ffn_wrapper_rules():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("d,dh,fused", [
+    (64, 128, True),      # ogbg-molhiv SAN: 84,480 B forward, 99,072 back
+    (96, 192, True),      # the widest d = dh / 2 that fits (16-aligned)
+    (104, 208, False),    # padded to 112 / 224: 267,008 B backward
+    (112, 224, False), (304, 608, False),   # molpcba-SAN: the sequence
+    (36, 72, True), (128, 96, True), (64, 768, False)])
+def test_bn_ffn_width_rule(d, dh, fused):
+    """The route by width at the fused limit's boundary: fused when both
+    ways' blocks fit in the card's 227 KB, the tensor-core GEMM's sequence
+    beyond (the card test holds the C side's rule to this one)."""
+    from graphgps_torch.ops.kernels import bn_ffn
+
+    sizes = [bn_ffn.fused_smem(d, dh, b) for b in (False, True)]
+    assert bn_ffn.takes_fused(d, dh) is fused
+    assert (max(sizes) <= bn_ffn.FUSED_SMEM_LIMIT) is fused
+    assert bn_ffn.FUSED_SMEM_LIMIT == 227 * 1024
+    if (d, dh) == (64, 128):
+        assert sizes == [84480, 99072]
+    if (d, dh) == (104, 208):
+        assert sizes[1] == 267008
+
+
 @pytest.fixture
 def cuda_device():
     """The card, decided when the test runs (never at import)."""
@@ -148,6 +170,9 @@ def cuda_device():
 @pytest.mark.parametrize("R,d,rate,drop2", [(2560, 64, 0.01, False),
                                             (2560, 64, 0.0, False),
                                             (1000, 80, 0.2, True),
+                                            (4104, 96, 0.1, True),
+                                            (1000, 112, 0.1, False),
+                                            (333, 36, 0.1, True),
                                             (20480, 304, 0.2, False)])
 def test_cuda_bn_ffn_matches_plain(cuda_device, R, d, rate, drop2):
     """On the card: the forward kernel (alone, as evaluation would run it,
@@ -155,7 +180,10 @@ def test_cuda_bn_ffn_matches_plain(cuda_device, R, d, rate, drop2):
     and autograd through it on the same CUDA tensors (relu's derivative on
     the kernel's side of each kink, ``relu_mask``); two backward runs equal
     in every bit; one launch counted per call. rtol 1e-5, atol 1e-5 × the
-    tensor's largest entry (another summation order).
+    tensor's largest entry (another summation order). The fused route at
+    SAN's width, at its limit (d = 96) and at widths off 4 (d = 36: 4-byte
+    copies, padded fragments), the launch sequence just past the limit
+    (d = 112) and at molpcba-SAN's width.
 
     Runs on the card without JAX or this directory's conftest:
     ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
@@ -195,3 +223,21 @@ def test_cuda_bn_ffn_matches_plain(cuda_device, R, d, rate, drop2):
     for name, a, b, w in zip(NAMES, got, again, want):
         assert torch.equal(a, b), name
         torch.testing.assert_close(a, w, **tol(w), msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rule_matches_source(cuda_device):
+    """The wrapper's width rule is the C side's: the shared memory a fused
+    block takes each way and whether the route takes the widths."""
+    import ctypes
+
+    from graphgps_torch.ops.kernels import build, bn_ffn
+
+    smem = build.cfunc("bn_ffn", "bn_ffn_fused_smem", [ctypes.c_int] * 3,
+                       ctypes.c_longlong)
+    fits = build.cfunc("bn_ffn", "bn_ffn_fused_fits", [ctypes.c_int] * 2)
+    for d, dh in ((64, 128), (96, 192), (104, 208), (36, 72), (80, 160),
+                  (128, 96), (304, 608), (16, 2048)):
+        for back in (False, True):
+            assert smem(d, dh, int(back)) == bn_ffn.fused_smem(d, dh, back)
+        assert bool(fits(d, dh)) is bn_ffn.takes_fused(d, dh)
