@@ -70,13 +70,16 @@ one. Phases, each fatal on failure:
    0's inputs of the sixth main path in training (wn-squirrel
    GCN+Transformer: one graph of 5,201 nodes in 5,248 node slots, d=96; the
    branch sum of its GCN and attention branches at the recipe's dropout) at
-   the recipe's rate 0.2 and at 0, with gelu (the recipe's) and relu, and
-   at the actor width on seeded inputs (R = 7,680, d=64) at 0.2, within
-   rtol 1e-5 and atol 1e-5 of each tensor's largest entry, with
-   bit-identical backward reruns, each kept fraction on the u8 grid, and
-   relu's derivative in the plain versions on the kernel's side of each
-   kink; no single PyTorch call computes the FFN block, so these rows have
-   no ``library_ms``;
+   the recipe's rate 0.2 and at 0, with gelu (the recipe's) and relu, at
+   the actor width on seeded inputs (R = 7,680, d=64) at 0.2, and at d=304
+   on seeded inputs (R = 20,480) at 0.2, within rtol 1e-5 and atol 1e-5 of
+   each tensor's largest entry, with bit-identical backward reruns, each
+   kept fraction on the u8 grid, and relu's derivative in the plain
+   versions on the kernel's side of each kink; each row names its route
+   (``fused``: one launch forward, two backward, at d=96 and 64;
+   ``sequence``: the launch sequence over the tensor-core GEMM, at d=304);
+   no single PyTorch call computes the FFN block, so these rows have no
+   ``library_ms``;
 3h. the GPS layer's fused attention rung, ``gps_attention``, forward and
    backward, on layer 0's inputs of the first main path (GPS-deep: batch
    256, 40 node slots, d=256, 8 heads) at the recipe's attention dropout
@@ -301,9 +304,9 @@ SWITCH_RATE_BATCHES = 1
 # body (csrc/attn_tc.cuh: wide_attention forward and backward, flash_mha's
 # backward, gps_attention's and gps_front's attention) and the tensor-core
 # GEMM (csrc/gemm_tc.cuh: the products of gps_attention, gps_front,
-# combine_ffn, gatedgcn, ln_ffn and bn_ffn's wide shapes; bn_ffn's fused
-# route, csrc/ffn_fused.cuh, on the same 3xTF32 mma.sync); f64 on the FP64
-# tensor cores for
+# combine_ffn, gatedgcn, ln_ffn and the wide shapes of bn_ffn and ffn; the
+# fused routes of bn_ffn and ffn, csrc/ffn_fused.cuh, on the same 3xTF32
+# mma.sync); f64 on the FP64 tensor cores for
 # flash_mha's forward
 PEAK_BYTES = 3.35e12
 PEAK_F32 = "f32 CUDA cores, 67 TFLOP/s"
@@ -315,11 +318,12 @@ TENSOR_CORE_SOURCES = ("flash_mha", "wide_attention", "gps_attention",
                        "gps_front")
 # the libraries whose products run on the tensor-core GEMM
 GEMM_TC_SOURCES = ("gps_attention", "gps_front", "combine_ffn", "gatedgcn",
-                   "ln_ffn", "bn_ffn")
-# kernels with their own tensor-core products (HMMA), by library: bn_ffn's
-# fused route (csrc/ffn_fused.cuh)
+                   "ln_ffn", "bn_ffn", "ffn")
+# kernels with their own tensor-core products (HMMA), by library: the fused
+# routes of bn_ffn and ffn (csrc/ffn_fused.cuh)
 HMMA_KERNELS = {"bn_ffn": ("bn_ffn_fused_fwd_kernel",
-                           "bn_ffn_fused_bwd_kernel")}
+                           "bn_ffn_fused_bwd_kernel"),
+                "ffn": ("ffn_fused_fwd_kernel", "ffn_fused_bwd_kernel")}
 # the libraries with f64 tensor-core kernels (DMMA), by kernel name
 DMMA_KERNELS = {"flash_mha": "flash_fwd_dmma"}
 # kernel vs plain version, both f32 on the card: the sums run in another
@@ -343,9 +347,11 @@ MOMENT_RTOL = 1e-5
 # the rates: full batches per timed pass (40 until the sixth path joined
 # the script, 20 until the tensor-core GEMM's builds brought the script to
 # 989 s of its 1,200 on an H100: halved each time to keep it inside its
-# time limit), and timed passes
+# time limit), and timed passes (3 until the FFN and BigBird kernels'
+# longer builds and 3g's d=304 case: the script read 976 s before them and
+# 1,048 s after on one host)
 RATE_BATCHES = 10
-RATE_PASSES = 3
+RATE_PASSES = 2
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
 DROP_SEED = 20260
@@ -366,8 +372,10 @@ LN_FFN_RTOL, LN_FFN_ATOL = 1e-5, 1e-5
 BN_FFN_RTOL, BN_FFN_ATOL = 1e-5, 1e-5
 MOLPCBA_ROWS, MOLPCBA_DIM, MOLPCBA_RATE = 512 * 40, 304, 0.2
 # phase 3g: the FFN block at the actor width (configs/GPS/actor-GPS.yaml:
-# 7,600 nodes in 7,680 slots, d = 64) on seeded inputs, every row read; the
-# wn-squirrel rows take layer 0's inputs. The same tolerance as 3e and 3f
+# 7,600 nodes in 7,680 slots, d = 64) and on the launch sequence at d = 304
+# (3f's molpcba-SAN rows, past the fused route's 227 KB) on seeded inputs,
+# every row read; the wn-squirrel rows take layer 0's inputs. The same
+# tolerance as 3e and 3f
 FFN_RTOL, FFN_ATOL = 1e-5, 1e-5
 ACTOR_ROWS, ACTOR_DIM = 7680, 64
 # rate batches of the wn-squirrel recipe: one epoch is one step over the one
@@ -1706,7 +1714,7 @@ def ffn_cases(torch, ins, rate: float, act: str, n_real: int,
     fwd = dict(name="ffn", fn=ffn.fused_ffn,
                plain=lambda *a: ffn.ffn_plain(*a, relu_mask=mask),
                args=(*ins, *conf), tol=tol, source=src,
-               replaces=f"{tpu}:387",
+               replaces=f"{tpu}:387", peak=PEAK_3XTF32,
                # the two products on the rows that are read, the bias, act
                # and dropout of the hidden units, the residual
                flops=4 * n_real * d * dh + (act_ops + 2) * n_real * dh
@@ -1715,6 +1723,7 @@ def ffn_cases(torch, ins, rate: float, act: str, n_real: int,
                plain=lambda c: ffn.ffn_backward_plain(
                    *ins, c[0], *conf, relu_mask=mask),
                inputs=ins, source=src, replaces=f"{tpu}:433",
+               peak=PEAK_3XTF32,
                sites=([("FFN inner", R, dh, 1), ("FFN outer", R, d, 2)]
                       if rate > 0 else []), tol=tol,
                # a1 = H W1 recomputed, dU = dA2 W2^T, dH = dA1 W1^T,
@@ -1724,8 +1733,10 @@ def ffn_cases(torch, ins, rate: float, act: str, n_real: int,
     at = dict(shapes, rate=rate, act=act)
     rows = [forward_case(torch, fwd, at), backward_case(torch, bwd, DROP_SEED,
                                                         rate, at)]
+    route = "fused" if ffn.takes_fused(d, dh) else "sequence"
     for r in rows:
-        r.update(shape=tag, rate=rate, act=act, relu_kink_flips=n_flips)
+        r.update(shape=tag, rate=rate, act=act, relu_kink_flips=n_flips,
+                 ffn_route=route)
     return rows
 
 
@@ -1735,8 +1746,9 @@ def check_ffn(torch, cfg_path: str, opts, device):
     (``opts`` on top) in training: the branch sum h of the seeded model's
     first layer (the GCN and attention branches with their drop-adds at the
     recipe's rates), at rate 0.2 and 0 with gelu and relu; then at the actor
-    width on seeded inputs. Returns (rows, the seeded model's state dict);
-    every row carries ``shape``, ``rate`` and ``act``."""
+    width on seeded inputs, and on the launch sequence at d=304. Returns
+    (rows, the seeded model's state dict); every row carries ``shape``,
+    ``rate``, ``act`` and ``ffn_route``."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders, infer_dims
@@ -1775,6 +1787,12 @@ def check_ffn(torch, cfg_path: str, opts, device):
     rows += ffn_cases(torch, actor, 0.2, "gelu", R,
                       dict(B=1, N=R, R=R, d=d, dh=2 * d, real_rows=R),
                       "actor width")
+    R, d = MOLPCBA_ROWS, MOLPCBA_DIM
+    wide = (rnd(R, d), rnd(d, 2 * d) / d ** 0.5, 0.1 * rnd(2 * d),
+            rnd(2 * d, d) / (2 * d) ** 0.5, 0.1 * rnd(d))
+    rows += ffn_cases(torch, wide, MOLPCBA_RATE, "gelu", R,
+                      dict(B=1, N=R, R=R, d=d, dh=2 * d, real_rows=R),
+                      "d=304")
     return rows, {k: v.clone() for k, v in model.state_dict().items()}
 
 

@@ -9,9 +9,9 @@
 // Forward: two GEMMs with bias, activation, dropout and the residual in
 // their epilogues; a1 is stored when a backward will need it. The includer
 // picks the GEMM as the template argument Products: tc::Gemm (gemm_tc.cuh,
-// 3xTF32 on the tensor cores) for combine_ffn.cu and bn_ffn.cu's wide
-// shapes, Gemm (gemm.cuh, f32 on the CUDA cores) for ffn.cu; both share
-// common.cuh's epilogue.
+// 3xTF32 on the tensor cores) for combine_ffn.cu and the wide shapes of
+// bn_ffn.cu and ffn.cu, or gemm.cuh's Gemm (f32 on the CUDA cores), which
+// shares common.cuh's epilogue.
 // Backward, given g = d out and the forward's h, a1 and z: da2 = drop2(g) with
 // its column sum (db2); du = da2 W2^T (NT GEMM); da1 = drop1(du) * act'(a1)
 // with its column sum (db1); dh = g + da1 W1^T (NT GEMM, residual epilogue);
@@ -20,7 +20,7 @@
 // give the same bits. Dropout: the caller's two sites (common.cuh). The
 // (R, dh) intermediates make round trips through device memory; where the
 // weights fit in shared memory, ffn_fused.cuh keeps them on chip, as the TPU
-// kernels do in VMEM (bn_ffn.cu's narrow widths).
+// kernels do in VMEM (the narrow widths of bn_ffn.cu and ffn.cu).
 #pragma once
 
 #include "common.cuh"

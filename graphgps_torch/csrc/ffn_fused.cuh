@@ -8,16 +8,19 @@
 // the function of ffn_core.cuh, which runs it as a sequence of GEMM and
 // column-sum launches with the (R, dh) intermediates in device memory. Here a
 // block of BM = 16 rows stages W1 and W2 in shared memory (cp.async), takes h
-// from its includer's prologue (bn_ffn.cu: the norm apply), and keeps a1 and z
+// from its includer's prologue (bn_ffn.cu: the norm apply; ffn.cu: h staged
+// as it is, in persistent blocks that walk many tiles), and keeps a1 and z
 // on chip, as the TPU kernels keep them in VMEM; its includer's kernels
 // surround the block functions below. The products are 16-row slabs of
 // mma.sync on the tensor cores in 3xTF32 (tc_mma.cuh's split and mma3), dealt
-// out to the block's warps as 16 x 16 output tiles; dropout is common.cuh's
-// counter hash on the same (row, column) views as the sequence's epilogues,
-// so the masks do not change.
+// out to the block's warps as 16 x 8 NF output tasks (bn_ffn.cu: NF = 2;
+// ffn.cu: the width task_width picks); dropout is common.cuh's counter hash
+// on the same (row, column) views as the sequence's epilogues, so the masks
+// do not change.
 //
-// Backward, given the cotangent g of out and the forward's kept h, a1 and z
-// (R rows each): da2 = drop2(g); da1 = drop1(da2 W2^T) * act'(a1);
+// Backward (bn_ffn.cu's; ffn.cu runs its own over the same products), given
+// the cotangent g of out and the forward's kept h, a1 and z (R rows each):
+// da2 = drop2(g); da1 = drop1(da2 W2^T) * act'(a1);
 // dh = g + da1 W1^T, handed to the includer in shared memory; and the block's
 // partials of dW1 = h^T da1, dW2 = z^T da2, db1 and db2 (with the includer's
 // own) in one row of a (blocks, P) scratch array. One more launch
@@ -27,8 +30,10 @@
 // Bound: the fused limit. The forward stages W1, W2 and the block's h and z,
 // the backward W1, W2 and five row tiles (FfnLayout); a block may take
 // FUSED_SMEM_LIMIT bytes, the H100's 227 KB. SAN's d = 64, dh = 128 takes 84
-// KB forward and 99 KB backward, two blocks an SM. Wider FFNs (molpcba-SAN's
-// d = 304) stay on ffn_core.cuh's sequence.
+// KB forward and 99 KB backward, two blocks an SM; wn-squirrel's d = 96, dh =
+// 192 176 KB and 197 KB, one. Wider FFNs (molpcba-SAN's d = 304) stay on
+// ffn_core.cuh's sequence. The route rule is fits below (in Python
+// ops/kernels/ffn_fused.py takes_fused, which bn_ffn and ffn share).
 #pragma once
 
 #include "tc_mma.cuh"
@@ -131,17 +136,25 @@ __device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src, 
   }
 }
 
-// C (M x N) = A (M x K) B (K x N) on the tensor cores in 3xTF32, M and N
-// multiples of 16, K of 8: 16 x 16 output tiles (two 16 x 8 fragments)
-// dealt out to the block's warps in turn, K in steps of 8 in order. a(m, k)
-// and b(k, n) read shared memory; epi(m, n, v) takes each output once.
-template <class FA, class FB, class Epi>
-__device__ __forceinline__ void products(int M, int N, int K, FA a, FB b, Epi epi) {
+// C (M x N) = A (M x K) B (K x N) on the tensor cores in 3xTF32, M a
+// multiple of 16, N of 8 NF, K of 8: output tasks of 16 rows by NF 8-column
+// fragments dealt out to the block's warps in turn (a task splits its A
+// fragment once for its NF products), K in steps of 8 in order. a(m, k) and
+// b(k, n) read shared memory; epi(m, n, v) takes each output once. An
+// output's sum runs in the same order at every NF, so the task width moves
+// no bits.
+template <int NF, class FA, class FB, class Epi>
+__device__ __forceinline__ void products_nf(int M, int N, int K, FA a, FB b, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int tn = N / 16, tasks = M / 16 * tn;
+  const int tn = N / (8 * NF), tasks = M / 16 * tn;
   for (int task = warp; task < tasks; task += WARPS) {
-    const int m0 = task / tn * 16, n0 = task % tn * 16;
-    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    const int m0 = task / tn * 16, n0 = task % tn * (8 * NF);
+    float acc[NF][4];
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll 4
     for (int k0 = 0; k0 < K; k0 += 8) {
       // A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B: b0 (t, g),
       // b1 (t+4, g) (tc_mma.cuh's fragment lanes)
@@ -150,7 +163,7 @@ __device__ __forceinline__ void products(int M, int N, int K, FA a, FB b, Epi ep
       for (int e = 0; e < 4; ++e)
         tc::split(a(m0 + g + 8 * (e & 1), k0 + t + 4 * (e >> 1)), af.h[e], af.l[e]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NF; ++j) {
         tc::BFrag bf;
         tc::split(b(k0 + t, n0 + 8 * j + g), bf.h[0], bf.l[0]);
         tc::split(b(k0 + t + 4, n0 + 8 * j + g), bf.h[1], bf.l[1]);
@@ -158,11 +171,44 @@ __device__ __forceinline__ void products(int M, int N, int K, FA a, FB b, Epi ep
       }
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < NF; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         epi(m0 + g + 8 * (e >> 1), n0 + 8 * j + 2 * t + (e & 1), acc[j][e]);
   }
+}
+
+// The task width for an M x N product: of NF = 1..4 (dividing N / 8), the
+// one whose busiest warp issues the fewest slots, counting a k-step's 3 NF
+// tensor-core products and the 4 + 2 NF fragment elements it splits. At the
+// FFN's 16-row tiles: 3 for N = 192 (8 tasks, one a warp), 2 for N = 96
+// and 128, 1 for N = 64.
+__device__ __forceinline__ int task_width(int M, int N) {
+  int best = 1, best_cost = 0x7fffffff;
+  for (int nf = 1; nf <= 4; ++nf) {
+    if ((N / 8) % nf != 0) continue;
+    const int rounds = (M / 16 * (N / 8 / nf) + WARPS - 1) / WARPS;
+    const int cost = rounds * (3 * nf + 4 + 2 * nf);
+    if (cost < best_cost) {
+      best = nf;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// C = A B as products_nf: at the task width of task_width(M, N) when PICK
+// (ffn.cu), else at 2 (bn_ffn.cu: its weight-gradient products, K = 16,
+// ran 12.7% slower at S at the picked widths; kernel_ab.py, PERF.md §6).
+template <bool PICK = false, class FA, class FB, class Epi>
+__device__ __forceinline__ void products(int M, int N, int K, FA a, FB b, Epi epi) {
+  if (PICK) {
+    const int nf = task_width(M, N);
+    if (nf == 1) return products_nf<1>(M, N, K, a, b, epi);
+    if (nf == 3) return products_nf<3>(M, N, K, a, b, epi);
+    if (nf == 4) return products_nf<4>(M, N, K, a, b, epi);
+  }
+  products_nf<2>(M, N, K, a, b, epi);
 }
 
 // Stage W1 (d, dh) and W2 (dh, d) in the layout's weight arrays.
@@ -182,16 +228,17 @@ struct FwdArgs {
   Drop drop1, drop2;
 };
 
-// The forward of rows [row0, row0 + BM): h staged in smem + L.h (zeros past
-// R and d), the weights staged and the block synchronised.
-__device__ __forceinline__ void forward_block(const FfnLayout& L, float* smem, int row0,
-                                              const FwdArgs& p) {
-  const float* hs = smem + L.h;
+// The forward's first product for rows [row0, row0 + BM), h in the tile hs
+// (stride L.ldh; zeros past R and d), W1 staged: z = drop1(act(h W1 + b1))
+// into smem + L.z (zeros past dh), and into p.a1 and p.z where not null.
+template <bool PICK = false>
+__device__ __forceinline__ void forward_hidden(const FfnLayout& L, float* smem,
+                                               const float* hs, int row0,
+                                               const FwdArgs& p) {
   float* zs = smem + L.z;
   const float* w1s = smem + L.w1;
-  const float* w2s = smem + L.w2;
-  const int d = L.d, dh = L.dh;
-  products(
+  const int dh = L.dh;
+  products<PICK>(
       BM, L.dhp, L.dp, [&](int m, int k) { return hs[m * L.ldh + k]; },
       [&](int k, int n) { return w1s[k * L.ldw1 + n]; },
       [&](int m, int n, float acc) {
@@ -208,8 +255,17 @@ __device__ __forceinline__ void forward_block(const FfnLayout& L, float* smem, i
         }
         zs[m * L.ldz + n] = zv;
       });
-  __syncthreads();
-  products(
+}
+
+// The forward's second product, z complete in smem + L.z and W2 staged:
+// out = h + drop2(z W2 + b2) for the rows below R.
+template <bool PICK = false>
+__device__ __forceinline__ void forward_out(const FfnLayout& L, float* smem,
+                                            const float* hs, int row0, const FwdArgs& p) {
+  const float* zs = smem + L.z;
+  const float* w2s = smem + L.w2;
+  const int d = L.d;
+  products<PICK>(
       BM, L.dp, L.dhp, [&](int m, int k) { return zs[m * L.ldz + k]; },
       [&](int k, int n) { return w2s[k * L.ldw2 + n]; },
       [&](int m, int n, float acc) {
@@ -220,6 +276,15 @@ __device__ __forceinline__ void forward_block(const FfnLayout& L, float* smem, i
         v = drop_apply(p.drop2, idx, apply_act(v, ACT_IDENTITY));
         p.out[idx] = v + hs[m * L.ldh + n];
       });
+}
+
+// The forward of rows [row0, row0 + BM): h staged in smem + L.h (zeros past
+// R and d), the weights staged and the block synchronised.
+__device__ __forceinline__ void forward_block(const FfnLayout& L, float* smem, int row0,
+                                              const FwdArgs& p) {
+  forward_hidden(L, smem, smem + L.h, row0, p);
+  __syncthreads();
+  forward_out(L, smem, smem + L.h, row0, p);
 }
 
 // Stage the backward's row tiles of rows [row0, row0 + BM): the kept h and

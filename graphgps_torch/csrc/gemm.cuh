@@ -12,9 +12,9 @@
 // All operands row-major and contiguous; weights keep the JAX package's
 // (in, out) layout, so no transpose is made anywhere. These are the products
 // the TPU kernels on the main path compute in their own bodies (_dot, _dot_nt,
-// _dot_tn of ops/pallas/fused_gatedgcn.py): the unmerged GatedGCN's node and
-// edge projections, the FFN's two products, the long-graph attention's
-// projections, and in the backward their input and weight gradients.
+// _dot_tn of ops/pallas/fused_gatedgcn.py); its one user left is the
+// long-graph attention's projections (wide_attention.cu), with their input
+// and weight gradients in the backward.
 //
 // Bound on the H100: at the main path's shapes these products are bound by
 // f32 operations (67 TFLOP/s outside the tensor cores), not bytes. Design: a
@@ -23,8 +23,8 @@
 // shared memory, edges guarded so any M, N, K works. A weight gradient has few
 // output tiles and a long K (all rows), so TN splits K over blockIdx.z into
 // partials that a second pass adds in split order: no float atomics, and two
-// runs give the same bits. The layer front and the GPS attention run their
-// products on the tensor-core GEMM (gemm_tc.cuh) instead.
+// runs give the same bits. Every other kernel runs its products on the
+// tensor cores (gemm_tc.cuh, ffn_fused.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -172,9 +172,9 @@ inline cudaError_t gemm_tn(const float* A, const float* G, float* C, int M, int 
   return reduce_partials(scratch, C, 1, grid.z, (long long)M * N, stream);
 }
 
-// The three products as one type, for a body shared by kernels on either
-// GEMM (ffn_core.cuh): these on the CUDA cores, tc::Gemm (gemm_tc.cuh) on
-// the tensor cores.
+// The three products as one type, for a body written over either GEMM
+// (ffn_core.cuh): these on the CUDA cores, tc::Gemm (gemm_tc.cuh) on the
+// tensor cores.
 struct Gemm {
   static cudaError_t nn(const float* A, const float* W, float* C, int M, int N, int K,
                         const Epi& epi, cudaStream_t st) {

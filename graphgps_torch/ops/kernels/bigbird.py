@@ -16,15 +16,25 @@ allows, and a real row equals the dense path's. The kernels run at the
 true head width (the TPU's padding of Dh to 128 lanes has no
 counterpart).
 
-The plan becomes, once per (N, block size, random blocks, seed) and
-device, two CSR lists: the keys of each query block and, transposed, the
-query rows of each key block, each cut into tasks of at most TASK_LEN
-entries (the global blocks attend to or are attended by every node), with
-partial slots where a block has more than one task."""
+The plan becomes, once per (N, block size, random blocks, seed, head
+width) and device, tables of items for each side: the query side (the
+keys of each query block: forward and dq) and the key side (the query rows
+of each key block: dk and dv). An item is one CUDA block of GROUPS groups
+of 4 lanes. It stages rows of the other side, one head's, in shared memory
+with 16-byte copies: the rows its lists need, in ascending order (for a run
+of up to :func:`run_blocks` own blocks: their window, the global blocks
+and the random blocks), at most :func:`max_rows`. Each own row of a task is
+a unit, one group's: it walks its block's list, entries that name staged
+rows. A list longer than that (the global rows, which see all N nodes; the
+global keys, which all N nodes see) is cut into chunks of consecutive rows,
+tasks of TASK_LEN entries: a chunk's item adds its tasks up into one
+partial slot, and a combine kernel merges the chunks' slots in a fixed
+order. The chunks' items come last."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,12 +46,58 @@ from .common import needs_grad, true_f32
 MAX_HEAD_DIM = 128
 # the library's DEFAULT_MASK_VALUE
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# entries of a block's list one warp walks (keys, or query rows)
-TASK_LEN = 64
+# groups of 4 lanes a CUDA block runs (one own row each), entries of a
+# chunk's task, staged rows an item holds at most, and the shared memory
+# those rows may take (floats)
+GROUPS = 32
+TASK_LEN = 16
+MAX_ROWS = 128
+STAGE_FLOATS = 16384
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 15 + [_I] * 8 + [ctypes.c_float, _P]
-_BWD_ARGTYPES = [_P] * 31 + [_I] * 11 + [ctypes.c_float, _P]
+_FWD_ARGTYPES = [_P] * 15 + [_I] * 10 + [ctypes.c_float, _P]
+_BWD_ARGTYPES = [_P] * 29 + [_I] * 15 + [ctypes.c_float, _P]
+
+
+class Side(NamedTuple):
+    """The item tables of one side (int32 arrays): ``row`` the rows each
+    item stages, in order, ``item_row`` (items + 1) an item's rows in
+    ``row``, ``task`` (tasks, 5) a task's own block, its
+    entries [lo, hi) in ``slot``, its partial slot (-1: the result itself)
+    and whether it is its block's first, ``item_task`` (items + 1) an
+    item's tasks, ``slot`` the staged row of each entry within its item (a
+    chunk's tasks share its partial slot); ``comb`` (entries, 3) the blocks
+    cut into chunks (block, first slot, slots), ``parts`` the partial
+    slots, ``rows`` the most rows an item stages, ``entries`` the most
+    entries an item's tasks hold."""
+    row: np.ndarray
+    item_row: np.ndarray
+    task: np.ndarray
+    item_task: np.ndarray
+    slot: np.ndarray
+    comb: np.ndarray
+    parts: int
+    rows: int
+    entries: int
+
+
+def stage_ld(dh: int) -> int:
+    """A staged row's stride in floats (``bb_ld`` of ``csrc/bigbird.cu``):
+    Dh rounded up to 16 bytes, the copies' size."""
+    return -(-dh // 4) * 4
+
+
+def max_rows(dh: int) -> int:
+    """Rows an item may stage at head width ``dh``: two rows of ``stage_ld``
+    and three scalars each within STAGE_FLOATS, at most MAX_ROWS, at least
+    one chunk's TASK_LEN."""
+    return max(TASK_LEN, min(MAX_ROWS, STAGE_FLOATS // (2 * stage_ld(dh)
+                                                         + 3)))
+
+
+def run_blocks(bs: int) -> int:
+    """Own blocks an item takes at most: one own row a group."""
+    return max(1, GROUPS // bs)
 
 
 def _lists(owner, n: int, bs: int):
@@ -58,57 +114,96 @@ def _lists(owner, n: int, bs: int):
     return ptr, np.concatenate(idx)
 
 
-def _tasks(ptr):
-    """Tasks of at most TASK_LEN entries per block: (blk, lo, hi, part)
-    arrays, the combine entries (blk, first part, parts) of the blocks cut
-    into more than one task, and the number of partial slots."""
-    tasks, comb, parts = [], [], 0
-    for b in range(len(ptr) - 1):
-        lo, hi = int(ptr[b]), int(ptr[b + 1])
-        n_t = max(1, -(-(hi - lo) // TASK_LEN))
-        if n_t == 1:
-            tasks.append((b, lo, hi, -1))
+def _items(ptr, idx, bs: int, rows: int) -> Side:
+    """The items of one side's lists (module docstring): runs of up to
+    ``run_blocks(bs)`` consecutive blocks whose lists together name at most
+    ``rows`` staged rows, and a longer list cut into chunks of as many
+    TASK_LEN-entry tasks, at most ``rows`` entries, one partial slot a
+    chunk."""
+    run_max = run_blocks(bs)
+    chunk = min(rows, run_max * TASK_LEN) // TASK_LEN * TASK_LEN
+    row, item_row, task, item_task, slot, comb = [], [0], [], [0], [], []
+    parts, most, most_e, n_slot = 0, 0, 0, 0
+
+    def item(nodes, tasks):
+        """An item staging ``nodes`` (sorted) with ``tasks`` (block, its
+        entries as nodes, part, first)."""
+        nonlocal most, most_e, n_slot
+        row.append(nodes)
+        most_e = max(most_e, sum(len(t[1]) for t in tasks))
+        item_row.append(item_row[-1] + len(nodes))
+        for blk, entries, part, first in tasks:
+            slot.append(np.searchsorted(nodes, entries))
+            task.append((blk, n_slot, n_slot + len(entries), part, first))
+            n_slot += len(entries)
+        item_task.append(len(task))
+        most = max(most, len(nodes))
+
+    lists = [idx[ptr[b]:ptr[b + 1]] for b in range(len(ptr) - 1)]
+    long = [b for b, nodes in enumerate(lists) if len(nodes) > rows]
+    b = 0
+    while b < len(lists):
+        if b in long:
+            b += 1
             continue
-        comb.append((b, parts, n_t))
-        for t in range(n_t):
-            tasks.append((b, lo + t * TASK_LEN, min(hi, lo + (t + 1) * TASK_LEN),
-                          parts + t))
-        parts += n_t
-    return (np.asarray(tasks, np.int32).reshape(-1, 4),
-            np.asarray(comb, np.int32).reshape(-1, 3), parts)
+        run, staged = [b], lists[b]
+        while (len(run) < run_max and b + len(run) < len(lists)
+               and b + len(run) not in long):
+            more = np.union1d(staged, lists[b + len(run)])
+            if len(more) > rows:
+                break
+            run.append(b + len(run))
+            staged = more
+        item(staged, [(r, lists[r], -1, 1) for r in run])
+        b += len(run)
+    # the chunks last, the lighter items in the grid's last wave
+    for b in long:
+        nodes = lists[b]
+        n_c = -(-len(nodes) // chunk)
+        comb.append((b, parts, n_c))
+        for c0 in range(0, len(nodes), chunk):
+            part = nodes[c0:c0 + chunk]
+            item(part, [(b, part[t0:t0 + TASK_LEN], parts + c0 // chunk,
+                         int(c0 + t0 == 0))
+                        for t0 in range(0, len(part), TASK_LEN)])
+        parts += n_c
+    def i32(a, *shape):
+        return np.asarray(a, np.int32).reshape(shape)
+
+    flat = lambda a: i32(np.concatenate(a) if a else [], -1)  # noqa: E731
+    return Side(flat(row), i32(item_row, -1), i32(task, -1, 5),
+                i32(item_task, -1), flat(slot), i32(comb, -1, 3), parts,
+                most, most_e)
 
 
 @functools.lru_cache(maxsize=32)
-def plan_tables(n: int, block_size: int, num_random_blocks: int, seed: int):
-    """Host tables of a plan: for the query side ("q": the keys of each
-    query block) and the key side ("k": the query rows of each key block)
-    (ptr, idx, tasks, combine entries, partial slots)."""
+def plan_tables(n: int, block_size: int, num_random_blocks: int, seed: int,
+                rows: int = MAX_ROWS):
+    """Host tables of a plan, at most ``rows`` staged rows an item: for the
+    query side ("q": the keys of each query block) and the key side ("k":
+    the query rows of each key block), a :class:`Side` each."""
     from ..bigbird import block_plan
 
     plan = block_plan(n, block_size, num_random_blocks, seed)
-    out = {}
-    for side, owner in (("q", plan), ("k", plan.T)):
-        ptr, idx = _lists(owner, n, block_size)
-        tasks, comb, parts = _tasks(ptr)
-        out[side] = (ptr.astype(np.int32), idx.astype(np.int32), tasks, comb,
-                     parts)
-    return out
+    return {side: _items(*_lists(owner, n, block_size), block_size, rows)
+            for side, owner in (("q", plan), ("k", plan.T))}
 
 
 @functools.lru_cache(maxsize=32)
-def _tables_on(device, n: int, bs: int, r: int, seed: int):
+def _tables_on(device, n: int, bs: int, r: int, seed: int, rows: int):
     """The plan's tables as int32 tensors on ``device`` (made once): per
-    side (ptr, idx, blk, lo, hi, part, c_blk, c_p0, c_np, n_tasks, n_comb,
-    parts)."""
+    side (row, item_row, task, item_task, slot, c_blk, c_p0, c_np, items,
+    combine entries, parts, rows, entries)."""
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     out = {}
-    for side, (ptr, idx, tasks, comb, parts) in plan_tables(
-            n, bs, r, seed).items():
-        out[side] = (dev(ptr), dev(idx), *(dev(tasks[:, i]) for i in range(4)),
-                     *(dev(comb[:, i]) for i in range(3)), len(tasks),
-                     len(comb), parts)
+    for side, t in plan_tables(n, bs, r, seed, rows).items():
+        out[side] = (*(dev(a) for a in (t.row, t.item_row, t.task,
+                                        t.item_task, t.slot)),
+                     *(dev(t.comb[:, i]) for i in range(3)),
+                     len(t.item_row) - 1, len(t.comb), t.parts, t.rows,
+                     t.entries)
     return out
 
 
@@ -159,27 +254,27 @@ def _scale(Dh: int) -> float:
 
 
 def _side_args(side):
-    """The table pointers and counts of one side, in the C order."""
-    ptr, idx, blk, lo, hi, part, c_blk, c_p0, c_np, nt, nc, parts = side
-    return ([build.ptr(t) for t in (ptr, idx, blk, lo, hi, part, c_blk, c_p0,
-                                     c_np)], (nt, nc, parts))
+    """The table pointers and counts (items, combine entries, partial
+    slots, most staged rows, most entries) of one side, in the C order."""
+    return [build.ptr(t) for t in side[:8]], side[8:]
 
 
 def _launch_forward(q, k, v, key_mask, bs: int, r: int, seed: int):
-    """The forward kernels. Returns o and the kept (segment ids (B, N)
-    int32, the rows' log-sum-exps (B*H*N)) the backward takes back."""
+    """The forward kernels. Returns o and the kept (the segment ids as the
+    mask's bytes (B, N), the rows' log-sum-exps (B*H*N)) the backward takes
+    back."""
     B, H, N, Dh, dev = _check_args(q, k, v, key_mask)
-    tables = _tables_on(dev, N, bs, r, seed)
-    ptrs, (nt, nc, parts) = _side_args(tables["q"])
-    ids = key_mask.to(torch.int32)
+    tables = _tables_on(dev, N, bs, r, seed, max_rows(Dh))
+    ptrs, counts = _side_args(tables["q"])
+    ids = key_mask.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((B * H * N,), device=dev)
-    scratch = torch.empty((max(1, B * H * parts * bs * (Dh + 2)),),
+    scratch = torch.empty((max(1, B * H * counts[2] * bs * (Dh + 2)),),
                           device=dev)
     fn = build.cfunc("bigbird", "bigbird_forward", _FWD_ARGTYPES)
-    err = fn(*map(build.ptr, (q, k, v, ids)), *ptrs[1:], build.ptr(o),
-             build.ptr(lse), build.ptr(scratch), nt, nc, parts, B, H, N, Dh,
-             bs, _scale(Dh), build.stream_of(dev))
+    err = fn(*map(build.ptr, (q, k, v, ids)), *ptrs, build.ptr(o),
+             build.ptr(lse), build.ptr(scratch), *counts, B, H, N, Dh, bs,
+             _scale(Dh), build.stream_of(dev))
     build.check_launch("bigbird", err)
     bigbird_block_sparse.launches += 1
     return o, (ids, lse)
@@ -200,23 +295,24 @@ def bigbird_backward(q, k, v, key_mask, block_size: int,
                          "or no kept tensors")
     B, H, N, Dh, dev = _check_args(q, k, v, key_mask)
     ids, lse = kept
-    build.require("ids", ids, (B, N), dev, torch.int32)
+    build.require("ids", ids, (B, N), dev, torch.bool)
     build.require("lse", lse, (B * H * N,), dev)
     build.require("o", o, (B, H, N, Dh), dev)
     build.require("do", do, (B, H, N, Dh), dev)
     bs = block_size
-    tables = _tables_on(dev, N, bs, num_random_blocks, seed)
-    qptrs, (qnt, qnc, qparts) = _side_args(tables["q"])
-    kptrs, (knt, knc, kparts) = _side_args(tables["k"])
+    tables = _tables_on(dev, N, bs, num_random_blocks, seed, max_rows(Dh))
+    qptrs, qcounts = _side_args(tables["q"])
+    kptrs, kcounts = _side_args(tables["k"])
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     drow = torch.empty((B * H * N,), device=dev)
-    q_scratch = torch.empty((max(1, B * H * qparts * bs * Dh),), device=dev)
-    k_scratch = torch.empty((max(1, B * H * kparts * bs * 2 * Dh),),
+    q_scratch = torch.empty((max(1, B * H * qcounts[2] * bs * Dh),),
+                            device=dev)
+    k_scratch = torch.empty((max(1, B * H * kcounts[2] * bs * 2 * Dh),),
                             device=dev)
     fn = build.cfunc("bigbird", "bigbird_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (q, k, v, ids, o, lse, do)), *qptrs, *kptrs,
              *map(build.ptr, (dq, dk, dv, drow, q_scratch, k_scratch)),
-             qnt, qnc, qparts, knt, knc, kparts, B, H, N, Dh, bs, _scale(Dh),
+             *qcounts, *kcounts, B, H, N, Dh, bs, _scale(Dh),
              build.stream_of(dev))
     build.check_launch("bigbird_backward", err)
     bigbird_backward.launches += 1

@@ -3,10 +3,11 @@
 ``fused_bn_ffn`` and its backward ``_bf_vjp_bwd`` :483) and their plain
 PyTorch versions.
 
-Two routes by width (:func:`takes_fused`): where W1, W2 and a block of
-``FUSED_ROWS`` rows fit in a block's shared memory (``csrc/ffn_fused.cuh``;
-SAN's d = 64 among them) one fused launch forward and one plus a fixed-order
-reduce backward; wider FFNs a launch sequence over the tensor-core GEMM."""
+Two routes by width (``ffn_fused.takes_fused``, the rule ``ffn`` shares):
+where W1, W2 and a block of rows fit in a block's shared
+memory (``csrc/ffn_fused.cuh``; SAN's d = 64 among them) one fused launch
+forward and one plus a fixed-order reduce backward; wider FFNs a launch
+sequence over the tensor-core GEMM."""
 from __future__ import annotations
 
 import ctypes
@@ -16,6 +17,7 @@ import torch
 from . import build
 from .common import (act_fn, apply_dropout, check_rate, keep_rule,
                      needs_grad, true_f32)
+from .ffn_fused import takes_fused
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -23,44 +25,6 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
 _BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
     ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
-
-# The fused route's rule, as csrc/ffn_fused.cuh's FfnLayout and fused::fits
-# compute it: rows a block, the bytes a block may take (the H100's 227 KB)
-FUSED_ROWS = 16
-FUSED_SMEM_LIMIT = 232448
-
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _ld(n: int, r: int) -> int:
-    """The least stride >= n that is r mod 32 (``ld4``/``ld8``)."""
-    return n + (r - n % 32) % 32
-
-
-def fused_smem(d: int, dh: int, backward: bool) -> int:
-    """Bytes of shared memory a block of the fused route takes at widths d
-    and dh: W1 and W2, and the block's row tiles (h and z forward; h, z,
-    da2, da1 and dh backward), each row at a stride that spreads a tensor-
-    core fragment's reads over the 32 banks."""
-    dp, dhp, R = _pad16(d), _pad16(dh), FUSED_ROWS
-    if backward:
-        floats = (dp * _ld(dhp, 4) + dhp * _ld(dp, 4)
-                  + R * (_ld(dp, 8) + _ld(dhp, 8) + 2 * _ld(dp, 4)
-                         + _ld(dhp, 4)))
-    else:
-        floats = (dp * _ld(dhp, 8) + dhp * _ld(dp, 8)
-                  + R * (_ld(dp, 4) + _ld(dhp, 4)))
-    return 4 * floats
-
-
-def takes_fused(d: int, dh: int) -> bool:
-    """Whether widths (d, dh) take the fused route: both ways' blocks fit in
-    FUSED_SMEM_LIMIT bytes."""
-    return max(fused_smem(d, dh, False),
-               fused_smem(d, dh, True)) <= FUSED_SMEM_LIMIT
-
 
 def bn_ffn_plain(s, mu, inv, ga, be, w1, b1, w2, b2, seed, rate: float,
                  act: str = "relu", drop2: bool = False, relu_mask=None):

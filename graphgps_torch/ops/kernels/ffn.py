@@ -1,6 +1,14 @@
 """The GPS FFN block with its residual: the CUDA kernels of ``csrc/ffn.cu``
 (replacing ``graphgps_tpu/ops/pallas/fused_tail.py:387`` ``fused_ffn`` and
-its backward ``_ffn_vjp_bwd`` :433) and their plain PyTorch versions."""
+its backward ``_ffn_vjp_bwd`` :433) and their plain PyTorch versions.
+
+Two routes by width, with ``bn_ffn``'s rule (``ffn_fused.takes_fused``):
+where W1, W2 and a block of rows fit in a block's shared memory
+(wn-squirrel's d = 96 and actor's d = 64 among them) persistent fused
+blocks, one launch forward and two backward (the block pass and a
+fixed-order reduce); wider FFNs a launch sequence over the tensor-core
+GEMM. Neither keeps anything for the backward, which recomputes the hidden
+units from ``h`` as the TPU kernel does."""
 from __future__ import annotations
 
 import ctypes
@@ -10,12 +18,13 @@ import torch
 from . import build
 from .common import (act_fn, apply_dropout, check_rate, keep_rule,
                      needs_grad, true_f32)
+from .ffn_fused import takes_fused
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 
 
@@ -79,14 +88,17 @@ def _launch_forward(args, seed, rate, act, drop2, keep_a1: bool = False):
     pre-activation (R, dh), (out, a1), for a check of relu's kinks."""
     _check_conf("fused_ffn", rate, act)
     R, d, dh, dev = _require_args(*args)
+    fused = takes_fused(d, dh)
     out = torch.empty_like(args[0])
-    z = torch.empty((R, dh), device=dev)
+    # the sequence's work (the fused route keeps z on chip)
+    z = None if fused else torch.empty((R, dh), device=dev)
     a1 = torch.empty((R, dh), device=dev) if keep_a1 else None
+    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("ffn", "ffn_forward", _FWD_ARGTYPES)
-    err = fn(*map(build.ptr, args + (out, z)),
-             build.ptr(a1) if keep_a1 else ctypes.c_void_p(0), R, d, dh,
-             build.ACTS[act], int(seed), t1, t2, scale, build.stream_of(dev))
+    err = fn(*map(build.ptr, args + (out,)), opt(z), opt(a1), R, d, dh,
+             build.ACTS[act], int(seed), t1, t2, scale, int(fused),
+             build.stream_of(dev))
     build.check_launch("fused_ffn", err)
     fused_ffn.launches += 1
     return (out, a1) if keep_a1 else out
@@ -106,18 +118,21 @@ def ffn_backward(h, w1, b1, w2, b2, g, seed, rate: float, act: str = "relu",
         raise ValueError(f"ffn_backward: unsupported device {g.device}")
     R, d, dh, dev = _require_args(*args)
     build.require("g", g, (R, d), dev)
+    fused = takes_fused(d, dh) and bool(build.cfunc(
+        "ffn", "ffn_fused_backward_fits", [ctypes.c_int] * 2)(d, dh))
     scratch_floats = build.cfunc("ffn", "ffn_backward_scratch",
-                                 [ctypes.c_int] * 3, ctypes.c_longlong)
+                                 [ctypes.c_int] * 4, ctypes.c_longlong)
     e = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
-    scratch = e(scratch_floats(R, d, dh))
+    scratch = e(scratch_floats(R, d, dh, int(fused)))
     dx, dw1, db1, dw2, db2 = e(R, d), e(d, dh), e(dh), e(dh, d), e(d)
-    a1, z, da1, da2 = e(R, dh), e(R, dh), e(R, dh), e(R, d)
+    # the sequence's work (the fused route recomputes a1 and z on chip)
+    work = (None,) * 4 if fused else (e(R, dh), e(R, dh), e(R, dh), e(R, d))
+    opt = lambda t: build.ptr(t) if t is not None else None  # noqa: E731
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("ffn", "ffn_backward", _BWD_ARGTYPES)
-    err = fn(*map(build.ptr, (h, w1, b1, w2, g, dx, dw1, db1, dw2, db2, a1, z,
-                              da1, da2, scratch)),
-             R, d, dh, build.ACTS[act], int(seed), t1, t2, scale,
-             build.stream_of(dev))
+    err = fn(*map(build.ptr, (h, w1, b1, w2, g, dx, dw1, db1, dw2, db2)),
+             *map(opt, work), build.ptr(scratch), R, d, dh, build.ACTS[act],
+             int(seed), t1, t2, scale, int(fused), build.stream_of(dev))
     build.check_launch("ffn_backward", err)
     ffn_backward.launches += 1
     return dx, dw1, db1, dw2, db2

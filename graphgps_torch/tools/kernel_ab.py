@@ -3,11 +3,11 @@
 one GPU: the FFN-block kernels ``combine_ffn``, ``bn_ffn`` and ``ffn``, the
 GatedGCN core ``gatedgcn``, the Graphormer MLP block ``ln_ffn``, the layer
 front ``gps_front``, the GPS attention ``gps_attention``, the long-graph
-attention ``flash_mha`` and ``wide_attention`` and the long-graph edge gate
-``edge_gate``, forward and backward, at the shapes of ``chip_smoke.py``
-phases 3, 3c, 3d, 3e, 3f, 3g, 3h and 3i and of GPS-deep's layers with the
-front off (G'). Used to hold a change to a
-shared body (``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``,
+attention ``flash_mha`` and ``wide_attention``, the long-graph edge gate
+``edge_gate`` and BigBird's block-sparse attention ``bigbird``, forward and
+backward, at the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3e, 3f, 3g,
+3h, 3i and 3k and of GPS-deep's layers with the front off (G'). Used to
+hold a change to a shared body (``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``,
 ``csrc/gemm_tc.cuh``, ``csrc/tc_mma.cuh``) to its parent's times and bits,
 and a redesigned kernel to its parent's times.
 
@@ -26,16 +26,16 @@ card's name and power limit. Each run also carries its device ms and
 launches per call by CUDA kernel name (``by_kernel``). The runs of the
 attention kernels, ``gatedgcn`` and ``ln_ffn`` also carry the largest
 difference from their plain versions on the same inputs (``max_abs_err``;
-the summary gives each ROOT's largest), since a redesign of their body
-changes the summation order and so the bits. ``edge_gate``'s calls walk
-the batch's edge orders built beforehand, where ROOT has them
-(``edge_gate_orders``), and a row ``edge_gate_orders_fwd`` times building
-them (those ROOTs only). ``--kernels`` picks some of ``combine_ffn``,
-``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``, ``gps_front``,
-``gps_attention``, ``flash_mha``, ``wide_attention``, ``edge_gate`` (by
-default all). ``flash_mha``'s forward runs also carry the largest distance
-in f32 ulps from its plain version evaluated in f64 and rounded
-(``max_ulps_f64``). A run whose profile lost events (a kernel's launches
+the summary gives each ROOT's largest), as do ``bigbird``'s, since a
+redesign of their body changes the summation order and so the bits.
+``edge_gate``'s calls walk the batch's edge orders built beforehand, where
+ROOT has them (``edge_gate_orders``), and a row ``edge_gate_orders_fwd``
+times building them (those ROOTs only). ``--kernels`` picks some of
+``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``,
+``gps_front``, ``gps_attention``, ``flash_mha``, ``wide_attention``,
+``edge_gate``, ``bigbird`` (by default all). ``flash_mha``'s forward runs
+also carry the largest distance in f32 ulps from its plain version
+evaluated in f64 and rounded (``max_ulps_f64``). A run whose profile lost events (a kernel's launches
 not a whole number a call) has ``profile_whole`` false; the summary's mean
 leaves it out (unless all of a ROOT's runs lost events) and gives each
 ROOT's count of such runs.
@@ -68,7 +68,11 @@ from pathlib import Path
 # width (d 304 in 4 heads of 76, rate 0.5); ln_ffn (tag, dropout inner,
 # outer) on 3e's inputs (R 10,496 rows of d = dh = 80) at 0.1 / 0.1 and 0 / 0;
 # edge_gate (tag, B, N, E, d) at 3d's VOC layer (32 graphs of 512 node and
-# 1,024 edge slots, d 96) and at the real data's 3,072 edge slots a graph
+# 1,024 edge slots, d 96) and at the real data's 3,072 edge slots a graph;
+# bigbird (tag, B, H, N, Dh, least real nodes, plan seed) at 3k's
+# wn-squirrel graph (5,201 real of 5,248 slots, 4 heads of 24, block 3, 3
+# random blocks) with the plans of its three layers, and at 4 graphs of
+# 2,048 slots (1,900-2,048 real)
 VOC_MIN_REAL = 400
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
@@ -86,9 +90,16 @@ SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                         ("Q'", 1, 5248, 4, 24, False, 5201)],
           "wide_attention": [("V", 32, 512, 96, 4, 0.5),
                              ("V0", 32, 512, 96, 4, 0.0)],
-          "edge_gate": [("V", 32, 512, 1024, 96), ("V3", 32, 512, 3072, 96)]}
+          "edge_gate": [("V", 32, 512, 1024, 96), ("V3", 32, 512, 3072, 96)],
+          "bigbird": [("Q''0", 1, 4, 5248, 24, 5201, 0),
+                      ("Q''1", 1, 4, 5248, 24, 5201, 1),
+                      ("Q''2", 1, 4, 5248, 24, 5201, 2),
+                      ("B4", 4, 4, 2048, 24, 1900, 0)]}
+BIGBIRD_BLOCK, BIGBIRD_RANDOM = 3, 3
 FRONT_GRAPHS, FRONT_NODES, FRONT_EDGES, FRONT_HEADS = 256, 40, 96, 8
 ITERS, WARMUP, RATE, SEED = 50, 5, 0.1, 20260
+# profiles of a call tried before giving up (one has recorded nothing)
+PROFILE_TRIES = 3
 # phase 3e's recipe and its model seed (chip_smoke.py ZINC_CFG, SEED)
 ZINC_CFG, ZINC_SEED = "configs/Graphormer/zinc-Graphormer.yaml", 0
 
@@ -105,21 +116,25 @@ def _time(torch, fn):
     kernels it launches, summed by ``torch.profiler`` over ITERS calls, so
     that the host's launch gaps (which decide a back-to-back timing at
     small shapes) do not count. The profiler has lost a call's events now
-    and then; such a run reads low and says so."""
+    and then (such a run reads low and says so), or recorded nothing (the
+    profile is taken again)."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(ITERS):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    us = sum(e.self_device_time_total for e in events)
-    if us <= 0:
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(ITERS):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0:
+            break
+    else:
         raise SystemExit("kernel_ab: the profiler recorded no device time")
     by_kernel = {}
     for e in sorted(events, key=lambda e: -e.self_device_time_total):
@@ -328,6 +343,25 @@ def _edge_gate_case(torch, rnd, g, dev, B, N, E, d):
             lambda: eg.edge_gate_backward_plain(*args, *cots), orders)
 
 
+def _bigbird_case(torch, rnd, g, dev, B, H, N, Dh, min_real, seed):
+    """bigbird's forward and backward calls and their plain versions on
+    seeded inputs: ragged prefix masks of min_real to N real nodes, the last
+    graph's min_real (one graph) or all N (several)."""
+    from graphgps_torch.ops.kernels import bigbird as kb
+
+    counts = torch.randint(min_real, N + 1, (B,), generator=g, device=dev)
+    counts[-1] = min_real if B == 1 else N
+    mask = torch.arange(N, device=dev)[None] < counts[:, None]
+    ins = (*(rnd(B, H, N, Dh) for _ in range(3)), mask, BIGBIRD_BLOCK,
+           BIGBIRD_RANDOM, seed)
+    o, kept = kb._launch_forward(*ins)
+    cot = rnd(B, H, N, Dh)
+    return (lambda: kb._launch_forward(*ins)[0],
+            lambda: kb.bigbird_backward(*ins, o, cot, kept=kept),
+            lambda: kb.bigbird_plain(*ins),
+            lambda: kb.bigbird_backward_plain(*ins, cot))
+
+
 def _ffn_case(torch, rnd, name, R, d):
     """combine_ffn's, bn_ffn's or ffn's forward and backward calls on seeded
     inputs with dropout RATE on every site."""
@@ -409,6 +443,8 @@ def _run_one(root: str, kernels) -> None:
             elif name == "gps_attention":
                 fwd, bwd, *plain = _gps_attention_case(torch, rnd, g, dev,
                                                        *shape)
+            elif name == "bigbird":
+                fwd, bwd, *plain = _bigbird_case(torch, rnd, g, dev, *shape)
             elif name == "edge_gate":
                 fwd, bwd, *plain, orders = _edge_gate_case(torch, rnd, g,
                                                            dev, *shape)

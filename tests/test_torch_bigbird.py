@@ -61,10 +61,62 @@ def test_block_plan_matches_jax(n, bs, r, seeds):
             jbb.bigbird_block_mask(n, bs, r, seeds[0]))
 
 
+def _covered(side, n: int, bs: int):
+    """The (own node, other node) pairs an item side's tasks name, counted:
+    (n, n) int array."""
+    pairs = np.zeros((n, n), np.int64)
+    for i in range(len(side.item_row) - 1):
+        rows = side.row[side.item_row[i]:side.item_row[i + 1]]
+        for blk, lo, hi, _part, _first in side.task[
+                side.item_task[i]:side.item_task[i + 1]]:
+            pairs[blk * bs:(blk + 1) * bs, rows[side.slot[lo:hi]]] += 1
+    return pairs
+
+
+def _check_side(side, m, bs: int, rows: int):
+    """One side's items against its pairs ``m``: every allowed pair once and
+    no other, staged rows ascending and within ``rows``, entries within
+    their item, chunk tasks of at most TASK_LEN with one partial slot each
+    in order, and one first task a block."""
+    from graphgps_torch.ops.kernels import bigbird as kb
+
+    n = m.shape[0]
+    np.testing.assert_array_equal(_covered(side, n, bs), m.astype(np.int64))
+    sizes = np.diff(side.item_row)
+    assert (sizes > 0).all() and sizes.max() == side.rows <= rows
+    entries = [side.task[side.item_task[i]:side.item_task[i + 1], 1:3]
+               for i in range(len(sizes))]
+    assert max(int((e[:, 1] - e[:, 0]).sum()) for e in entries) \
+        == side.entries
+    for i in range(len(sizes)):
+        staged = side.row[side.item_row[i]:side.item_row[i + 1]]
+        assert (np.diff(staged) > 0).all()
+        tasks = side.task[side.item_task[i]:side.item_task[i + 1]]
+        assert 1 <= len(tasks) <= kb.run_blocks(bs)
+        for _blk, lo, hi, _part, _first in tasks:
+            assert 0 < hi - lo and (side.slot[lo:hi] < sizes[i]).all()
+    firsts = np.zeros(-(-n // bs), np.int64)
+    np.add.at(firsts, side.task[:, 0], side.task[:, 4])
+    assert (firsts == 1).all()
+    for blk, p0, n_c in side.comb:
+        sel = side.task[side.task[:, 0] == blk]
+        assert list(np.unique(sel[:, 3])) == list(range(p0, p0 + n_c))
+        assert (np.diff(sel[:, 3]) >= 0).all()
+        assert (sel[:, 2] - sel[:, 1] <= kb.TASK_LEN).all()
+    for i in range(len(sizes)):   # a chunk's tasks share its slot
+        parts = side.task[side.item_task[i]:side.item_task[i + 1], 3]
+        assert len(set(parts.tolist())) == 1
+    split = set(side.comb[:, 0].tolist())
+    assert ((side.task[:, 3] < 0) == [b not in split
+                                      for b in side.task[:, 0]]).all()
+    assert side.parts == side.comb[:, 2].sum()
+
+
 def test_plan_tables_cover_the_plan():
-    """The kernels' CSR lists hold exactly the plan's pairs on both sides,
-    and their tasks cut every list in order into pieces of at most
-    TASK_LEN."""
+    """The kernels' item tables hold exactly the plan's pairs on both
+    sides, each once, and cut the global blocks' lists (longer than an item
+    stages) into chunks of tasks of at most TASK_LEN entries, one partial
+    slot a chunk, in order."""
     from graphgps_torch.ops.bigbird import bigbird_block_mask
     from graphgps_torch.ops.kernels import bigbird as kb
 
@@ -72,19 +124,28 @@ def test_plan_tables_cover_the_plan():
     dense = bigbird_block_mask(n, bs, 3, 1)
     tables = kb.plan_tables(n, bs, 3, 1)
     for side, m in (("q", dense), ("k", dense.T)):
-        ptr, idx, tasks, comb, parts = tables[side]
-        pairs = np.zeros_like(m)
-        for b in range(len(ptr) - 1):
-            for node in idx[ptr[b]:ptr[b + 1]]:
-                pairs[b * bs:(b + 1) * bs, node] = True
-        np.testing.assert_array_equal(pairs, m)
-        assert (tasks[:, 2] - tasks[:, 1] <= kb.TASK_LEN).all()
-        assert (tasks[:, 2] > tasks[:, 1]).all()
-        for b, p0, n_t in comb:
-            sel = tasks[tasks[:, 0] == b]
-            assert list(sel[:, 3]) == list(range(p0, p0 + n_t))
-            assert sel[0, 1] == ptr[b] and sel[-1, 2] == ptr[b + 1]
-        assert parts == comb[:, 2].sum() > 0
+        _check_side(tables[side], m, bs, kb.MAX_ROWS)
+        assert tables[side].parts > 0
+
+
+@pytest.mark.parametrize("n,bs,r,seed,dh", [
+    (5248, 3, 3, 0, 24), (2048, 3, 3, 1, 24), (517, 3, 3, 2, 24),
+    (200, 1, 0, 0, 100), (384, 16, 1, 2, 64), (100, 7, 2, 1, 128),
+    (301, 64, 3, 0, 24), (64, 3, 3, 0, 24), (5, 3, 1, 0, 24)])
+def test_item_tables_cover_each_allowed_pair_once(n, bs, r, seed, dh):
+    """The per-run item tables at several sizes (N off the block grid, a
+    padded tail block, heads whose rows cap the staged rows, one or two
+    blocks in all): every pair the plan allows on each side named by
+    exactly one task, none off the plan, within the rows an item may stage
+    at that head width."""
+    from graphgps_torch.ops.bigbird import bigbird_block_mask
+    from graphgps_torch.ops.kernels import bigbird as kb
+
+    dense = bigbird_block_mask(n, bs, r, seed)
+    rows = kb.max_rows(dh)
+    tables = kb.plan_tables(n, bs, r, seed, rows)
+    for side, m in (("q", dense), ("k", dense.T)):
+        _check_side(tables[side], m, bs, rows)
 
 
 def _inputs(B, H, N, Dh, seed=0):

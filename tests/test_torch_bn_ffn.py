@@ -145,13 +145,14 @@ def test_bn_ffn_wrapper_rules():
 def test_bn_ffn_width_rule(d, dh, fused):
     """The route by width at the fused limit's boundary: fused when both
     ways' blocks fit in the card's 227 KB, the tensor-core GEMM's sequence
-    beyond (the card test holds the C side's rule to this one)."""
-    from graphgps_torch.ops.kernels import bn_ffn
+    beyond (the card test holds the C side's rule to this one); the rule
+    is ``ffn_fused``'s, which ``ffn`` shares."""
+    from graphgps_torch.ops.kernels import bn_ffn, ffn_fused
 
-    sizes = [bn_ffn.fused_smem(d, dh, b) for b in (False, True)]
+    sizes = [ffn_fused.fused_smem(d, dh, b) for b in (False, True)]
     assert bn_ffn.takes_fused(d, dh) is fused
-    assert (max(sizes) <= bn_ffn.FUSED_SMEM_LIMIT) is fused
-    assert bn_ffn.FUSED_SMEM_LIMIT == 227 * 1024
+    assert (max(sizes) <= ffn_fused.FUSED_SMEM_LIMIT) is fused
+    assert ffn_fused.FUSED_SMEM_LIMIT == 227 * 1024
     if (d, dh) == (64, 128):
         assert sizes == [84480, 99072]
     if (d, dh) == (104, 208):
@@ -231,7 +232,7 @@ def test_cuda_fused_rule_matches_source(cuda_device):
     block takes each way and whether the route takes the widths."""
     import ctypes
 
-    from graphgps_torch.ops.kernels import build, bn_ffn
+    from graphgps_torch.ops.kernels import build, bn_ffn, ffn_fused
 
     smem = build.cfunc("bn_ffn", "bn_ffn_fused_smem", [ctypes.c_int] * 3,
                        ctypes.c_longlong)
@@ -239,5 +240,6 @@ def test_cuda_fused_rule_matches_source(cuda_device):
     for d, dh in ((64, 128), (96, 192), (104, 208), (36, 72), (80, 160),
                   (128, 96), (304, 608), (16, 2048)):
         for back in (False, True):
-            assert smem(d, dh, int(back)) == bn_ffn.fused_smem(d, dh, back)
+            assert smem(d, dh, int(back)) == ffn_fused.fused_smem(d, dh,
+                                                                  back)
         assert bool(fits(d, dh)) is bn_ffn.takes_fused(d, dh)

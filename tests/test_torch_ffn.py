@@ -166,6 +166,29 @@ def test_ffn_wrapper_rules():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("d,dh,fused,smem", [
+    (96, 192, True, (175616, 196864)),    # wn-squirrel (Q)
+    (64, 128, True, (84480, 99072)),      # actor (A), SAN's S
+    (304, 608, False, None)])             # W: the tensor-core sequence
+def test_ffn_route_rule(d, dh, fused, smem):
+    """``ffn`` takes ``bn_ffn``'s route rule, one function both import:
+    fused at wn-squirrel's and actor's widths, the launch sequence at d =
+    304; the shared memory a fused block lays out each way is
+    ``FfnLayout``'s (W1, W2 and the 16-row tiles, csrc/ffn_fused.cuh)."""
+    from graphgps_torch.ops.kernels import bn_ffn, ffn, ffn_fused
+
+    assert ffn.takes_fused is ffn_fused.takes_fused is bn_ffn.takes_fused
+    assert ffn_fused.takes_fused(d, dh) is fused
+    sizes = tuple(ffn_fused.fused_smem(d, dh, b) for b in (False, True))
+    assert (max(sizes) <= ffn_fused.FUSED_SMEM_LIMIT) is fused
+    if smem is not None:
+        assert sizes == smem
+        # FfnLayout's floats, from its strides: W1 [dp][ld], W2 [dhp][ld]
+        # and the tiles of 16 rows
+        assert sizes[0] == 4 * (d * (dh + 8) + dh * (d + 8)
+                                + 16 * (d + 4 + dh + 4))
+
+
 @pytest.fixture
 def cuda_device():
     """The card, decided when the test runs (never at import)."""
@@ -177,10 +200,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,d,rate,act,drop2", [
     (5248, 96, 0.2, "gelu", True), (5248, 96, 0.0, "gelu", True),
-    (7680, 64, 0.2, "relu", True), (1000, 96, 0.2, "relu", False)])
+    (7680, 64, 0.2, "relu", True), (1000, 96, 0.2, "relu", False),
+    (2000, 304, 0.2, "gelu", True), (37, 36, 0.2, "relu", True)])
 def test_cuda_ffn_matches_plain(cuda_device, R, d, rate, act, drop2):
     """On the card, at wn-squirrel's (R = 5,248 node slots, d = 96) and
-    actor's (R = 7,680, d = 64) shapes: the forward kernel (alone, as
+    actor's (R = 7,680, d = 64) shapes on the fused route, at d = 304 on
+    the launch sequence, and at a ragged 37 rows of d = 36 (one tile
+    short of its 16 rows, 4-byte staging): the forward kernel (alone, as
     evaluation would run it, and under autograd) and the backward kernel
     against the plain version and autograd through it on the same CUDA
     tensors (relu's derivative on the kernel's side of each kink,
@@ -228,3 +254,30 @@ def test_cuda_ffn_matches_plain(cuda_device, R, d, rate, act, drop2):
     for name, a, b, w in zip(NAMES, got, again, want):
         assert torch.equal(a, b), name
         torch.testing.assert_close(a, w, **tol(w), msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_ffn_route_rule_matches_source(cuda_device):
+    """The wrapper's route rule is the C side's (``ffn_fused_fits``, the
+    same ``fused::fits`` as ``bn_ffn``'s); the fused backward (its
+    persistent layout, the warps' weight-gradient registers) takes every
+    GPS width d = dh / 2 that the rule takes, and each fused block's shared
+    memory fits the card's 227 KB."""
+    import ctypes
+
+    from graphgps_torch.ops.kernels import build, ffn_fused
+
+    fits = build.cfunc("ffn", "ffn_fused_fits", [ctypes.c_int] * 2)
+    back = build.cfunc("ffn", "ffn_fused_backward_fits", [ctypes.c_int] * 2)
+    smem = build.cfunc("ffn", "ffn_fused_smem", [ctypes.c_int] * 3,
+                       ctypes.c_longlong)
+    for d, dh in ((64, 128), (96, 192), (104, 208), (36, 72), (80, 160),
+                  (128, 96), (304, 608), (16, 2048)):
+        fused = ffn_fused.takes_fused(d, dh)
+        assert bool(fits(d, dh)) is fused
+        if fused and dh == 2 * d:
+            assert back(d, dh) == 1
+        if fused:
+            for way in (0, 1):
+                assert smem(d, dh, way) <= ffn_fused.FUSED_SMEM_LIMIT
+    assert smem(96, 192, 0) == 175616 + 4 * 16 * 100   # h double-buffered

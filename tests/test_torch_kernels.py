@@ -157,7 +157,7 @@ def test_wrappers_refuse_dropout():
 CSRC = Path(__file__).resolve().parents[1] / "graphgps_torch" / "csrc"
 TC, FMA = "gemm_tc.cuh", "gemm.cuh"
 PRODUCTS = {"gps_front": TC, "gps_attention": TC, "combine_ffn": TC,
-            "gatedgcn": TC, "ln_ffn": TC, "gemm_tc": TC, "ffn": FMA,
+            "gatedgcn": TC, "ln_ffn": TC, "gemm_tc": TC, "ffn": TC,
             "bn_ffn": TC, "wide_attention": FMA, "pre_tail": None,
             "drop_add": None, "edge_gate": None, "flash_mha": None,
             "segment_sum": None, "bigbird": None}
