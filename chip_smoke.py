@@ -17,18 +17,23 @@ one. Phases, each fatal on failure:
 3. hold each forward kernel of the merged layer path against its plain
    PyTorch version on the card, on the inputs layer 0 of the first main path
    gives it (PCQM4Mv2 GPS-deep: batch 256, d=256, 8 heads, seeded weights,
-   non-trivial BatchNorm statistics), and time both;
+   non-trivial BatchNorm statistics), and time both, ``pre_tail`` also with
+   the L2 cache flushed before each call (``cold_ms``); before them, the
+   card's launch floor (the device ms of a one-element ``Tensor.add_``) on a
+   line of its own; after them ``gatedgcn`` and ``drop_add`` forward and
+   backward at GPS-deep's layer with the front off (G');
 3b. with dropout 0.1 on every site, run each of the three functions forward
    and backward through the kernels and through autograd of the plain
    versions on the same inputs; hold each backward kernel against the plain
    gradients, check that two runs give the same bits and that every site
-   keeps 230/256 of its units, and time both;
+   keeps 230/256 of its units, and time both (``pre_tail``'s backward also
+   L2-cold);
 3c. the kernels of the unmerged layer path (``gatedgcn``, ``drop_add``, and
    ``pre_tail`` and ``combine_ffn`` at their second widths), forward and
    backward as in 3 and 3b with dropout 0.05, on layer 0's inputs of the
    second main path (ogbg-molhiv GPS: batch 32, d=64, 4 heads) and at batch
-   256, d=304, 4 heads (``pcqm4m-GPS+RWSE.yaml``); the attention dropout's
-   mask keeps 128/256 at rate 0.5;
+   256, d=304, 4 heads (``pcqm4m-GPS+RWSE.yaml``), ``drop_add`` also L2-cold
+   at ogbg-molhiv's; the attention dropout's mask keeps 128/256 at rate 0.5;
 3d. the kernels of the long-graph rung of the unmerged path, ``edge_gate``
    and ``wide_attention``, forward and backward, on layer 0's inputs of the
    third main path (VOC superpixels GPS: batch 32, 512 node slots and 1,024
@@ -79,7 +84,8 @@ one. Phases, each fatal on failure:
    (``fused``: one launch forward, two backward, at d=96 and 64;
    ``sequence``: the launch sequence over the tensor-core GEMM, at d=304);
    no single PyTorch call computes the FFN block, so these rows have no
-   ``library_ms``;
+   ``library_ms``; and ``drop_add`` forward and backward on the attention
+   branch of the same layer (Q: 5,248 rows of 96) at the recipe's rate;
 3h. the GPS layer's fused attention rung, ``gps_attention``, forward and
    backward, on layer 0's inputs of the first main path (GPS-deep: batch
    256, 40 node slots, d=256, 8 heads) at the recipe's attention dropout
@@ -190,8 +196,9 @@ Graphormer MLP block at ZINC's, the two of SAN's norm apply + FFN at
 ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's, the two
 of the fused attention rung at GPS-deep's, the two of the flash attention
 at VOC's, the two segment sums and their plan kernel at wn-squirrel's
-aggregation and BigBird's two at wn-squirrel's first layer: twenty-nine);
-the last line is ``{"ok": true, "device": {...}}``.
+aggregation and BigBird's two at wn-squirrel's first layer: twenty-nine;
+each row also carries the launch floor); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -737,7 +744,9 @@ def forward_case(torch, c, shapes: dict, timed: bool = True) -> dict:
     function whose last outputs are (1, 2d) moment sums the
     ``moment_scales`` of those; ``tol`` = (rtol, atol) makes the atol
     relative to each tensor's largest entry; ``peak`` the rate of the bound's
-    operations (PEAK_F32 by default). Without ``timed`` the row has no
+    operations (PEAK_F32 by default); ``cold``: a tensor larger than the L2
+    cache, to time the kernel also with the L2 flushed before each call
+    (``cold_ms``). Without ``timed`` the row has no
     times and no bound (no profile: the card's profiler loses events after
     some tens of them)."""
     with torch.no_grad():
@@ -773,6 +782,9 @@ def forward_case(torch, c, shapes: dict, timed: bool = True) -> dict:
                       lambda: c["plain"](*c["args"]), c.get("library")),
             **bound(nbytes(*tensors(c["args"]), *got), c["flops"],
                     c.get("peak", PEAK_F32))) if timed else {}
+        if timed and "cold" in c:
+            timed_keys["cold_ms"] = cold_device_ms(
+                torch, lambda: c["fn"](*c["args"]), c["cold"])
         row = dict(name=c["name"], route="cuda", source=c["source"],
                    replaces=c["replaces"], max_abs_err=err,
                    rtol=rtol, atol=atol, **timed_keys, shapes=shapes,
@@ -784,10 +796,23 @@ def forward_case(torch, c, shapes: dict, timed: bool = True) -> dict:
     return row
 
 
-def check_kernels(torch, cfg, splits, device):
+def launch_floor(torch, device) -> float:
+    """The card's smallest launch: the device ms of a one-element
+    ``Tensor.add_``, timed as the kernels are (``device_ms``), printed on a
+    line of its own."""
+    one = torch.zeros(1, device=device)
+    ms, whole = device_ms(torch, lambda: one.add_(1.0))
+    print(json.dumps(dict(launch_floor_ms=ms, call="one-element Tensor.add_",
+                          profile_whole=whole)), flush=True)
+    return ms
+
+
+def check_kernels(torch, cfg, splits, device, flush):
     """Phase 3: each kernel of the merged path vs its plain version on
-    layer 0's inputs. Returns the rows, the calibrated model's state dict
-    and layer 0's inputs."""
+    layer 0's inputs (``pre_tail`` also L2-cold, ``flush`` written between
+    calls), and the unmerged path's ``gatedgcn`` and ``drop_add`` at
+    GPS-deep's layer with the front off (G'). Returns the rows, the
+    calibrated model's state dict and layer 0's inputs."""
     from graphgps_torch.driver import create_loaders
     from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
                                                          fused_combine_ffn)
@@ -831,7 +856,7 @@ def check_kernels(torch, cfg, splits, device):
         dict(name="pre_tail", fn=fused_pre_tail, plain=pre_tail_plain,
              args=tail_args, source="graphgps_torch/csrc/pre_tail.cu",
              replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
-             flops=tail_flops(gg.act) * e_real * d),
+             flops=tail_flops(gg.act) * e_real * d, cold=flush),
         dict(name="combine_ffn", fn=fused_combine_ffn, plain=combine_ffn_plain,
              args=comb_args, source="graphgps_torch/csrc/combine_ffn.cu",
              replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
@@ -853,9 +878,17 @@ def check_kernels(torch, cfg, splits, device):
     at = dict(shapes, path="pcqm4m-GPSdeep front-off")
     forward_case(torch, ggcn[0], at)
     backward_case(torch, ggcn[1], DROP_SEED, 0.0, at)
+    # and its attention branch's drop-add (G': B*N rows of d, the fused
+    # attention rung's output), printed likewise
+    with torch.no_grad():
+        h_attn = layer.attention(batch, x)
+    da = drop_add_cases(torch, x, h_attn, DROP_SEED, DROP_RATE,
+                        cotangents(torch, SEED + 18, device))
+    forward_case(torch, da[0], at)
+    backward_case(torch, da[1], DROP_SEED, DROP_RATE, at)
     layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
                   n_real=n_real, e_real=e_real, attn_pairs=attn_pairs,
-                  B=B, N=N, E=E, d=d, H=H, dh=dh)
+                  B=B, N=N, E=E, d=d, H=H, dh=dh, flush=flush)
     return results, {k: v.clone() for k, v in model.state_dict().items()}, \
         layer0
 
@@ -893,7 +926,7 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict,
     computes the same forward, where there is one: timed, used nowhere in
     the port), and ``tol`` = (rtol, atol) to make the atol relative to each
     tensor's largest entry with no floor (by default GRAD_RTOL and GRAD_ATOL
-    × max(1, largest entry)); ``peak`` and ``timed`` as in
+    × max(1, largest entry)); ``peak``, ``cold`` and ``timed`` as in
     ``forward_case``."""
     from graphgps_torch.ops.kernels.common import dropout_mask, keep_rule
 
@@ -923,6 +956,8 @@ def backward_case(torch, c, seed: int, rate: float, shapes: dict,
                        **bound(nbytes(*c["inputs"], *cots, *got),
                                c["flops"], c.get("peak", PEAK_F32)))
                   if timed else {}),
+               **(dict(cold_ms=cold_device_ms(torch, bwd, c["cold"]))
+                  if timed and "cold" in c else {}),
                rate=rate, kept_fraction=kept, shapes=shapes)
     print(json.dumps(row), flush=True)
     if not same:
@@ -942,6 +977,33 @@ def cotangents(torch, seed: int, device):
     g = torch.Generator(device=device).manual_seed(seed)
     return lambda outs: [torch.randn(o.shape, generator=g, device=o.device)
                          for o in outs]
+
+
+def drop_add_cases(torch, x, v, seed: int, rate: float, cots_for):
+    """``drop_add``'s forward and backward cases on the (R, d) rows ``x``
+    and ``v`` at dropout ``rate`` (the attention branch's residual)."""
+    from graphgps_torch.ops.kernels import drop_add
+
+    R, d = v.shape
+    src = "graphgps_torch/csrc/drop_add.cu"
+
+    def run(cots=None):
+        out = drop_add._launch_forward(x, v, seed, rate)
+        cots = cots or cots_for([out])
+        return cots, lambda: (drop_add.drop_add_backward(cots[0], seed, rate),)
+
+    fwd = dict(name="drop_add", fn=drop_add.fused_drop_add,
+               plain=drop_add.drop_add_plain, args=(x, v, seed, rate),
+               source=src, replaces="graphgps_tpu/ops/pallas/fused_tail.py:270",
+               # a product with the mask and the add per element
+               flops=2 * R * d)
+    bwd = dict(name="drop_add_bwd", run=run,
+               plain=lambda c: (drop_add.drop_add_backward_plain(
+                   c[0], seed, rate),),
+               inputs=[], source=src,
+               replaces="graphgps_tpu/ops/pallas/fused_tail.py:298",
+               sites=[("attention branch", R, d)], flops=R * d)
+    return fwd, bwd
 
 
 def tail_backward_case(torch, tin, tconf, cots_for, rows: int, d: int,
@@ -1027,7 +1089,8 @@ def check_backward(torch, layer0):
              # dq, dk over the real pairs
              flops=4 * n * 7 * d * d + 4 * e_ * d * d + 4 * n * d * d
              + 8 * pairs * d, peak=PEAK_3XTF32),
-        tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_),
+        dict(tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_),
+             cold=L["flush"]),
         combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n),
     ]
 
@@ -1088,18 +1151,18 @@ def gatedgcn_cases(torch, gin, gg, batch, xo, gate, cots_for):
     return fwd, bwd
 
 
-def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
+def check_unmerged(torch, tag: str, cfg_path: str, opts, device, cold=None):
     """Phase 3c: the four functions of the unmerged layer path (GatedGCN
     core, edge tail, drop-add, combine+FFN), forward and backward with
     dropout UNMERGED_DROP_RATE, kernels against plain versions, on layer
     0's inputs of the recipe ``cfg_path`` (``opts`` on top) at its batch
-    size and width. Returns (cfg, splits, rows, the calibrated model's
-    state dict); every row carries ``shape=tag``."""
+    size and width; the drop-add also L2-cold given the flush tensor
+    ``cold``. Returns (cfg, splits, rows, the calibrated model's state
+    dict); every row carries ``shape=tag``."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders
-    from graphgps_torch.ops.kernels import (combine_ffn, drop_add, gatedgcn,
-                                            pre_tail)
+    from graphgps_torch.ops.kernels import combine_ffn, gatedgcn, pre_tail
     from graphgps_torch.ops.kernels.common import dropout_mask
 
     cfg = new_cfg()
@@ -1130,10 +1193,12 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
     e_real = int(batch.edge_mask.sum())
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
                   real_edges=e_real)
-    da_src = "graphgps_torch/csrc/drop_add.cu"
     cots_for = cotangents(torch, SEED + 6, device)
     ggcn_fwd, ggcn_bwd = gatedgcn_cases(torch, gin, gg, batch, xo, gate,
                                         cots_for)
+    da_fwd, da_bwd = drop_add_cases(torch, x, h_attn, seed, rate, cots_for)
+    if cold is not None:
+        da_fwd["cold"] = da_bwd["cold"] = cold
     fwd = [
         ggcn_fwd,
         dict(name="pre_tail", fn=pre_tail.fused_pre_tail,
@@ -1141,12 +1206,7 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
              source="graphgps_torch/csrc/pre_tail.cu",
              replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
              flops=tail_flops(gg.act) * e_real * d),
-        dict(name="drop_add", fn=drop_add.fused_drop_add,
-             plain=drop_add.drop_add_plain, args=(x, h_attn, seed, rate),
-             source=da_src,
-             replaces="graphgps_tpu/ops/pallas/fused_tail.py:270",
-             # a product with the mask and the add per element
-             flops=2 * R * d),
+        da_fwd,
         dict(name="combine_ffn", fn=combine_ffn.fused_combine_ffn,
              plain=combine_ffn.combine_ffn_plain, args=(*cin, *cconf),
              source="graphgps_torch/csrc/combine_ffn.cu",
@@ -1155,20 +1215,10 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device):
     ]
     rows = [forward_case(torch, c, shapes) for c in fwd]
 
-    def run_drop_add(cots=None):
-        out = drop_add._launch_forward(x, h_attn, seed, rate)
-        cots = cots or cots_for([out])
-        return cots, lambda: (drop_add.drop_add_backward(cots[0], seed, rate),)
-
     bwd = [
         ggcn_bwd,
         tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_real),
-        dict(name="drop_add_bwd", run=run_drop_add,
-             plain=lambda c: (drop_add.drop_add_backward_plain(
-                 c[0], seed, rate),),
-             inputs=[], source=da_src,
-             replaces="graphgps_tpu/ops/pallas/fused_tail.py:298",
-             sites=[("attention branch", R, d)], flops=R * d),
+        da_bwd,
         combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n_real),
     ]
     rows += [backward_case(torch, c, seed, rate, shapes) for c in bwd]
@@ -1774,6 +1824,15 @@ def check_ffn(torch, cfg_path: str, opts, device):
     R, d = h.shape
     shapes = dict(B=batch.num_graphs, N=batch.max_nodes, R=R, d=d,
                   dh=2 * d, real_rows=n_real)
+    # the attention branch's drop-add at the recipe's rate (Q: x and the
+    # chunked attention's output), printed, not returned
+    with torch.no_grad():
+        h_attn = layer.attention(batch, x, DROP_SEED + 1)
+    da = drop_add_cases(torch, x, h_attn, DROP_SEED, cfg.gt.dropout,
+                        cotangents(torch, SEED + 19, device))
+    at = dict(shapes, path="wn-squirrel")
+    forward_case(torch, da[0], at)
+    backward_case(torch, da[1], DROP_SEED, cfg.gt.dropout, at)
     rows = []
     for act in ("gelu", "relu"):
         for rate in (cfg.gt.dropout, 0.0):
@@ -2084,18 +2143,30 @@ def check_flash(torch, cfg_path: str, opts, state, device):
     return rows
 
 
+# the CUDA kernel names of the L2 flush (``flush.fill_``), profiled once
+FLUSH_NAMES = set()
+
+
+def l2_flush(torch, device):
+    """A tensor larger than the 50 MB L2 cache, written between L2-cold
+    calls."""
+    return torch.empty(L2_FLUSH_BYTES // 4, device=device)
+
+
 def cold_device_ms(torch, fn, flush, iters: int = 20) -> float:
     """Device ms of one call of ``fn`` with the L2 cache flushed before it
     (``flush``, larger than the 50 MB L2, written between calls), as
     ``device_ms`` counts it; the flush's own kernels are left out by
-    name."""
-    # a profile of one kernel can lose its one event: the flush, iters times
-    rows, _ = profiled_rows(torch, lambda: [flush.fill_(0.0)
-                                            for _ in range(iters)])
-    if rows is None:
-        fail(f"the profiler recorded no device time of the L2 flush in "
-             f"{PROFILER_TRIES} runs")
-    flush_names = {r[0] for r in rows}
+    name (learnt from the first call's profile of the flush alone)."""
+    if not FLUSH_NAMES:
+        # a profile of one kernel can lose its one event: the flush, iters
+        # times
+        rows, _ = profiled_rows(torch, lambda: [flush.fill_(0.0)
+                                                for _ in range(iters)])
+        if rows is None:
+            fail(f"the profiler recorded no device time of the L2 flush in "
+                 f"{PROFILER_TRIES} runs")
+        FLUSH_NAMES.update(r[0] for r in rows)
     fn()
     torch.cuda.synchronize()
 
@@ -2109,7 +2180,7 @@ def cold_device_ms(torch, fn, flush, iters: int = 20) -> float:
         fail(f"the profiler recorded no device time of L2-cold calls in "
              f"{PROFILER_TRIES} runs")
     return sum(total / seen * -(-seen // iters) for name, total, seen in rows
-               if name not in flush_names) / 1e3
+               if name not in FLUSH_NAMES) / 1e3
 
 
 def plan_check(torch, ks, plan, ids, S: int, tiled: bool, what: str):
@@ -2267,7 +2338,7 @@ def check_segment(torch, cfg_path: str, opts, state, device):
         dinv = torch.rsqrt(deg)
         msgs = h[s.long()] * dinv[s.long(), None] * dinv[r.long(), None]
         msgs = torch.where(batch.edge_mask[:, None], msgs, 0.0).contiguous()
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    flush = l2_flush(torch, device)
     rows = segment_cases(torch, msgs, r, S, "wn-squirrel", flush)
     rows.append(segment_plan_row(torch, r, S, "wn-squirrel"))
     g = torch.Generator(device=device).manual_seed(SEED + 18)
@@ -3014,14 +3085,17 @@ def main() -> None:
     cfg = new_cfg()
     load_cfg(cfg, CFG)
     update_from_list(cfg, ["seed", str(SEED)])
-    rows, state, layer0 = check_kernels(torch, cfg, load_dataset(cfg), device)
+    floor_ms = launch_floor(torch, device)
+    flush = l2_flush(torch, device)
+    rows, state, layer0 = check_kernels(torch, cfg, load_dataset(cfg), device,
+                                        flush)
     rows += check_backward(torch, layer0)
     phase("3, 3b")
 
     # 3c. the unmerged path's kernels at ogbg-molhiv's shapes and at the
     # pcqm4m-GPS+RWSE width (layer 0 is all that shape needs)
     _, _, mol_rows, mol_state = check_unmerged(
-        torch, "ogbg-molhiv", MOLHIV_CFG, ["seed", str(SEED)], device)
+        torch, "ogbg-molhiv", MOLHIV_CFG, ["seed", str(SEED)], device, flush)
     check_unmerged(torch, "pcqm4m-GPS", PCQM_GPS_CFG,
                    ["seed", str(SEED), "gt.layers", "1"], device)
     new = ("gatedgcn", "gatedgcn_bwd", "drop_add", "drop_add_bwd")
@@ -3200,13 +3274,14 @@ def main() -> None:
         r["launches_wn_squirrel_tiled"] = tiled_counts[r["name"]]
         r["launches_wn_squirrel_csr"] = csr_counts[r["name"]]
         r["launches_wn_squirrel_bigbird"] = bb_counts[r["name"]]
+        r["launch_floor_ms"] = floor_ms
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "bound_rate", "library_ms",
-                           "profile_whole",
+                           "launch_floor_ms", "profile_whole",
                            "main_path",
                            "launches_ogbg_molhiv",
                            "launches_vocsuperpixels",

@@ -692,8 +692,6 @@ Items make_items(const int* row, const int* item_row, const int* task, const int
   return t;
 }
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 // launch K<C, FULL> for C >= lane_cols(Dh): 6 with no column guards at
 // Dh = 24 (wn-squirrel's heads), else 8, 16 or 32, after setting the
 // instance into SMEM bytes

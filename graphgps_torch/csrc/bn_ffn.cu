@@ -157,8 +157,6 @@ bn_ffn_fused_bwd_kernel(const float* __restrict__ s, const float* __restrict__ m
   }
 }
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace
 }  // namespace ggps
 

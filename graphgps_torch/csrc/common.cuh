@@ -73,6 +73,60 @@ __device__ __forceinline__ float drop_apply(const Drop& dp, unsigned long long i
   return drop_keep(dp, idx) ? v * dp.scale : 0.0f;
 }
 
+// drop_keep on a view of fewer than 2^32 elements: the counter's high word
+// is 0 there, so drop_keep's inner mix32(0 ^ key) is one value for the whole
+// launch. drop_hi computes it once on the host, and drop_apply_lo hashes the
+// low word alone: one mix32 an element, drop_apply's bits.
+inline uint32_t drop_hi(const Drop& dp) { return mix32(0u ^ dp.key); }
+
+__device__ __forceinline__ float drop_apply_lo(const Drop& dp, uint32_t hi,
+                                               uint32_t idx, float v) {
+  if (dp.t <= 0) return v;
+  return (mix32(idx ^ hi) & 255u) >= (uint32_t)dp.t ? v * dp.scale : 0.0f;
+}
+
+// drop_apply at element idx of a kernel's index type: the low-word hash for
+// a 32-bit index, drop_apply's full path for a 64-bit one.
+__device__ __forceinline__ float drop_at(const Drop& dp, uint32_t hi,
+                                         uint32_t idx, float v) {
+  return drop_apply_lo(dp, hi, idx, v);
+}
+__device__ __forceinline__ float drop_at(const Drop& dp, uint32_t,
+                                         unsigned long long idx, float v) {
+  return drop_apply(dp, idx, v);
+}
+
+// Views of fewer elements than this take 32-bit indices and the low-word
+// hash (no index of theirs, four past a vector's start included, can wrap).
+constexpr long long NARROW_VIEW = 1LL << 31;
+
+// Element k of a float4, or a float itself, with k known at compile time
+// (the unrolled loops of the vectorised elementwise kernels).
+__device__ __forceinline__ float elem(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float elem(float v, int) { return v; }
+__device__ __forceinline__ void set_elem(float4& v, int k, float f) {
+  if (k == 0) v.x = f;
+  else if (k == 1) v.y = f;
+  else if (k == 2) v.z = f;
+  else v.w = f;
+}
+__device__ __forceinline__ void set_elem(float& v, int, float f) { v = f; }
+
+// V consecutive floats moved as one load or store: float4 (V = 4) or float.
+template <int V>
+struct VecOf {
+  using type = float4;
+};
+template <>
+struct VecOf<1> {
+  using type = float;
+};
+
+// whether a pointer allows 16-byte (float4) loads and stores
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
 // A GEMM's fused epilogue (gemm.cuh, gemm_tc.cuh): pre = acc + bias[n]
 // (`pre` optionally stored), v = drop(act(pre)) on the (M, N) view, C = v +
 // res[m, n].

@@ -60,8 +60,6 @@ using fused::WARPS;
 // lane at wn-squirrel's d = 96, dh = 192)
 constexpr int BWD_MF = 6, BWD_NJ = 3;
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 // Tiles of BM rows per persistent block: the fewest that keep the tiles'
 // waves (ceil(tiles / SMs)), so fewer blocks stage the weights and write
 // partials at the same makespan.

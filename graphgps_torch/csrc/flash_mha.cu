@@ -313,8 +313,6 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int
   }
 }
 
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace
 }  // namespace ggps
 

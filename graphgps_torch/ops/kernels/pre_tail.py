@@ -14,7 +14,7 @@ from .common import act_fn, apply_dropout, check_rate, keep_rule, needs_grad
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 
@@ -58,6 +58,27 @@ def _launch_forward(x_in, v, mu, inv, gamma, beta, seed, rate, act):
     return out
 
 
+# the backward kernel's tickets (one per 32-column slab) by device: zeroed
+# once here, and every launch leaves them at 0. One stream at a time may use
+# a device's tickets.
+_tickets = {}
+
+
+def _tickets_for(dev, n: int):
+    """At least ``n`` zeroed int32 tickets on ``dev``, made at the first call
+    that needs them; raises rather than make them inside a CUDA graph
+    capture (a capture replays the launch, not the zeroing)."""
+    t = _tickets.get(dev)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("pre_tail_backward: call it once on this "
+                               "device and width before a CUDA graph "
+                               "capture (its tickets are made then)")
+        t = _tickets[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
+
+
 def pre_tail_backward(v, mu, inv, gamma, beta, g, seed, rate: float,
                       act: str):
     """The backward of :func:`fused_pre_tail` given the output cotangent
@@ -79,12 +100,16 @@ def pre_tail_backward(v, mu, inv, gamma, beta, g, seed, rate: float,
         build.require(name, t, (d,), dev)
     scratch_floats = build.cfunc("pre_tail", "pre_tail_backward_scratch",
                                  [ctypes.c_int] * 2, ctypes.c_longlong)
+    n_tickets = build.cfunc("pre_tail", "pre_tail_backward_tickets",
+                            [ctypes.c_int])
+    tickets = _tickets_for(dev, n_tickets(d))
     scratch = torch.empty(scratch_floats(R, d), device=dev)
     dv = torch.empty_like(v)
     dvec = torch.empty((4, d), device=dev)
     t_keep, scale = keep_rule(rate)
     fn = build.cfunc("pre_tail", "pre_tail_backward", _BWD_ARGTYPES)
-    err = fn(*map(build.ptr, (v, mu, inv, gamma, beta, g, dv, dvec, scratch)),
+    err = fn(*map(build.ptr, (v, mu, inv, gamma, beta, g, dv, dvec, scratch,
+                              tickets)),
              R, d, build.ACTS[act], int(seed), t_keep, scale,
              build.stream_of(dev))
     build.check_launch("pre_tail_backward", err)

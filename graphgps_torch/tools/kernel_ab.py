@@ -4,12 +4,14 @@ one GPU: the FFN-block kernels ``combine_ffn``, ``bn_ffn`` and ``ffn``, the
 GatedGCN core ``gatedgcn``, the Graphormer MLP block ``ln_ffn``, the layer
 front ``gps_front``, the GPS attention ``gps_attention``, the long-graph
 attention ``flash_mha`` and ``wide_attention``, the long-graph edge gate
-``edge_gate`` and BigBird's block-sparse attention ``bigbird``, forward and
-backward, at the shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3e, 3f, 3g,
-3h, 3i and 3k and of GPS-deep's layers with the front off (G'). Used to
-hold a change to a shared body (``csrc/ffn_core.cuh``, ``csrc/attn_tc.cuh``,
-``csrc/gemm_tc.cuh``, ``csrc/tc_mma.cuh``) to its parent's times and bits,
-and a redesigned kernel to its parent's times.
+``edge_gate``, BigBird's block-sparse attention ``bigbird``, the edge tail
+``pre_tail`` and the residual ``drop_add``, forward and backward, at the
+shapes of ``chip_smoke.py`` phases 3, 3c, 3d, 3e, 3f, 3g, 3h, 3i and 3k and
+of GPS-deep's layers with the front off (G'); and ``floor``, the card's
+smallest launch (a one-element ``Tensor.add_``). Used to hold a change to a
+shared body (``csrc/common.cuh``, ``csrc/ffn_core.cuh``,
+``csrc/attn_tc.cuh``, ``csrc/gemm_tc.cuh``, ``csrc/tc_mma.cuh``) to its
+parent's times and bits, and a redesigned kernel to its parent's times.
 
 Usage, from anywhere, each ROOT a checkout holding ``graphgps_torch/``::
 
@@ -27,13 +29,21 @@ launches per call by CUDA kernel name (``by_kernel``). The runs of the
 attention kernels, ``gatedgcn`` and ``ln_ffn`` also carry the largest
 difference from their plain versions on the same inputs (``max_abs_err``;
 the summary gives each ROOT's largest), as do ``bigbird``'s, since a
-redesign of their body changes the summation order and so the bits.
+redesign of their body changes the summation order and so the bits;
+``pre_tail``'s and ``drop_add``'s carry it too, and their device ms with
+the L2 cache flushed before each call (``cold_ms``: 64 MB written
+between calls, the flush's kernels left out by name), and
+``pre_tail_bwd``'s runs the digests of dv and of its four column sums apart
+(``bits_dv``, ``bits_sums``; the summary says whether each is the same in
+every run). Every run says whether a second call gave the first call's bits
+(``rerun_same_bits``).
 ``edge_gate``'s calls walk the batch's edge orders built beforehand, where
 ROOT has them (``edge_gate_orders``), and a row ``edge_gate_orders_fwd``
 times building them (those ROOTs only). ``--kernels`` picks some of
 ``combine_ffn``, ``bn_ffn``, ``ffn``, ``gatedgcn``, ``ln_ffn``,
 ``gps_front``, ``gps_attention``, ``flash_mha``, ``wide_attention``,
-``edge_gate``, ``bigbird`` (by default all). ``flash_mha``'s forward runs
+``edge_gate``, ``bigbird``, ``pre_tail``, ``drop_add``, ``floor`` (by
+default all). ``flash_mha``'s forward runs
 also carry the largest distance in f32 ulps from its plain version
 evaluated in f64 and rounded (``max_ulps_f64``). A run whose profile lost events (a kernel's launches
 not a whole number a call) has ``profile_whole`` false; the summary's mean
@@ -72,7 +82,12 @@ from pathlib import Path
 # bigbird (tag, B, H, N, Dh, least real nodes, plan seed) at 3k's
 # wn-squirrel graph (5,201 real of 5,248 slots, 4 heads of 24, block 3, 3
 # random blocks) with the plans of its three layers, and at 4 graphs of
-# 2,048 slots (1,900-2,048 real)
+# 2,048 slots (1,900-2,048 real); pre_tail (tag, rows, width, act) at the
+# edge tails of GPS-deep's layer (256 graphs of 96 edge slots, d 256, gelu),
+# ogbg-molhiv's (32 x 96, d 64, relu) and pcqm4m-GPS's (256 x 96, d 304,
+# relu); drop_add (tag, rows, width) at ogbg-molhiv's attention branch
+# (32 x 40 node slots, d 64), GPS-deep's with the front off (256 x 40, d
+# 256), wn-squirrel's (5,248 slots, d 96) and pcqm4m-GPS's (256 x 40, d 304)
 VOC_MIN_REAL = 400
 SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
                           ("P", 10240, 304)],
@@ -94,7 +109,15 @@ SHAPES = {"combine_ffn": [("G", 10240, 256), ("M", 1280, 64),
           "bigbird": [("Q''0", 1, 4, 5248, 24, 5201, 0),
                       ("Q''1", 1, 4, 5248, 24, 5201, 1),
                       ("Q''2", 1, 4, 5248, 24, 5201, 2),
-                      ("B4", 4, 4, 2048, 24, 1900, 0)]}
+                      ("B4", 4, 4, 2048, 24, 1900, 0)],
+          "pre_tail": [("G", 24576, 256, "gelu"), ("M", 3072, 64, "relu"),
+                       ("P", 24576, 304, "relu")],
+          "drop_add": [("M", 1280, 64), ("G'", 10240, 256), ("Q", 5248, 96),
+                       ("P", 10240, 304)],
+          "floor": [("1",)]}
+# kernels timed also L2-cold, and the bytes written between those calls
+COLD = ("pre_tail", "drop_add")
+FLUSH_BYTES = 64 << 20
 BIGBIRD_BLOCK, BIGBIRD_RANDOM = 3, 3
 FRONT_GRAPHS, FRONT_NODES, FRONT_EDGES, FRONT_HEADS = 256, 40, 96, 8
 ITERS, WARMUP, RATE, SEED = 50, 5, 0.1, 20260
@@ -110,27 +133,49 @@ def _short(name: str) -> str:
     return name.split("(")[0].removeprefix("ggps::").strip()
 
 
-def _time(torch, fn):
-    """(Device ms per call of ``fn``, {kernel: [ms, launches] per call},
-    whether every kernel's launches are a whole number a call): the CUDA
-    kernels it launches, summed by ``torch.profiler`` over ITERS calls, so
-    that the host's launch gaps (which decide a back-to-back timing at
-    small shapes) do not count. The profiler has lost a call's events now
-    and then (such a run reads low and says so), or recorded nothing (the
-    profile is taken again)."""
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
+def _profile(torch, body):
+    """The CUDA kernels' events of ``body()`` under ``torch.profiler``, taken
+    again when a profile recorded no device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_TRIES):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(ITERS):
-                fn()
+            body()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
+        if events:
+            return events
+    raise SystemExit("kernel_ab: the profiler recorded no device time")
+
+
+def _time(torch, fn, flush=None):
+    """(Device ms per call of ``fn``, {kernel: [ms, launches] per call},
+    whether every kernel's launches are a whole number a call): the CUDA
+    kernels it launches, summed by ``torch.profiler`` over ITERS calls, so
+    that the host's launch gaps (which decide a back-to-back timing at
+    small shapes) do not count. With ``flush`` (a tensor larger than the L2
+    cache) it is written before each call and its kernels are left out by
+    name. The profiler has lost a call's events now and then (such a run
+    reads low and says so), or recorded nothing (the profile is taken
+    again)."""
+    skip = set()
+    if flush is not None:
+        skip = {e.key for e in _profile(torch, lambda: [
+            flush.fill_(0.0) for _ in range(ITERS)])}
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(ITERS):
+            if flush is not None:
+                flush.fill_(0.0)
+            fn()
+
+    for _ in range(PROFILE_TRIES):
+        events = [e for e in _profile(torch, body) if e.key not in skip]
         us = sum(e.self_device_time_total for e in events)
         if us > 0:
             break
@@ -362,6 +407,26 @@ def _bigbird_case(torch, rnd, g, dev, B, H, N, Dh, min_real, seed):
             lambda: kb.bigbird_backward_plain(*ins, cot))
 
 
+def _tail_case(torch, rnd, name, R, d, act=None):
+    """pre_tail's or drop_add's forward and backward calls and their plain
+    versions on seeded inputs, dropout RATE (``act``: pre_tail's)."""
+    from graphgps_torch.ops.kernels import drop_add, pre_tail
+
+    x, v, cot = rnd(R, d), rnd(R, d), rnd(R, d)
+    if name == "drop_add":
+        conf = (SEED, RATE)
+        return (lambda: drop_add._launch_forward(x, v, *conf),
+                lambda: drop_add.drop_add_backward(cot, *conf),
+                lambda: drop_add.drop_add_plain(x, v, *conf),
+                lambda: drop_add.drop_add_backward_plain(cot, *conf))
+    norm = (rnd(d), 0.5 + rnd(d).abs(), rnd(d), rnd(d, scale=0.1))
+    conf = (SEED, RATE, act)
+    return (lambda: pre_tail._launch_forward(x, v, *norm, *conf),
+            lambda: pre_tail.pre_tail_backward(v, *norm, cot, *conf),
+            lambda: pre_tail.pre_tail_plain(x, v, *norm, *conf),
+            lambda: pre_tail.pre_tail_backward_plain(v, *norm, cot, *conf))
+
+
 def _ffn_case(torch, rnd, name, R, d):
     """combine_ffn's, bn_ffn's or ffn's forward and backward calls on seeded
     inputs with dropout RATE on every site."""
@@ -417,7 +482,7 @@ def _run_one(root: str, kernels) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
-    build.build_all(kernels)
+    build.build_all([k for k in kernels if k in build.SOURCES])
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -425,10 +490,16 @@ def _run_one(root: str, kernels) -> None:
         return torch.randn(*shape, generator=g, device=dev) * scale + shift
 
     zinc = None
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     for name in kernels:
         for tag, *shape in SHAPES[name]:
             plain, ulps, extra = (None, None), None, []
-            if name == "gps_front":
+            if name == "floor":
+                one = torch.zeros(1, device=dev)
+                fwd, bwd = (lambda: one.add_(1.0)), None
+            elif name in ("pre_tail", "drop_add"):
+                fwd, bwd, *plain = _tail_case(torch, rnd, name, *shape)
+            elif name == "gps_front":
                 fwd, bwd = _front_case(torch, rnd, g, dev, *shape)
             elif name == "gatedgcn":
                 fwd, bwd, *plain = _gatedgcn_case(torch, rnd, g, dev, *shape)
@@ -452,14 +523,20 @@ def _run_one(root: str, kernels) -> None:
                     extra = [("edge_gate_orders", "fwd", orders, None)]
             else:
                 fwd, bwd = _ffn_case(torch, rnd, name, *shape)
-            for kname, kind, fn, ref in [(name, "fwd", fwd, plain[0]),
-                                         (name, "bwd", bwd, plain[1]),
-                                         *extra]:
+            calls = [(name, "fwd", fwd, plain[0]),
+                     (name, "bwd", bwd, plain[1]), *extra]
+            for kname, kind, fn, ref in [c for c in calls if c[2]]:
                 out = fn()
                 if kname == "edge_gate_orders":
                     out = (out.perm, out.plan.ptr)
                 row = dict(root=root, kernel=f"{kname}_{kind}", shape=tag,
                            dims=shape, bits=_digest(torch, out))
+                if name != "floor" and kname != "edge_gate_orders":
+                    row["rerun_same_bits"] = row["bits"] == _digest(torch,
+                                                                    fn())
+                if f"{kname}_{kind}" == "pre_tail_bwd":
+                    row["bits_dv"] = _digest(torch, out[0])
+                    row["bits_sums"] = _digest(torch, out[1:])
                 if ref is not None:
                     row["max_abs_err"], row["max_err_over_tensor_max"] = \
                         _errors(torch, out, ref())
@@ -467,6 +544,8 @@ def _run_one(root: str, kernels) -> None:
                     row["max_ulps_f64"] = int(ulps(out).max())
                 row["ms"], row["by_kernel"], row["profile_whole"] = \
                     _time(torch, fn)
+                if name in COLD:
+                    row["cold_ms"] = _time(torch, fn, flush)[0]
                 print(json.dumps(row), flush=True)
 
 
@@ -517,6 +596,13 @@ def main(args) -> None:
             extra["profiles_lost_events"] = lost
         ratio = (mean[last] / mean[first] if first in mean and last in mean
                  else None)
+        for part in ("bits_dv", "bits_sums"):
+            if part in runs[0]:
+                extra[f"same_{part}"] = len({r[part] for r in runs}) == 1
+        if "cold_ms" in runs[0]:
+            extra["mean_cold_ms"] = {
+                root: sum(r["cold_ms"] for r in runs if r["root"] == root)
+                / sum(r["root"] == root for r in runs) for root in have}
         print(json.dumps(dict(kernel=key[0], shape=key[1], mean_ms=mean,
                               ratio=ratio,
                               same_bits=len({r["bits"] for r in runs}) == 1,

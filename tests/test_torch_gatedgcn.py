@@ -15,6 +15,7 @@ plain versions on the card."""
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import tail_parity_cases
 
 torch.set_num_threads(2)
 
@@ -143,17 +144,18 @@ def test_gatedgcn_backward_function_matches_autograd():
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("rate", [0.05, 0.5])
-def test_drop_add_fwd_bwd_match_jax(port_masks, rate):
-    """R = 2048 rows of 64: two row blocks on the JAX side; the kept
-    fraction is the u8 grid's."""
+@pytest.mark.parametrize("rate,R,d", tail_parity_cases(
+    [0.05, 0.5], (2048, 64), [0.05]))
+def test_drop_add_fwd_bwd_match_jax(port_masks, rate, R, d):
+    """R = 2048 rows of 64: two row blocks on the JAX side; and 3,080 x 64
+    and 1,032 x 96 (5 and 3 row blocks); the kept fraction is the u8
+    grid's."""
     import jax.numpy as jnp
     from graphgps_tpu.ops.pallas.fused_tail import fused_drop_add as jda
     from graphgps_torch.ops.kernels import drop_add_backward, fused_drop_add
     from tests.test_torch_grad import _assert_close, _jax_vjp, _torch_vjp
 
     rng = np.random.default_rng(4)
-    R, d = 2048, 64
     diff = [rng.standard_normal((R, d)).astype(np.float32) for _ in range(2)]
     cots = _cotangents(rng, [(R, d)])
     want_out, want_grads = _jax_vjp(

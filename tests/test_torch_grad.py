@@ -24,7 +24,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from tests.test_torch_kernels import _ORDER, front_inputs
+from tests.test_torch_kernels import _ORDER, front_inputs, tail_parity_cases
 
 torch.set_num_threads(2)
 
@@ -137,14 +137,15 @@ def test_gps_front_fwd_bwd_with_dropout_match_jax(port_masks):
                            rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("act", ["relu", "gelu"])
-def test_pre_tail_fwd_bwd_with_dropout_match_jax(port_masks, act):
-    """R = 2048 rows: two row blocks on the JAX side."""
+@pytest.mark.parametrize("act,R,d", tail_parity_cases(
+    ["relu", "gelu"], (2048, 128), ["relu", "gelu"]))
+def test_pre_tail_fwd_bwd_with_dropout_match_jax(port_masks, act, R, d):
+    """R = 2048 rows of 128: two row blocks on the JAX side; and 3,080 x 64
+    and 1,032 x 96 (5 and 3 row blocks)."""
     from graphgps_tpu.ops.pallas.fused_tail import fused_pre_tail as jtail
     from graphgps_torch.ops.kernels import fused_pre_tail
 
     rng = np.random.default_rng(1)
-    R, d = 2048, 128
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     diff = [f(R, d), f(R, d), f(d), (0.5 + rng.random(d)).astype(np.float32),
             f(d), f(d)]

@@ -65,14 +65,29 @@ def test_gps_front_matches_jax():
                                    atol=ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("act", ["relu", "gelu"])
-def test_pre_tail_matches_jax(act):
+# (act, R, d): the first two at 256 x 128; then rows of other multiples of 8
+# (JAX's row blocks) at widths off 128: the backward's ragged last chunk, and
+# d = 96 (TAIL_PARITY_SHAPES, shared with the other parity tests)
+TAIL_PARITY_SHAPES = [(3080, 64), (1032, 96)]
+
+
+def tail_parity_cases(first, shape, extra):
+    """pytest params: each of ``first`` at ``shape`` with its own id (the
+    ids these tests had), then each of ``extra`` at each of
+    TAIL_PARITY_SHAPES."""
+    return ([pytest.param(a, *shape, id=str(a)) for a in first]
+            + [pytest.param(a, R, d, id=f"{a}-{R}x{d}") for a in extra
+               for R, d in TAIL_PARITY_SHAPES])
+
+
+@pytest.mark.parametrize("act,R,d", tail_parity_cases(
+    ["relu", "gelu"], (256, 128), ["relu", "gelu"]))
+def test_pre_tail_matches_jax(act, R, d):
     import jax.numpy as jnp
     from graphgps_tpu.ops.pallas.fused_tail import fused_pre_tail as jtail
     from graphgps_torch.ops.kernels import fused_pre_tail
 
     rng = np.random.default_rng(1)
-    R, d = 256, 128
     x, v = (rng.standard_normal((R, d)).astype(np.float32) for _ in range(2))
     mu, gamma, beta = (rng.standard_normal(d).astype(np.float32)
                        for _ in range(3))
@@ -312,3 +327,130 @@ def test_cuda_combine_ffn_matches_plain(cuda_device, R, d, act):
         assert torch.equal(gt, ag)
         torch.testing.assert_close(gt, w, rtol=1e-4,
                                    atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+def _offset_copy(t, offset: int):
+    """A contiguous copy of ``t`` whose storage starts ``offset`` floats
+    into a fresh buffer: a base that is not 16-byte aligned for offset 1."""
+    buf = torch.empty(t.numel() + offset, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _tail_inputs(R, d, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g).to(device)  # noqa: E731
+    inv = (0.5 + torch.rand(d, generator=g)).to(device)
+    return (f(R, d), f(R, d), f(d), inv, f(d), f(d)), f(R, d)
+
+
+# (R, d, act, offset): M (ogbg-molhiv's edge tail, float4 columns); rows that
+# are no multiple of the backward's row chunk; d = 66 on an odd row count
+# (neither d nor the view a multiple of 4: float4 rows with a scalar tail
+# forward, one column a thread backward); a base off 16 bytes (floats
+# throughout); d below 4; and GPS-deep's edge tail (G: 4 vectors a thread)
+TAIL_SHAPES = [(3072, 64, "relu", 0), (3000, 64, "gelu", 0),
+               (1001, 66, "relu", 0), (3072, 64, "relu", 1),
+               (77, 3, "gelu", 0), (24576, 256, "gelu", 0)]
+TAIL_IDS = ["M", "ragged-rows", "d66", "misaligned", "d3", "G"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,d,act,offset", TAIL_SHAPES, ids=TAIL_IDS)
+def test_cuda_pre_tail_drop_add_match_plain(cuda_device, R, d, act, offset):
+    """On the card: ``pre_tail`` and ``drop_add``, forward and backward with
+    dropout 0.1, against their plain versions on the same tensors at 3b's
+    tolerances (rtol = atol = 1e-4, a gradient's atol times max(1, its
+    largest entry)), one launch counted per call, two backward runs equal in
+    every bit; and each forward's and backward's elementwise outputs equal
+    in every bit to the same call on copies whose bases are 16 bytes off
+    (the vectorised and the scalar bodies run the same arithmetic).
+    ``python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda
+    tests/test_torch_kernels.py``."""
+    from graphgps_torch.ops.kernels import drop_add, pre_tail
+
+    conf = (7, 0.1, act)
+    (x, v, *norm), cot = _tail_inputs(R, d, cuda_device, 8)
+    if offset:
+        x, v, cot = (_offset_copy(t, offset) for t in (x, v, cot))
+        norm = [_offset_copy(t, offset) for t in norm]
+    before = pre_tail.fused_pre_tail.launches
+    out = pre_tail.fused_pre_tail(x, v, *norm, *conf)
+    assert pre_tail.fused_pre_tail.launches == before + 1
+    torch.testing.assert_close(out, pre_tail.pre_tail_plain(x, v, *norm,
+                                                            *conf),
+                               rtol=1e-4, atol=1e-4)
+    before = pre_tail.pre_tail_backward.launches
+    got = pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+    again = pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+    assert pre_tail.pre_tail_backward.launches == before + 2
+    want = pre_tail.pre_tail_backward_plain(v, *norm, cot, *conf)
+    for gt, ag, w in zip(got, again, want):
+        assert torch.equal(gt, ag)
+        torch.testing.assert_close(gt, w, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    moved = [_offset_copy(t, 1 - offset) for t in (x, v, cot, *norm)]
+    assert torch.equal(out, pre_tail.fused_pre_tail(*moved[:2], *moved[3:],
+                                                    *conf))
+    assert torch.equal(got[0], pre_tail.pre_tail_backward(
+        moved[1], *moved[3:], moved[2], *conf)[0])
+
+    before = (drop_add.fused_drop_add.launches,
+              drop_add.drop_add_backward.launches)
+    out = drop_add.fused_drop_add(x, v, *conf[:2])
+    dv = drop_add.drop_add_backward(cot, *conf[:2])
+    assert (drop_add.fused_drop_add.launches,
+            drop_add.drop_add_backward.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    torch.testing.assert_close(out, drop_add.drop_add_plain(x, v, *conf[:2]),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dv, drop_add.drop_add_backward_plain(
+        cot, *conf[:2]), rtol=1e-4, atol=1e-4)
+    assert torch.equal(dv, drop_add.drop_add_backward(cot, *conf[:2]))
+    assert torch.equal(out, drop_add.fused_drop_add(*moved[:2], *conf[:2]))
+    assert torch.equal(dv, drop_add.drop_add_backward(moved[2], *conf[:2]))
+
+
+@pytest.mark.cuda
+def test_cuda_pre_tail_backward_one_launch_and_graph(cuda_device):
+    """On the card: ``pre_tail_backward`` is one CUDA kernel launch a call
+    (the profiler's count at M); back-to-back calls at two shapes with other
+    slab counts (d 304, then 64) each give their plain version's sums (every
+    launch leaves its slabs' tickets at 0); and a CUDA graph capture of the
+    call replays to the eager call's bits."""
+    from graphgps_torch.ops.kernels import pre_tail
+
+    conf = (11, 0.1, "relu")
+    (_, v, *norm), cot = _tail_inputs(3072, 64, cuda_device, 9)
+    pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eager = pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert launches == 1
+
+    (_, v2, *norm2), cot2 = _tail_inputs(4000, 304, cuda_device, 10)
+    for args in ((v2, *norm2, cot2), (v, *norm, cot)):
+        got = pre_tail.pre_tail_backward(*args, *conf)
+        want = pre_tail.pre_tail_backward_plain(*args, *conf)
+        for gt, w in zip(got, want):
+            torch.testing.assert_close(
+                gt, w, rtol=1e-4, atol=1e-4 * max(1.0, float(w.abs().max())))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pre_tail.pre_tail_backward(v, *norm, cot, *conf)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for c, e in zip(captured, eager):
+            assert torch.equal(c, e)
