@@ -136,7 +136,8 @@ one. Phases, each fatal on failure:
    scheduler at batch 64, wn-squirrel GCN+Transformer 3x96 with 4 heads on
    its one transductive graph, the chunked attention and the split masks,
    then GPS-deep with the JAX package's switch ``GGPS_FUSED_FRONT=0`` (the
-   unmerged path at d=256 and the fused attention rung) and VOC
+   unmerged path at d=256 and the fused attention rung, cut to
+   FRONT_OFF_LAYERS layers) and VOC
    superpixels under ``gt.attn_impl flash`` (training at attention dropout
    0, which flash requires), then wn-squirrel under the JAX package's
    switches ``GGPS_TILED_SEGMENT=1`` and ``GGPS_USE_CSR_KERNEL=1`` and as
@@ -166,8 +167,9 @@ one. Phases, each fatal on failure:
       norm;
    d. one batch's predictions (logits) against the same model on the CPU
       with calibrated BatchNorm statistics; the inference rate in graphs/s
-      over full batches, then a profile of the same loop for the device time
-      by CUDA kernel and the device's idle share;
+      over full batches, then a profile of the loop's first PROFILE_BATCHES
+      batches for the device time by CUDA kernel and the device's idle
+      share;
    e. the same for training steps (forward, backward, clipping, adamW),
       with the peak device memory (on wn-squirrel, whose epoch is one step,
       over SQUIRREL_RATE_BATCHES repeats of its one batch);
@@ -176,7 +178,36 @@ one. Phases, each fatal on failure:
    vs the fused rung; auto's wide attention vs flash; index_add vs the
    tiled and the CSR kernel; the block-sparse kernel vs BigBird's dense
    path with ``GGPS_SPLASH_MIN_N`` raised; on the real nodes), with each
-   side's launches.
+   side's launches;
+5. K training steps per dispatch (``train.steps_per_dispatch``), on the card
+   replays of one captured CUDA graph of the training step, for GPS-deep on
+   the merged path (16x256, batch 256, dropout 0.1 / 0.1, K = 3) and
+   ogbg-molhiv (10x64, batch 32, dropout 0.05 / 0.5: the unmerged kernels
+   and the torch-op attention mask, K = 4), K such that the stand-in's
+   train split ends in a partial group, from 4's calibrated states:
+   a. the entry point in ``train.mode custom`` for 2 epochs: finite stats
+      lines, the graph replays (every step but the eager warm-up ones) and
+      the launches: the per-step table for the eager steps and the capture,
+      none for a replay;
+   b. K captured steps against K eager steps on the same batches with the
+      same seeds: the loss of every step, every parameter, running
+      statistic and Adam moment after them, bit for bit where two eager
+      steps from one state are bit-equal (the ``5-eager-bits`` line), else
+      within 4c's rules (the line says which held);
+   c. one batch replayed with two seed rows gives two different steps,
+      each equal to the eager step with its seeds from the same state:
+      loss, predictions, and every parameter, running statistic and Adam
+      moment after it, by b's rule;
+   d. a second group of other graphs, replayed, against its eager steps as
+      in b (the batch's views are built inside the captured step);
+   e. host ms a step and device ms a step (CUDA events around the
+      replays), captured against eager, with the wrapper launches a step,
+      the peak memory allocated by each (and the memory reserved with the
+      graph's pool) and the eager step's profiled busy ms of 4e;
+   the phase's seconds against its budget of KSTEP_BUDGET_S.
+
+A watchdog prints every thread's stack and exits non-zero if the script
+runs WATCHDOG_S seconds.
 
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
 phase. Each kernel row's ``bound_ms`` is the larger of its bytes at the
@@ -205,6 +236,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -276,6 +308,9 @@ VOC_FLASH_LAUNCHES = {
 # the switches of the two paths: the JAX package's merged-front switch, and
 # the attention rung (training at attention dropout 0: flash takes none)
 FRONT_OFF = ("GGPS_FUSED_FRONT", "0")
+# the front-off path's depth: its launches are per layer, and its 4c step
+# on the CPU is the deepest of the script after GPS-deep's own
+FRONT_OFF_LAYERS = 4
 VOC_FLASH_OPTS = ["gt.attn_impl", "flash"]
 VOC_FLASH_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
 # wn-squirrel (GCN+Transformer): per layer and training step the FFN once
@@ -359,6 +394,10 @@ MOMENT_RTOL = 1e-5
 # 1,048 s after on one host)
 RATE_BATCHES = 10
 RATE_PASSES = 2
+# the profiled pass of 4d and 4e runs the rate loop's first batches only:
+# the profiler's processing of the whole loop's events (some 40,000 a
+# GPS-deep pass) took most of each path's 4e seconds
+PROFILE_BATCHES = 3
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
 DROP_SEED = 20260
@@ -387,8 +426,9 @@ FFN_RTOL, FFN_ATOL = 1e-5, 1e-5
 ACTOR_ROWS, ACTOR_DIM = 7680, 64
 # rate batches of the wn-squirrel recipe: one epoch is one step over the one
 # train batch, and a step runs ~20k launches of the chunked attention (5
-# until RATE_BATCHES was halved to 10)
-SQUIRREL_RATE_BATCHES = 3
+# until RATE_BATCHES was halved to 10; 3 until phase 5 joined the script:
+# each batch cost its 4e ~20 s, the profiled pass's share most of it)
+SQUIRREL_RATE_BATCHES = 2
 # phase 3h: the fused attention rung at the pcqm4m-GPS+RWSE width (d 304, 4
 # heads, attention dropout 0.5) on seeded inputs
 PCQM_GPS_DIM, PCQM_GPS_HEADS, PCQM_GPS_ATTN_RATE = 304, 4, 0.5
@@ -434,6 +474,20 @@ KINK_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
 # phase 4b: epochs of the training run through the entry point
 TRAIN_EPOCHS = 3
+
+# phase 5: (path, config, K, launches per layer); K the smallest from 3 up
+# that leaves a partial group (GPS-deep's stand-in has 4 train batches,
+# ogbg-molhiv's 30)
+KSTEP_PATHS = (("pcqm4m-GPSdeep", CFG, 3, GPSDEEP_LAUNCHES),
+               ("ogbg-molhiv", MOLHIV_CFG, 4, MOLHIV_LAUNCHES))
+KSTEP_EPOCHS = 2
+# captured and eager steps timed in 5e
+KSTEP_TIMED = 10
+KSTEP_BUDGET_S = 90
+# the script's watchdog: under the 1,200 s the script is given
+WATCHDOG_S = 1140
+# each path's 4e training rate, for 5e
+TRAIN_RATES = {}
 # phase 4c: one training step, card vs CPU. Gradients: 10 or 16 layers of f32
 # forward and backward in two summation orders (tiled GEMM and fixed-order
 # column sums on the card, MKL on the CPU); the atol is relative to each
@@ -647,6 +701,14 @@ def seeded_model(torch, cfg, splits, batch):
                 m.weight.copy_(1.0 + 0.1 * torch.randn(d, generator=g))
                 m.bias.copy_(0.1 * torch.randn(d, generator=g))
     return model.to(batch.device).eval()
+
+
+def drop_seed(torch, device, offset: int = 0):
+    """``DROP_SEED + offset`` as a kernel takes a dropout seed on the card:
+    a one-element int32 tensor there (``common.device_seed``)."""
+    from graphgps_torch.ops.kernels.common import device_seed
+
+    return device_seed(DROP_SEED + offset, device)
 
 
 def fit(bn, v, mask):
@@ -882,8 +944,8 @@ def check_kernels(torch, cfg, splits, device, flush):
     # attention rung's output), printed likewise
     with torch.no_grad():
         h_attn = layer.attention(batch, x)
-    da = drop_add_cases(torch, x, h_attn, DROP_SEED, DROP_RATE,
-                        cotangents(torch, SEED + 18, device))
+    da = drop_add_cases(torch, x, h_attn, drop_seed(torch, device),
+                        DROP_RATE, cotangents(torch, SEED + 18, device))
     forward_case(torch, da[0], at)
     backward_case(torch, da[1], DROP_SEED, DROP_RATE, at)
     layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
@@ -912,7 +974,7 @@ def grads_close(torch, got, want, rtol, atol, floor: float = 1.0):
     return ok, err, rel
 
 
-def backward_case(torch, c, seed: int, rate: float, shapes: dict,
+def backward_case(torch, c, seed, rate: float, shapes: dict,
                   timed: bool = True) -> dict:
     """One backward kernel, after its forward kernel with dropout ``rate``
     on every site, against autograd of the plain version on the same
@@ -979,7 +1041,7 @@ def cotangents(torch, seed: int, device):
                          for o in outs]
 
 
-def drop_add_cases(torch, x, v, seed: int, rate: float, cots_for):
+def drop_add_cases(torch, x, v, seed, rate: float, cots_for):
     """``drop_add``'s forward and backward cases on the (R, d) rows ``x``
     and ``v`` at dropout ``rate`` (the attention branch's residual)."""
     from graphgps_torch.ops.kernels import drop_add
@@ -1061,7 +1123,7 @@ def check_backward(torch, layer0):
     B, N, E, d, H, dh = (L[k] for k in ("B", "N", "E", "d", "H", "dh"))
     n, e_, pairs = L["n_real"], L["e_real"], L["attn_pairs"]
     R = B * N
-    rate, seed = DROP_RATE, DROP_SEED
+    rate, seed = DROP_RATE, drop_seed(torch, device)
     cots_for = cotangents(torch, SEED + 5, device)
 
     fin = tuple(L["front"][:15])
@@ -1178,7 +1240,7 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device, cold=None):
     B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
     d, H, dh = layer.dim_h, layer.num_heads, layer.w_ffn1.shape[1]
     R = B * N
-    rate, seed = UNMERGED_DROP_RATE, DROP_SEED
+    rate, seed = UNMERGED_DROP_RATE, drop_seed(torch, device)
     with torch.no_grad():
         x, e = model.encoder(batch)
         gin = gg.core_args(batch, x, e)
@@ -1304,7 +1366,7 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
     B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
     d, H = layer.dim_h, layer.num_heads
     scale = 1.0 / float(d // H) ** 0.5
-    seed = DROP_SEED
+    seed = drop_seed(torch, device)
     with torch.no_grad():
         x, e = model.encoder(batch)
         _, gate_in = layer.local.edge_gate_args(batch, x, e)
@@ -1568,7 +1630,7 @@ def check_ln_ffn(torch, cfg_path: str, opts, device):
     cots_for = cotangents(torch, SEED + 9, device)
     rows = []
     for r1, r2 in LN_FFN_RATES:
-        conf = (DROP_SEED, r1, r2, "gelu")
+        conf = (drop_seed(torch, device), r1, r2, "gelu")
 
         def run(cots=None, conf=conf):
             out, kept = ln_ffn._launch_forward(ins, *conf, ln_ffn.EPS, True)
@@ -1613,7 +1675,7 @@ def bn_ffn_cases(torch, ins, rate: float, n_real: int, shapes: dict,
     in the rows (``relu_kink_flips``)."""
     from graphgps_torch.ops.kernels import bn_ffn
 
-    conf = (DROP_SEED, rate, "relu", False)
+    conf = (drop_seed(torch, ins[0].device), rate, "relu", False)
     R, d = ins[0].shape
     dh = ins[5].shape[1]
     src = "graphgps_torch/csrc/bn_ffn.cu"
@@ -1730,7 +1792,7 @@ def ffn_cases(torch, ins, rate: float, act: str, n_real: int,
     rows)."""
     from graphgps_torch.ops.kernels import ffn
 
-    conf = (DROP_SEED, rate, act, True)
+    conf = (drop_seed(torch, ins[0].device), rate, act, True)
     R, d = ins[0].shape
     dh = ins[1].shape[1]
     src = "graphgps_torch/csrc/ffn.cu"
@@ -1817,7 +1879,8 @@ def check_ffn(torch, cfg_path: str, opts, device):
     gen = torch.Generator().manual_seed(DROP_SEED)
     with torch.no_grad():
         x, e = model.encoder(batch, gen)
-        h, _ = layer.branch_sum(batch, x, e, [DROP_SEED + i for i in range(3)])
+        h, _ = layer.branch_sum(batch, x, e, [drop_seed(torch, device, i)
+                                             for i in range(3)])
     ins = tuple(t.detach().contiguous() for t in (
         h, layer.w_ffn1, layer.b_ffn1, layer.w_ffn2, layer.b_ffn2))
     n_real = int(batch.node_mask.sum())
@@ -1827,9 +1890,9 @@ def check_ffn(torch, cfg_path: str, opts, device):
     # the attention branch's drop-add at the recipe's rate (Q: x and the
     # chunked attention's output), printed, not returned
     with torch.no_grad():
-        h_attn = layer.attention(batch, x, DROP_SEED + 1)
-    da = drop_add_cases(torch, x, h_attn, DROP_SEED, cfg.gt.dropout,
-                        cotangents(torch, SEED + 19, device))
+        h_attn = layer.attention(batch, x, drop_seed(torch, device, 1))
+    da = drop_add_cases(torch, x, h_attn, drop_seed(torch, device),
+                        cfg.gt.dropout, cotangents(torch, SEED + 19, device))
     at = dict(shapes, path="wn-squirrel")
     forward_case(torch, da[0], at)
     backward_case(torch, da[1], DROP_SEED, cfg.gt.dropout, at)
@@ -1910,7 +1973,7 @@ def gps_attention_cases(torch, ins, H: int, rates, tag: str):
     shapes = dict(B=B, N=N, d=d, H=H, real_nodes=n_real)
     rows = []
     for rate in rates:
-        conf = (DROP_SEED, H, rate)
+        conf = (drop_seed(torch, x.device), H, rate)
 
         def run(cots=None, conf=conf):
             y, kept = ga._launch_forward(ins, *conf)
@@ -2593,6 +2656,13 @@ def layers_of(cfg) -> int:
     return cfg.gt.layers
 
 
+def first_layers(state: dict, n: int) -> dict:
+    """A GPS model's state dict cut to its first ``n`` layers (the encoder
+    and head kept)."""
+    return {k: v for k, v in state.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+
+
 def expected_launches(table, layers: int, steps: int, evals: int, names):
     """Launches of every kernel in ``names`` over ``steps`` training steps
     and ``evals`` evaluated batches of a model of ``layers`` layers whose
@@ -2861,11 +2931,14 @@ def profile_pass(torch, one_pass, n: int, top: int, unit: str):
 def measure(torch, step, loader, unit: str, top: int) -> dict:
     """``step(batch)`` over the loader's full batches: graphs/s and real
     nodes/s on the host clock over RATE_PASSES passes after one warm-up pass, the peak device
-    memory over them, then one more pass under ``torch.profiler`` for the
-    device time by CUDA kernel and the device's idle share in that pass's
-    own window. Prints one JSON line per kernel name (the largest first)."""
-    def one_pass():
-        for _real, b in loader:
+    memory over them, then the first PROFILE_BATCHES batches under
+    ``torch.profiler`` for the device time by CUDA kernel and the device's
+    idle share in that window. Prints one JSON line per kernel name (the
+    largest first)."""
+    def one_pass(n=None):
+        for i, (_real, b) in enumerate(loader):
+            if n is not None and i == n:
+                break
             step(b)
 
     one_pass()
@@ -2878,8 +2951,9 @@ def measure(torch, step, loader, unit: str, top: int) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     n = RATE_PASSES * len(loader)
-    busy_ms, prof_ms, launches = profile_pass(torch, one_pass, len(loader),
-                                              top, unit)
+    head = min(PROFILE_BATCHES, len(loader))
+    busy_ms, prof_ms, launches = profile_pass(
+        torch, lambda: one_pass(head), head, top, unit)
     ms = 1e3 * wall / n
     nodes = RATE_PASSES * sum(int(b.node_mask.sum()) for _real, b in loader)
     return {"graphs_per_s": n * loader.batch_size / wall,
@@ -3032,13 +3106,355 @@ def drive_recipe(torch, name: str, cfg_path: str, table: dict, metric: str,
                        "step", 30)
         print(json.dumps(dict(path=name, mode="training", **rate,
                               card=card)), flush=True)
+        TRAIN_RATES[name] = rate
         mark("e")
     return train_counts
+
+
+def snapshot(torch, model, opt):
+    """Copies of a model's parameters and buffers and its optimizer's state
+    tensors, for :func:`restore`."""
+    with torch.no_grad():
+        return ([t.detach().clone() for t in model.state_dict().values()],
+                [{k: v.clone() for k, v in opt.state[p].items()}
+                 for p in model.parameters()])
+
+
+def restore(torch, model, opt, snap) -> None:
+    """Write a :func:`snapshot` (of this model or of a copy of it) back in
+    place: a captured graph keeps reading and writing the same tensors."""
+    with torch.no_grad():
+        for t, v in zip(model.state_dict().values(), snap[0]):
+            t.copy_(v)
+        for p, st in zip(model.parameters(), snap[1]):
+            for k, v in st.items():
+                opt.state[p][k].copy_(v)
+
+
+def compare_steps(torch, what: str, got_losses, want_losses, a, b,
+                  lr: float, k: int, bits_required: bool):
+    """Captured steps (model and optimizer ``a``) against eager ones
+    (``b``, its gradients the last step's): the losses of each step and
+    every parameter, buffer and Adam state tensor after them. Bit for bit
+    where the eager step is deterministic (``bits_required``: two eager
+    steps from one state gave the same bits, :func:`eager_bits`); otherwise
+    4c's rules over ``k`` steps:
+    losses and running statistics within STEP_RTOL / STEP_ATOL; Adam's
+    moments as 4c's gradients (rtol and atol STEP_GRAD_*, the atol times
+    the tensor's largest entry floored at 1e-2 of the model's largest of
+    that moment); the step counts equal; a parameter entry whose last
+    gradient is above 1e-2 of its tensor's largest and above 1e-6 within
+    k·(1e-6 + 1e-5·|p|), any other within 2·lr·k + 1e-6 (adamW moves an
+    entry by about lr a step whatever its gradient). Returns the row's
+    fields; fails outside both."""
+    (ma, oa), (mb, ob) = a, b
+    losses = [(float(x), float(y)) for x, y in zip(got_losses, want_losses)]
+    sa, sb = ma.state_dict(), mb.state_dict()
+    pa, pb = dict(ma.named_parameters()), dict(mb.named_parameters())
+    moments = {(n, key): (oa.state[pa[n]][key], ob.state[pb[n]][key])
+               for n in pb for key in ob.state[pb[n]]}
+    bits = (all(x == y for x, y in losses)
+            and all(torch.equal(sa[n], sb[n]) for n in sb)
+            and all(torch.equal(x, y) for x, y in moments.values()))
+    problems, worst, err = [], None, 0.0
+
+    def note(name, x, y, scale):
+        nonlocal worst, err
+        e_ = float((x.double() - y.double()).abs().max()) / max(scale, 1e-30)
+        if e_ >= err:
+            worst, err = name, e_
+
+    for x, y in losses:
+        if not math.isclose(x, y, rel_tol=STEP_RTOL, abs_tol=STEP_ATOL):
+            problems.append(f"losses {losses}")
+    top = {}
+    for (n, key), (x, y) in moments.items():
+        top[key] = max(top.get(key, 0.0), float(y.abs().max()))
+    for (n, key), (x, y) in moments.items():
+        if key == "step":
+            if not torch.equal(x, y):
+                problems.append(f"step of {n}: {x} against {y}")
+            continue
+        scale = max(float(y.abs().max()), 1e-2 * top[key])
+        note(f"{key} of {n}", x, y, scale)
+        if not bits and not torch.allclose(x, y, rtol=STEP_GRAD_RTOL,
+                                           atol=STEP_GRAD_ATOL * scale):
+            problems.append(f"{key} of {n} differs")
+    for n, y in sb.items():
+        x = sa[n]
+        if n not in pb:          # a buffer: the running statistics
+            note(n, x, y, float(y.abs().max()))
+            if not bits and not torch.allclose(x, y, rtol=STEP_RTOL,
+                                               atol=STEP_ATOL):
+                problems.append(f"{n} differs")
+            continue
+        g = pb[n].grad.abs()
+        clean = (g > 1e-2 * float(g.max())) & (g > 1e-6)
+        diff = (x - y).abs()
+        tol = torch.where(clean, k * (1e-6 + 1e-5 * y.abs()),
+                          torch.full_like(y, 2 * lr * k + 1e-6))
+        note(n, x, y, float(y.abs().max()))
+        if not bits and not bool((diff <= tol).all()):
+            problems.append(f"{n} differs by {float(diff.max())}")
+    if bits_required and not bits:
+        problems.insert(0, "not bit-equal, as two eager steps are")
+    if problems:
+        fail(f"{what}: " + "; ".join(problems[:8]))
+    return dict(rule="bits" if bits else "4c rules", losses=losses,
+                tensors=len(sb) + len(moments), worst_tensor=worst,
+                worst_err_over_scale=err)
+
+
+def step_state(torch, model, opt, out):
+    """The loss and predictions of a step (``out``) and, after it, copies of
+    every parameter, buffer and Adam state tensor."""
+    snap = snapshot(torch, model, opt)
+    return [out[0].clone(), out[1].clone(), *snap[0],
+            *(v for st in snap[1] for v in st.values())]
+
+
+def eager_bits(torch, step, model, opt) -> dict:
+    """Whether ``step()`` (one eager training step of ``model``) gives the
+    same bits twice from one state: its loss, predictions, parameters,
+    buffers and Adam state. Leaves the model and optimizer as they were.
+    Returns the line's fields."""
+    snap = snapshot(torch, model, opt)
+    runs = []
+    for _ in range(2):
+        restore(torch, model, opt, snap)
+        runs.append(step_state(torch, model, opt, step()))
+    torch.cuda.synchronize()
+    restore(torch, model, opt, snap)
+    differ = [i for i, (x, y) in enumerate(zip(*runs))
+              if not torch.equal(x, y)]
+    return dict(eager_bit_equal=not differ, tensors=len(runs[0]),
+                tensors_that_differ=len(differ),
+                worst_abs_diff=max((float((runs[0][i] - runs[1][i]).abs()
+                                          .max()) for i in differ),
+                                   default=0.0))
+
+
+def check_k_steps(torch, name: str, cfg_path: str, K: int, table: dict,
+                  state: dict, device, card: str) -> None:
+    """Phase 5 for one path (see the module docstring)."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, infer_dims
+    from graphgps_torch.driver import main as port_main
+    from graphgps_torch.models.gps_layer import StepSeeds
+    from graphgps_torch.models.networks import build_model
+    from graphgps_torch.ops import kernels
+    from graphgps_torch.optim import build_optimizer, set_lr
+    from graphgps_torch.train.loop import (WARMUP_STEPS, KSteps, _draw_table,
+                                           _step, is_eval_epoch)
+
+    t_path = time.perf_counter()
+    opts = ["seed", str(SEED), "train.steps_per_dispatch", str(K),
+            "optim.max_epoch", str(KSTEP_EPOCHS)]
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    loaders = create_loaders(cfg, splits, device)
+    n_batches = len(loaders["train"])
+    if not (n_batches > K and n_batches % K):
+        fail(f"{name}: {n_batches} train batches give K = {K} no full and "
+             "partial group")
+    layers = layers_of(cfg)
+
+    # a. the entry point, K steps per dispatch
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_opts = [*opts, "train.mode", "custom",
+                      "optim.num_warmup_epochs", "1", "train.enable_ckpt",
+                      "False", "out_dir", out_dir]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = port_main(["--cfg", cfg_path, *train_opts],
+                         prepare_model=lambda m: m.load_state_dict(state))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    counts, replays = kernels.launch_counts(), kernels.graph_replays()
+    steps = KSTEP_EPOCHS * n_batches
+    evals = sum(is_eval_epoch(cfg, i) for i in range(KSTEP_EPOCHS)) * sum(
+        len(loaders[s]) for s in ("val", "test") if s in loaders)
+    # the warm-up steps and the capture call every wrapper; a replay none
+    check_launches(f"{name} K={K}", counts,
+                   expected_launches(table, layers, WARMUP_STEPS + 1, evals,
+                                     counts),
+                   k=K, train_path_s=main_s, train_steps=steps,
+                   graph_replays=replays, eval_batches=evals,
+                   launches_run=expected_launches(
+                       table, layers, WARMUP_STEPS + replays, evals, counts))
+    if replays != steps - WARMUP_STEPS:
+        fail(f"{name}: {replays} graph replays for {steps} steps")
+    for split, rows in hist[SEED].items():
+        want = KSTEP_EPOCHS if split == "train" else sum(
+            is_eval_epoch(cfg, i) for i in range(KSTEP_EPOCHS))
+        if len(rows) != want or not all(
+                math.isfinite(v) for r in rows for v in r.values()
+                if isinstance(v, float)):
+            fail(f"{name} K={K} {split}: stats {rows}")
+
+    # b-d. captured steps (model a) against eager ones (model b)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg, infer_dims(cfg, splits))
+    model.load_state_dict(state)
+    a = model.to(device).train()
+    b = copy.deepcopy(a)
+    opt_a = build_optimizer(cfg, a.parameters(), capturable=True)
+    opt_b = build_optimizer(cfg, b.parameters(), capturable=True)
+    for opt in (opt_a, opt_b):
+        set_lr(opt, cfg.optim.base_lr)
+    loader = loaders["train"]
+    B = loader.batch_size
+    n = loader.arenas.num_graphs_total
+    first = np.arange(K * B) % n
+    other = np.random.default_rng(SEED + 5).permutation(n)[:K * B]
+    gen_a = torch.Generator().manual_seed(DROP_SEED + 5)
+    gen_b = torch.Generator().manual_seed(DROP_SEED + 5)
+    k_steps = KSteps(cfg, a, opt_a, loader, gen_a)
+
+    def eager_b(row, seeds):
+        batch = loader.arenas.assemble(torch.as_tensor(row, device=device),
+                                       loader.max_nodes)
+        opt_b.zero_grad(set_to_none=True)
+        return _step(cfg, b, opt_b, batch, seeds)
+
+    for i in range(WARMUP_STEPS):
+        row = first[i * B:(i + 1) * B]
+        k_steps._warmup(row)
+        eager_b(row, StepSeeds(gen_b, device))
+    k_steps.capture()
+    n_seeds = k_steps.n_seeds
+
+    # is the eager step deterministic? two from one state, same batch and
+    # seeds: where they are bit-equal, b-d require bits
+    probe_row = first[:B]
+    probe_seeds = _draw_table(torch.Generator().manual_seed(DROP_SEED + 7),
+                              1, n_seeds)[0].to(device, torch.int32)
+    det = eager_bits(torch, lambda: eager_b(
+        probe_row, StepSeeds(table=probe_seeds)), b, opt_b)
+    print(json.dumps(dict(path=name, phase="5-eager-bits", **det)),
+          flush=True)
+    bits_required = det["eager_bit_equal"]
+
+    def group(rows_of, tag):
+        seeds = _draw_table(gen_a, K, n_seeds)
+        if not torch.equal(seeds, _draw_table(gen_b, K, n_seeds)):
+            fail("the two generators part")
+        got, want = [], []
+        for i in range(K):
+            row = rows_of[i * B:(i + 1) * B]
+            dev_row = torch.cat([torch.as_tensor(row), seeds[i]]).to(device)
+            got.append(k_steps.replay(dev_row)[0])
+            table_b = seeds[i].to(device, torch.int32)
+            want.append(eager_b(row, StepSeeds(table=table_b))[0])
+        torch.cuda.synchronize()
+        return compare_steps(torch, f"{name} {tag}", got, want, (a, opt_a),
+                             (b, opt_b), cfg.optim.base_lr, K, bits_required)
+
+    row_b = group(first, "b")
+    print(json.dumps(dict(path=name, phase="5b", k=K, n_seeds=n_seeds,
+                          **row_b)), flush=True)
+    row_d = group(other, "d")
+    print(json.dumps(dict(path=name, phase="5d", k=K, **row_d)), flush=True)
+
+    # c. one batch, two seed rows, from one state on both sides: each
+    # replay against the eager step with its seeds (loss, predictions, and
+    # every parameter, buffer and Adam state tensor after it)
+    snap = snapshot(torch, a, opt_a)
+    row = other[:B]
+    seeds = _draw_table(torch.Generator().manual_seed(DROP_SEED + 9), 2,
+                        n_seeds)
+    got, want, states = [], [], []
+    for j, s_row in enumerate(seeds):
+        restore(torch, a, opt_a, snap)
+        out = k_steps.replay(torch.cat([torch.as_tensor(row), s_row]).to(
+            device))
+        restore(torch, b, opt_b, snap)
+        ref = eager_b(row, StepSeeds(table=s_row.to(device, torch.int32)))
+        torch.cuda.synchronize()
+        if not torch.allclose(out[1], ref[1], rtol=STEP_RTOL,
+                              atol=STEP_ATOL):
+            fail(f"{name} 5c: seed row {j}: the replay's predictions differ "
+                 "from the eager step's")
+        states.append(compare_steps(
+            torch, f"{name} 5c seed row {j}", [out[0]], [ref[0]], (a, opt_a),
+            (b, opt_b), cfg.optim.base_lr, 1, bits_required))
+        got.append(out)
+        want.append(ref)
+    same = [all(torch.equal(x, y) for x, y in zip(g[:2], w[:2]))
+            for g, w in zip(got, want)]
+    moved = not torch.equal(got[0][1], got[1][1])
+    print(json.dumps(dict(path=name, phase="5c", seed_rows=seeds.tolist(),
+                          losses=[float(g[0]) for g in got],
+                          eager_losses=[float(w[0]) for w in want],
+                          outputs_equal_bits=same,
+                          rules=[st["rule"] for st in states],
+                          worst_err_over_scale=[st["worst_err_over_scale"]
+                                                for st in states],
+                          predictions_differ=moved)), flush=True)
+    if not moved:
+        fail(f"{name} 5c: two seed rows gave the same predictions")
+    restore(torch, b, opt_b, snap)
+    restore(torch, a, opt_a, snap)
+
+    # e. captured against eager, host and device time a step
+    rows = [torch.cat([torch.as_tensor(first[(i % K) * B:(i % K + 1) * B]),
+                       s]).to(device)
+            for i, s in enumerate(_draw_table(gen_a, KSTEP_TIMED, n_seeds))]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for r in rows:
+        k_steps.replay(r)
+    ev[1].record()
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    cap_peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    cap_launches = sum(kernels.launch_counts().values())
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev[2].record()
+    for i in range(KSTEP_TIMED):
+        eager_b(first[(i % K) * B:(i % K + 1) * B], StepSeeds(gen_b, device))
+    ev[3].record()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_launches = sum(kernels.launch_counts().values())
+    rate = TRAIN_RATES.get(name, {})
+    print(json.dumps(dict(
+        path=name, phase="5e", k=K, steps_timed=KSTEP_TIMED,
+        captured_host_ms=1e3 * cap_s / KSTEP_TIMED,
+        captured_device_ms=ev[0].elapsed_time(ev[1]) / KSTEP_TIMED,
+        eager_host_ms=1e3 * eager_s / KSTEP_TIMED,
+        eager_stream_ms=ev[2].elapsed_time(ev[3]) / KSTEP_TIMED,
+        eager_busy_ms_4e=rate.get("device_busy_ms"),
+        eager_host_ms_4e=rate.get("step_ms"),
+        eager_cuda_launches_4e=rate.get("device_launches_per_step"),
+        wrapper_launches_per_captured_step=cap_launches / KSTEP_TIMED,
+        wrapper_launches_per_eager_step=eager_launches / KSTEP_TIMED,
+        captured_peak_gb=cap_peak / 1e9, eager_peak_gb=eager_peak / 1e9,
+        # the graph's private pool holds the captured step's activations and
+        # is reserved, not allocated, between replays
+        reserved_gb_after_replays=reserved / 1e9,
+        path_s=time.perf_counter() - t_path, card=card)), flush=True)
+    if cap_launches != 0:
+        fail(f"{name}: replays called {cap_launches} kernel wrappers")
+    del k_steps
 
 
 def main() -> None:
     if len(sys.argv) > 1:
         fail("takes no arguments")
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     try:
         import torch
     except ImportError:
@@ -3192,9 +3608,10 @@ def main() -> None:
     # merged-front switch off, VOC under gt.attn_impl flash; each against
     # the default path's predictions from one calibrated model
     with env_set(*FRONT_OFF):
-        off_counts = drive_recipe(torch, "pcqm4m-GPSdeep front-off", CFG,
-                                  GPSDEEP_UNMERGED_LAUNCHES, "mae", state,
-                                  device, card)
+        off_counts = drive_recipe(
+            torch, "pcqm4m-GPSdeep front-off", CFG, GPSDEEP_UNMERGED_LAUNCHES,
+            "mae", first_layers(state, FRONT_OFF_LAYERS), device, card,
+            extra=("gt.layers", str(FRONT_OFF_LAYERS)))
     check_rung_switch(torch, "pcqm4m-GPSdeep", CFG, ["seed", str(SEED)],
                       state, device, (merged_front, front_off),
                       (GPSDEEP_LAUNCHES, GPSDEEP_UNMERGED_LAUNCHES))
@@ -3239,6 +3656,15 @@ def main() -> None:
                       (bigbird_kernel, bigbird_dense),
                       (SQUIRREL_BIGBIRD_LAUNCHES, SQUIRREL_LAUNCHES))
     phase("4 wn-squirrel bigbird")
+
+    # 5. K training steps per dispatch as replays of one captured step
+    t5 = time.perf_counter()
+    for name, cfg_path, k, table in KSTEP_PATHS:
+        check_k_steps(torch, name, cfg_path, k, table,
+                      state if cfg_path == CFG else mol_state, device, card)
+    print(json.dumps(dict(phase_done="5", elapsed_s=time.perf_counter()
+                          - t_start, phase_s=time.perf_counter() - t5,
+                          budget_s=KSTEP_BUDGET_S)), flush=True)
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
         if r["name"] in new:
@@ -3294,6 +3720,7 @@ def main() -> None:
                            "launches_wn_squirrel_csr",
                            "launches_wn_squirrel_bigbird")} for r in rows])),
           flush=True)
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count()))), flush=True)

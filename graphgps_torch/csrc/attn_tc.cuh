@@ -339,6 +339,7 @@ __device__ __forceinline__ bool key_real(uint32_t bits, int j) {
 
 template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
+  const Drop kdrop = resolved(pr.drop);  // the seed read once a thread
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
   constexpr int SUB = C::SUB, NS = SUB / 8;
@@ -429,7 +430,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
           const int r = e >> 1, j = k0 + kc + 8 * n + 2 * t + (e & 1);
           const float pv = j < N ? __expf(sc[n][e] - m[r]) : 0.0f;
           l[r] += pv;
-          sc[n][e] = drop_apply(pr.drop, (stat0 + row[r]) * (unsigned long long)N + j, pv);
+          sc[n][e] = drop_apply(kdrop, (stat0 + row[r]) * (unsigned long long)N + j, pv);
         }
 #pragma unroll
       for (int dd = 0; dd < KS; ++dd)
@@ -472,6 +473,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_fwd(const Params pr) {
 
 template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
+  const Drop kdrop = resolved(pr.drop);  // the seed read once a thread
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
   constexpr int SUB = C::SUB, NS = SUB / 8;
@@ -605,7 +607,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
             const float sv = real ? sc[n][e] : WA_NEG;
             const float pv = j < N ? __expf(sv - Lr[r]) * inv[r] : 0.0f;
             const unsigned long long idx = (stat0 + row[r]) * (unsigned long long)N + j;
-            ds = pv * (drop_apply(pr.drop, idx, dp[n][e]) - D[r]);
+            ds = pv * (drop_apply(kdrop, idx, dp[n][e]) - D[r]);
           }
           sc[n][e] = ds;
         }
@@ -641,6 +643,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dq(const Params pr) {
 
 template <int MODE, int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
+  const Drop kdrop = resolved(pr.drop);  // the seed read once a thread
   using C = Cfg<DP>;
   constexpr int LD = C::LD, KS = C::KS, R = C::R, KT = C::KT, NT = C::NT;
   constexpr int SUB = C::SUB, NS = SUB / 8;
@@ -766,9 +769,9 @@ __global__ void __launch_bounds__(Cfg<DP>::NT) attn_dkv(const Params pr) {
             const float sv = (MODE == WIDE ? j < cnt : kreal[r]) ? st[n][e] : WA_NEG;
             pv = ok ? __expf(sv - Ls[iq]) * Xs[iq] : 0.0f;
             const bool keep =
-                pr.drop.t <= 0 ||
-                drop_keep(pr.drop, (stat0 + i) * (unsigned long long)N + j);
-            const float sc = pr.drop.t <= 0 ? 1.0f : pr.drop.scale;
+                kdrop.t <= 0 ||
+                drop_keep(kdrop, (stat0 + i) * (unsigned long long)N + j);
+            const float sc = kdrop.t <= 0 ? 1.0f : kdrop.scale;
             pd = keep ? pv * sc : 0.0f;
             dpd = keep ? dpt[n][e] * sc : 0.0f;
           }

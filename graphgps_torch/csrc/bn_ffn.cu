@@ -93,6 +93,8 @@ bn_ffn_fused_fwd_kernel(const float* __restrict__ s, const float* __restrict__ m
                         const float* __restrict__ be, const float* __restrict__ w1,
                         const float* __restrict__ w2, float* __restrict__ h_keep,
                         fused::FwdArgs p, int d, int dh, bool vec) {
+  p.drop1 = resolved(p.drop1);
+  p.drop2 = resolved(p.drop2);
   extern __shared__ float smem[];
   const fused::FfnLayout L = fused::FfnLayout::make(d, dh, false);
   fused::stage_weights(L, smem, w1, w2, vec);
@@ -124,6 +126,8 @@ bn_ffn_fused_bwd_kernel(const float* __restrict__ s, const float* __restrict__ m
                         const float* __restrict__ h, const float* __restrict__ z,
                         float* __restrict__ ds, float* __restrict__ part,
                         fused::BwdArgs p, Drop drop2, int d, int dh, bool vec) {
+  p.drop1 = resolved(p.drop1);
+  drop2 = resolved(drop2);
   extern __shared__ float smem[];
   const fused::FfnLayout L = fused::FfnLayout::make(d, dh, true);
   const int row0 = blockIdx.x * fused::BM;
@@ -177,7 +181,7 @@ extern "C" int bn_ffn_forward(const float* s, const float* mu, const float* inv,
                               const float* ga, const float* be, const float* w1,
                               const float* b1, const float* w2, const float* b2,
                               float* out, float* h, float* z, float* a1, int R, int d,
-                              int dh, int act, unsigned int seed, int t1, int t2,
+                              int dh, int act, const unsigned int* seed, int t1, int t2,
                               float scale, int fused_route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop1 = make_drop(seed, 1, t1, scale), drop2 = make_drop(seed, 2, t2, scale);
@@ -222,7 +226,7 @@ extern "C" int bn_ffn_backward(const float* s, const float* mu, const float* inv
                                const float* g, float* ds, float* dvec, float* dw1,
                                float* db1, float* dw2, float* db2, float* da2, float* da1,
                                float* dhh, float* scratch, int R, int d, int dh, int act,
-                               unsigned int seed, int t1, int t2, float scale,
+                               const unsigned int* seed, int t1, int t2, float scale,
                                int fused_route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop1 = make_drop(seed, 1, t1, scale), drop2 = make_drop(seed, 2, t2, scale);

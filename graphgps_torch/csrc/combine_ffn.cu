@@ -36,6 +36,7 @@ __global__ void combine_prologue_kernel(
     const float* __restrict__ iva, const float* __restrict__ gaa,
     const float* __restrict__ bea, float* __restrict__ h, long long total, int d,
     int act, Drop drop0) {
+  drop0 = resolved(drop0);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
@@ -57,6 +58,7 @@ combine_tail_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ 
                         const float* __restrict__ iva, const float* __restrict__ gaa,
                         float* __restrict__ dv, float* __restrict__ dsa,
                         float* __restrict__ part, int R, int d, int act, Drop drop0) {
+  drop0 = resolved(drop0);
   const int c = blockIdx.x * COLS + threadIdx.x;
   const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
   float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -102,7 +104,7 @@ extern "C" int combine_ffn_forward(
     const float* gax, const float* bex, const float* sa, const float* mua,
     const float* iva, const float* gaa, const float* bea, const float* w1,
     const float* b1, const float* w2, const float* b2, float* out, float* h, float* z,
-    float* a1, int R, int d, int dh, int act, unsigned int seed, int t, float scale,
+    float* a1, int R, int d, int dh, int act, const unsigned int* seed, int t, float scale,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long total = (long long)R * d;
@@ -134,7 +136,7 @@ extern "C" int combine_ffn_backward(
     const float* gaa, const float* w1, const float* w2, const float* h,
     const float* a1, const float* z, const float* g, float* dh, float* dv, float* dsa,
     float* dvec, float* dw1, float* db1, float* dw2, float* db2, float* da2, float* da1,
-    float* scratch, int R, int d, int dhid, int act, unsigned int seed, int t,
+    float* scratch, int R, int d, int dhid, int act, const unsigned int* seed, int t,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = ffn_core_backward<tc::Gemm>(

@@ -48,21 +48,44 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 }
 
 struct Drop {
-  uint32_t key;  // drop_key(seed, site)
-  int t;         // keep threshold on the u8 grid; 0 = no dropout
-  float scale;   // 1 / (1 - t/256), rounded to f32 by the wrapper
+  const uint32_t* seed;  // the step's seed in device memory (null when t = 0
+                         // and once resolved)
+  uint32_t salt;         // 0x9E3779B9 * (site + 1)
+  int t;                 // keep threshold on the u8 grid; 0 = no dropout
+  float scale;           // 1 / (1 - t/256), rounded to f32 by the wrapper
+  uint32_t key;          // drop_key(seed, site), once resolved
 };
 
-inline Drop make_drop(uint32_t seed, int site, int t, float scale) {
+// The seed is read in the kernel, not passed by value: a CUDA graph that
+// captures the launch replays it with whatever seed the buffer holds then.
+inline Drop make_drop(const uint32_t* seed, int site, int t, float scale) {
   Drop dp;
-  dp.key = mix32(seed + 0x9E3779B9u * (uint32_t)(site + 1));
+  dp.seed = t > 0 ? seed : nullptr;
+  dp.salt = 0x9E3779B9u * (uint32_t)(site + 1);
   dp.t = t;
   dp.scale = scale;
+  dp.key = 0u;
   return dp;
 }
 
+// The Drop with its key computed from the seed read in the kernel: each
+// kernel resolves its Drops once a thread at its start, so the hash of an
+// element costs what it cost with the key passed by value.
+__device__ __forceinline__ Drop resolved(Drop dp) {
+  if (dp.seed != nullptr) {
+    dp.key = mix32(__ldg(dp.seed) + dp.salt);
+    dp.seed = nullptr;
+  }
+  return dp;
+}
+
+// drop_key(seed, site) of common.py: the resolved key, or from the seed
+__device__ __forceinline__ uint32_t drop_key(const Drop& dp) {
+  return dp.seed != nullptr ? mix32(__ldg(dp.seed) + dp.salt) : dp.key;
+}
+
 __device__ __forceinline__ bool drop_keep(const Drop& dp, unsigned long long idx) {
-  const uint32_t h = mix32((uint32_t)idx ^ mix32((uint32_t)(idx >> 32) ^ dp.key));
+  const uint32_t h = mix32((uint32_t)idx ^ mix32((uint32_t)(idx >> 32) ^ drop_key(dp)));
   return (h & 255u) >= (uint32_t)dp.t;
 }
 
@@ -75,9 +98,11 @@ __device__ __forceinline__ float drop_apply(const Drop& dp, unsigned long long i
 
 // drop_keep on a view of fewer than 2^32 elements: the counter's high word
 // is 0 there, so drop_keep's inner mix32(0 ^ key) is one value for the whole
-// launch. drop_hi computes it once on the host, and drop_apply_lo hashes the
-// low word alone: one mix32 an element, drop_apply's bits.
-inline uint32_t drop_hi(const Drop& dp) { return mix32(0u ^ dp.key); }
+// launch. A kernel computes it once a thread with drop_hi, and drop_apply_lo
+// hashes the low word alone: one mix32 an element, drop_apply's bits.
+__device__ __forceinline__ uint32_t drop_hi(const Drop& dp) {
+  return dp.t > 0 ? mix32(0u ^ drop_key(dp)) : 0u;
+}
 
 __device__ __forceinline__ float drop_apply_lo(const Drop& dp, uint32_t hi,
                                                uint32_t idx, float v) {
@@ -135,7 +160,7 @@ struct Epi {
   const float* res = nullptr;   // (M, N), added last
   float* pre = nullptr;         // (M, N): acc + bias, before the activation
   int act = ACT_IDENTITY;
-  Drop drop = {0u, 0, 1.0f};
+  Drop drop = {nullptr, 0u, 0, 1.0f, 0u};
 };
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
@@ -216,6 +241,7 @@ inline cudaError_t reduce_partials(const float* part, float* out, int T, int B,
 __global__ void __launch_bounds__(COLS* ROW_WARPS)
 drop_grad_kernel(const float* in, const float* __restrict__ aux, float* out,
                  float* __restrict__ part, int ld, int R, int n, int act, Drop drop) {
+  drop = resolved(drop);
   const int c = blockIdx.x * COLS + threadIdx.x;
   const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
   float acc[1] = {0.0f};

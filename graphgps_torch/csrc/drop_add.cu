@@ -34,7 +34,9 @@ constexpr int THREADS = 256;
 template <typename I, int V, int U, bool RES>
 __global__ void __launch_bounds__(THREADS)
 drop_add_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                float* __restrict__ out, I total, Drop dp, uint32_t hi) {
+                float* __restrict__ out, I total, Drop dp) {
+  dp = resolved(dp);  // the seed read once a thread
+  const uint32_t hi = drop_hi(dp);
   using T = typename VecOf<V>::type;
   const I n = total / V;
   const T* xv = reinterpret_cast<const T*>(x);
@@ -78,7 +80,7 @@ cudaError_t launch(const float* x, const float* v, float* out, long long total,
   const long long n = total / V;
   const int blocks = cdiv(n > 0 ? n : 1, (long long)U * THREADS);
   drop_add_kernel<I, V, U, RES><<<blocks, THREADS, 0, st>>>(x, v, out, (I)total,
-                                                            dp, drop_hi(dp));
+                                                            dp);
   return cudaGetLastError();
 }
 
@@ -111,14 +113,14 @@ cudaError_t drop_add_pass(const float* x, const float* v, float* out,
 using namespace ggps;
 
 extern "C" int drop_add_forward(const float* x, const float* v, float* out,
-                                long long total, unsigned int seed, int t, float scale,
+                                long long total, const unsigned int* seed, int t, float scale,
                                 void* stream) {
   return drop_add_pass<true>(x, v, out, total, make_drop(seed, 0, t, scale),
                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int drop_add_backward(const float* g, float* dv, long long total,
-                                 unsigned int seed, int t, float scale, void* stream) {
+                                 const unsigned int* seed, int t, float scale, void* stream) {
   return drop_add_pass<false>(nullptr, g, dv, total, make_drop(seed, 0, t, scale),
                               static_cast<cudaStream_t>(stream));
 }

@@ -149,6 +149,8 @@ __global__ void __launch_bounds__(NT, 1)
 ffn_fused_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w1,
                      const float* __restrict__ w2, fused::FwdArgs p, int d, int dh,
                      int per, int bufs, bool vec) {
+  p.drop1 = resolved(p.drop1);
+  p.drop2 = resolved(p.drop2);
   extern __shared__ float smem[];
   const fused::FfnLayout L = fused::FfnLayout::make(d, dh, false);
   const int tiles = (p.R + BM - 1) / BM;
@@ -193,6 +195,8 @@ struct BwdPtrs {
 __global__ void __launch_bounds__(NT, 1)
 ffn_fused_bwd_kernel(const float* __restrict__ w1, const float* __restrict__ w2, BwdPtrs p,
                      int d, int dh, int per, int bufs, bool vec) {
+  p.drop1 = resolved(p.drop1);
+  p.drop2 = resolved(p.drop2);
   extern __shared__ float smem[];
   const BwdLayout L = BwdLayout::make(d, dh, bufs);
   const int tiles = (p.R + BM - 1) / BM;
@@ -372,7 +376,7 @@ extern "C" int ffn_fused_backward_fits(int d, int dh) { return bwd_fits(d, dh) ?
 // allocates: z (R, dh), and a1 (R, dh) stored when not null.
 extern "C" int ffn_forward(const float* h, const float* w1, const float* b1,
                            const float* w2, const float* b2, float* out, float* z,
-                           float* a1, int R, int d, int dh, int act, unsigned int seed,
+                           float* a1, int R, int d, int dh, int act, const unsigned int* seed,
                            int t1, int t2, float scale, int fused_route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop1 = make_drop(seed, 1, t1, scale), drop2 = make_drop(seed, 2, t2, scale);
@@ -408,7 +412,7 @@ extern "C" int ffn_backward(const float* h, const float* w1, const float* b1,
                             const float* w2, const float* g, float* dh, float* dw1,
                             float* db1, float* dw2, float* db2, float* a1, float* z,
                             float* da1, float* da2, float* scratch, int R, int d,
-                            int dhid, int act, unsigned int seed, int t1, int t2,
+                            int dhid, int act, const unsigned int* seed, int t1, int t2,
                             float scale, int fused_route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop drop1 = make_drop(seed, 1, t1, scale), drop2 = make_drop(seed, 2, t2, scale);

@@ -47,6 +47,7 @@ template <bool TA, bool TB>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
             float* __restrict__ C, int M, int N, int K, int k_split, Epi epi) {
+  epi.drop = resolved(epi.drop);
   __shared__ float As[GEMM_BK][GEMM_BM + 4];  // A tile, stored k-major
   __shared__ float Bs[GEMM_BK][GEMM_BN + 4];
   const int tid = threadIdx.x;

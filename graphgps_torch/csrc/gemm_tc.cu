@@ -15,7 +15,7 @@ extern "C" long long gemm_tc_scratch(int M, int N, int K) {
 // pointers may be null; dropout is site `site` of the (M, N) view.
 extern "C" int gemm_tc(int layout, const float* A, const float* B, float* C, int M, int N,
                        int K, const float* bias, const float* res, float* pre, int act,
-                       unsigned int seed, int site, int t, float sc, float* scratch,
+                       const unsigned int* seed, int site, int t, float sc, float* scratch,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Epi epi;

@@ -147,6 +147,7 @@ __global__ void __launch_bounds__(GemmTile::NT, GemmTile::MIN_BLOCKS)
 gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
                float* __restrict__ C, int M, int N, int K, int k_split, Epi epi,
                bool vec4) {
+  epi.drop = resolved(epi.drop);
   using G = GemmTile;
   constexpr int BM = G::BM, BN = G::BN, BK = G::BK;
   using OA = Operand<!TA, BM, BK, G::NT>;

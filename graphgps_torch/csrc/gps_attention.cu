@@ -49,7 +49,7 @@ constexpr int GA_MAX_DH = 128;
 
 // The attention's views of qkv (B*N, 3d): q, k, v at columns 0, d, 2d
 tc::Params attn_params(const float* qkv, const float* kmask, int B, int N, int d, int H,
-                       float scale, unsigned int seed, int t_attn, float sc_attn) {
+                       float scale, const unsigned int* seed, int t_attn, float sc_attn) {
   const int Dh = d / H;
   const long long P3 = 3LL * d;
   tc::Params pr = {};
@@ -81,7 +81,7 @@ bool in_envelope(int N, int d, int H) {
 extern "C" int gps_attention_forward(
     const float* x, const float* kmask, const float* wqkv, const float* bqkv,
     const float* wo, const float* bo, float* y, float* qkv, float* o, float* Mrow,
-    float* Lrow, int B, int N, int d, int H, float scale, unsigned int seed, int t_attn,
+    float* Lrow, int B, int N, int d, int H, float scale, const unsigned int* seed, int t_attn,
     float sc_attn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -120,7 +120,7 @@ extern "C" int gps_attention_backward(
     const float* qkv, const float* o, const float* Mrow, const float* Lrow,
     const float* gy, float* dx, float* dwqkv, float* dbqkv, float* dwo, float* dbo,
     float* dO, float* dqkv, float* Drow, float* scratch, int B, int N, int d, int H,
-    float scale, unsigned int seed, int t_attn, float sc_attn, void* stream) {
+    float scale, const unsigned int* seed, int t_attn, float sc_attn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   const int RN = B * N;

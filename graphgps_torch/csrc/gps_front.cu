@@ -79,7 +79,7 @@ constexpr int FRONT_MAX_DH = 128;
 // The attention's views of the joint (B*N, 7d) projection: q, k, v at
 // columns 4d, 5d, 6d
 tc::Params front_params(const float* proj, const float* nmask, int N, int d, int H,
-                        float scale, unsigned int seed, int t_attn, float sc_attn) {
+                        float scale, const unsigned int* seed, int t_attn, float sc_attn) {
   const int Dh = d / H;
   const long long P7 = 7LL * d;
   tc::Params pr = {};
@@ -134,6 +134,7 @@ fold_sa_kernel(const float* __restrict__ gsa, const float* __restrict__ sa,
                const float* __restrict__ gpa, float* __restrict__ gsa3,
                float* __restrict__ dy, float* __restrict__ part, int R, int d,
                Drop drop) {
+  drop = resolved(drop);
   const int c = blockIdx.x * COLS + threadIdx.x;
   const int r_end = min(R, (blockIdx.y + 1) * CHUNK_ROWS);
   float acc[1] = {0.0f};
@@ -174,7 +175,7 @@ extern "C" int gps_front_forward(
     const float* ca, const float* wnq, const float* bnq, const float* wc,
     const float* bc, const float* wo, const float* bo, float* x_new, float* gate,
     float* s_attn, float* moments, float* proj, float* attn, float* Mrow, float* Lrow,
-    float* part, int B, int N, int E, int d, int H, float scale, unsigned int seed,
+    float* part, int B, int N, int E, int d, int H, float scale, const unsigned int* seed,
     int t_attn, float sc_attn, int t_drop, float sc_drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -242,7 +243,7 @@ extern "C" int gps_front_backward(
     const float* gpx, const float* gpg, const float* gpa, float* dx, float* de,
     float* dwnq, float* dbnq, float* dwc, float* dbc, float* dwo, float* dbo,
     float* dproj, float* dgate, float* gsa3, float* dy, float* dO, float* Drow,
-    float* scratch, int B, int N, int E, int d, int H, float scale, unsigned int seed,
+    float* scratch, int B, int N, int E, int d, int H, float scale, const unsigned int* seed,
     int t_attn, float sc_attn, int t_drop, float sc_drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

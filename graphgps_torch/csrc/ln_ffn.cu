@@ -160,7 +160,7 @@ extern "C" int ln_ffn_forward(const float* h0, const float* ga, const float* be,
                               const float* w1, const float* b1, const float* w2,
                               const float* b2, float* out, float* y, float* z, float* a1,
                               float* stats, int R, int d, int dh, int act,
-                              unsigned int seed, int t1, float s1, int t2, float s2,
+                              const unsigned int* seed, int t1, float s1, int t2, float s2,
                               float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ln_fwd_kernel<<<cdiv(R, LN_WARPS * LN_ROWS), LN_WARPS * 32, 0, st>>>(h0, ga, be, y,
@@ -196,7 +196,7 @@ extern "C" int ln_ffn_backward(const float* h0, const float* ga, const float* w1
                                const float* z, const float* stats, const float* g,
                                float* dh0, float* dbias, float* dw1, float* dw2,
                                float* da2, float* da1, float* dy, float* scratch, int R,
-                               int d, int dh, int act, unsigned int seed, int t1,
+                               int d, int dh, int act, const unsigned int* seed, int t1,
                                float s1, int t2, float s2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -62,7 +62,9 @@ pre_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ mu, const float* __restrict__ inv,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
                 float* __restrict__ out, I total, int d, int step, int act,
-                Drop dp, uint32_t hi) {
+                Drop dp) {
+  dp = resolved(dp);  // the seed read once a thread
+  const uint32_t hi = drop_hi(dp);
   using T = typename VecOf<V>::type;
   const I n = total / V;
   const T* xv = reinterpret_cast<const T*>(x);
@@ -126,8 +128,7 @@ cudaError_t launch_fwd(const float* x, const float* v, const float* mu,
   const long long n = total / V;
   const int blocks = cdiv(n > 0 ? n : 1, (long long)U * THREADS);
   pre_tail_kernel<I, V, U, Q><<<blocks, THREADS, 0, st>>>(
-      x, v, mu, inv, gamma, beta, out, (I)total, d, (V * THREADS) % d, act, dp,
-      drop_hi(dp));
+      x, v, mu, inv, gamma, beta, out, (I)total, d, (V * THREADS) % d, act, dp);
   return cudaGetLastError();
 }
 
@@ -185,7 +186,9 @@ pre_tail_bwd_kernel(const float* __restrict__ v, const float* __restrict__ mu,
                     const float* __restrict__ beta, const float* __restrict__ g,
                     float* __restrict__ dv, float* __restrict__ dvec,
                     float* __restrict__ part, unsigned int* __restrict__ tickets,
-                    int R, int d, int chunk, int act, Drop dp, uint32_t hi) {
+                    int R, int d, int chunk, int act, Drop dp) {
+  dp = resolved(dp);  // the seed read once a thread
+  const uint32_t hi = drop_hi(dp);
   using T = typename VecOf<W>::type;
   constexpr int S = SLAB / W;
   constexpr int L = THREADS / S;
@@ -335,7 +338,7 @@ cudaError_t launch_bwd(const float* v, const float* mu, const float* inv,
   const dim3 grid(cdiv(d, SLAB), bwd_chunks(R, d));
   pre_tail_bwd_kernel<I, W><<<grid, THREADS, 0, st>>>(
       v, mu, inv, gamma, beta, g, dv, dvec, part, tickets, R, d,
-      bwd_chunk_rows(R, d), act, dp, drop_hi(dp));
+      bwd_chunk_rows(R, d), act, dp);
   return cudaGetLastError();
 }
 
@@ -362,7 +365,7 @@ using namespace ggps;
 extern "C" int pre_tail_forward(const float* x, const float* v, const float* mu,
                                 const float* inv, const float* gamma,
                                 const float* beta, float* out, long long rows, int d,
-                                int act, unsigned int seed, int t, float scale,
+                                int act, const unsigned int* seed, int t, float scale,
                                 void* stream) {
   const long long total = rows * d;
   if (total <= 0) return cudaSuccess;
@@ -389,7 +392,7 @@ extern "C" int pre_tail_backward(const float* v, const float* mu, const float* i
                                  const float* gamma, const float* beta, const float* g,
                                  float* dv, float* dvec, float* scratch,
                                  unsigned int* tickets, int rows, int d, int act,
-                                 unsigned int seed, int t, float scale, void* stream) {
+                                 const unsigned int* seed, int t, float scale, void* stream) {
   if (d <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop dp = make_drop(seed, 0, t, scale);

@@ -27,7 +27,7 @@ from ..config import parse_times_func
 from ..data.graph import GraphBatch
 from ..ops.kernels.common import exact_dropout
 from .common import MLP, LayerNorm, MaskedBatchNorm
-from .gps_layer import draw_seeds
+from .gps_layer import StepSeeds, draw_seeds
 
 # OGB molecule feature cardinalities (ogb.utils.features)
 ATOM_FEATURE_DIMS = [119, 5, 12, 12, 10, 6, 6, 2, 2]
@@ -109,10 +109,13 @@ class RWSENodeEncoder(nn.Module):
         return torch.cat([x, pe], dim=-1) if x is not None else pe
 
 
-def draw_signs(gen: Optional[torch.Generator], K: int):
-    """(K,) signs, +1 or -1 with equal chance, from the host generator."""
+def draw_signs(gen, K: int):
+    """(K,) signs, +1 or -1 with equal chance, from the host generator (a
+    training step's, where ``gen`` is its ``StepSeeds``)."""
     if gen is None:
         raise ValueError("training LapPE needs the sign generator")
+    if isinstance(gen, StepSeeds):
+        gen = gen.host_generator()
     return torch.randint(0, 2, (K,), generator=gen) * 2.0 - 1.0
 
 

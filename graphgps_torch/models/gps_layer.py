@@ -156,11 +156,105 @@ def merged_width(dim_h: int) -> bool:
     return dim_h % 128 == 0
 
 
-def draw_seeds(gen: Optional[torch.Generator], n: int):
-    """``n`` dropout seeds from the host generator ``gen``."""
+def seed_values(gen: torch.Generator, n: int) -> torch.Tensor:
+    """``n`` seeds in [0, 2^31) from ``gen`` as int32: one draw of n takes
+    what n draws of one would, so a step's seeds drawn at once equal its
+    modules' draws in turn."""
+    return torch.randint(0, 2 ** 31, (n,), generator=gen).to(torch.int32)
+
+
+class StepSeeds:
+    """A training step's dropout seeds in int32 tensors on the model's
+    device, which the kernels read there (``csrc/common.cuh`` ``Drop``): a
+    CUDA graph that captures the step replays with whatever seeds the
+    tensors hold. Modules take them in turn through :func:`draw_seeds`,
+    ``n`` at a time, as a list of 0-d int32 views of a device tensor.
+
+    Eager (``gen``): the seeds are those that draws from the host generator
+    in the order and number of the takes give, each view carrying the
+    value it holds (``host_value``: the torch-op hash then keys on the
+    host, where a device seed costs ~20 one-element launches a site). With
+    ``expect`` (the count an earlier step took) the first take draws that
+    many at once and copies them to ``device`` in one copy; a take past
+    them draws then, and :meth:`settle` (the step's end, or a draw on the
+    host) puts the generator where draws take by take would have left it,
+    so a seeded run draws the same whatever ``expect`` says. Fixed
+    (``table``, an (n,) int32 tensor on the device): the takes are
+    consecutive views of ``table`` and draw nothing; a step that takes more
+    than it holds raises. ``used`` counts the seeds taken, ``host_draws``
+    whether a module drew from the generator itself."""
+
+    def __init__(self, gen: Optional[torch.Generator] = None, device=None,
+                 table: Optional[torch.Tensor] = None, expect: int = 0):
+        if (gen is None) == (table is None):
+            raise ValueError("StepSeeds: give a generator or a seed table")
+        self.gen, self.device, self.table = gen, device, table
+        self.expect = expect
+        self.used = 0
+        self.host_draws = False
+        self._ahead = self._start = None
+
+    def take(self, n: int) -> list:
+        if self.table is not None:
+            if self.used + n > self.table.numel():
+                raise RuntimeError(
+                    f"the step takes more than the {self.table.numel()} "
+                    "dropout seeds of its table")
+            out = self.table[self.used:self.used + n].unbind(0)
+        else:
+            if self.used == 0 and self.expect and not self.host_draws:
+                self._start = self.gen.get_state()
+                self._ahead = _on_device(seed_values(self.gen, self.expect),
+                                         self.device)
+            if self._ahead is not None and \
+                    self.used + n <= len(self._ahead):
+                out = self._ahead[self.used:self.used + n]
+            else:
+                self.settle()
+                out = _on_device(seed_values(self.gen, n), self.device)
+        self.used += n
+        return list(out)
+
+    def settle(self) -> None:
+        """Drop the seeds drawn ahead, the generator set to where draws take
+        by take leave it after the ``used`` seeds."""
+        if self._ahead is not None:
+            if self.used != len(self._ahead):
+                self.gen.set_state(self._start)
+                seed_values(self.gen, self.used)
+            self._ahead = self._start = None
+
+    def host_generator(self) -> torch.Generator:
+        """The host generator, for draws that stay on the host (LapPE's sign
+        flips); a fixed table has none."""
+        if self.gen is None:
+            raise RuntimeError("a step on a fixed seed table draws nothing on "
+                               "the host")
+        self.settle()
+        self.host_draws = True
+        return self.gen
+
+
+def draw_seeds(gen, n: int) -> list:
+    """``n`` dropout seeds as 0-d int32 tensors: from a training step's
+    :class:`StepSeeds`, views of a tensor on the model's device; from a host
+    generator (a direct call of a model in training mode), on the host,
+    which the kernels' plain versions take."""
     if gen is None:
         raise ValueError("training with dropout needs a dropout generator")
-    return torch.randint(0, 2 ** 31, (n,), generator=gen).tolist()
+    if isinstance(gen, StepSeeds):
+        return gen.take(n)
+    return _on_device(seed_values(gen, n), "cpu")
+
+
+def _on_device(host: torch.Tensor, device) -> list:
+    """The 0-d views of ``host`` (int32 seeds drawn on the host) copied to
+    ``device`` in one copy, each carrying the value it holds
+    (``host_value``, which the torch-op hash keys on)."""
+    out = list(host.to(device, non_blocking=True).unbind(0))
+    for t, v in zip(out, host.tolist()):
+        t.host_value = v
+    return out
 
 
 class GPSLayer(nn.Module):

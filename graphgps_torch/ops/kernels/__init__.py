@@ -4,7 +4,10 @@ thirteen backward kernels, and the segment sums' plan kernel.
 
 Every wrapper keeps a launch count (``wrapper.launches``), raised by one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels. A CUDA graph capture calls each wrapper of
+the captured step once, and those calls count once; its replays run no
+Python and are counted apart (:func:`note_replay`, :func:`graph_replays`):
+a replay launches what its capture counted.
 """
 from .bigbird import bigbird_backward, bigbird_block_sparse
 from .bn_ffn import bn_ffn_backward, fused_bn_ffn
@@ -42,10 +45,28 @@ WRAPPERS = {"gps_front": fused_gps_front, "pre_tail": fused_pre_tail,
             "bigbird": bigbird_block_sparse, "bigbird_bwd": bigbird_backward}
 
 
+_replays = 0
+
+
 def reset_launch_counts() -> None:
+    """Every wrapper's count and the replay count to 0."""
+    global _replays
     for fn in WRAPPERS.values():
         fn.launches = 0
+    _replays = 0
 
 
 def launch_counts() -> dict:
+    """Wrapper calls by name: eager launches and captured ones."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def note_replay(n: int = 1) -> None:
+    """Count ``n`` replays of a captured CUDA graph."""
+    global _replays
+    _replays += n
+
+
+def graph_replays() -> int:
+    """Replays of captured CUDA graphs since the counts were reset."""
+    return _replays

@@ -20,10 +20,10 @@ from .common import (act_fn, apply_dropout, check_rate, keep_rule,
 from .ffn_fused import takes_fused
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 
 def bn_ffn_plain(s, mu, inv, ga, be, w1, b1, w2, b2, seed, rate: float,
@@ -104,8 +104,9 @@ def _launch_forward(args, seed, rate, act, drop2, keep: bool):
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("bn_ffn", "bn_ffn_forward", _FWD_ARGTYPES)
     err = fn(*map(build.ptr, args + (out,)), opt(h), opt(z), opt(a1), R, d,
-             dh, build.ACTS[act], int(seed), t1, t2, scale, int(fused),
-             build.stream_of(dev))
+             dh, build.ACTS[act],
+             build.seed_arg(seed, max(t1, t2), dev), t1, t2, scale,
+             int(fused), build.stream_of(dev))
     build.check_launch("fused_bn_ffn", err)
     fused_bn_ffn.launches += 1
     return out, ((h, a1, z) if keep else None)
@@ -146,8 +147,9 @@ def bn_ffn_backward(s, mu, inv, ga, be, w1, b1, w2, b2, g, seed,
     err = fn(*map(build.ptr, (s, mu, inv, ga, w1, w2, h, a1, z, g, ds, dvec,
                               dw1, db1, dw2, db2)),
              opt(da2), opt(da1), opt(dhh), build.ptr(scratch), R, d, dh,
-             build.ACTS[act], int(seed), t1, t2, scale, int(fused),
-             build.stream_of(dev))
+             build.ACTS[act],
+             build.seed_arg(seed, max(t1, t2), dev), t1, t2, scale,
+             int(fused), build.stream_of(dev))
     build.check_launch("bn_ffn_backward", err)
     bn_ffn_backward.launches += 1
     dmu, dinv, dga, dbe = dvec.unbind(0)

@@ -138,6 +138,33 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+class _SeedPtr(ctypes.c_void_p):
+    """A pointer argument that holds the tensor it points into."""
+
+
+def seed_arg(seed, t: int, device) -> ctypes.c_void_p:
+    """A dropout seed as the C entries take it, a pointer to a 32-bit word on
+    ``device``: into ``seed``, a one-element int32 tensor there (an element
+    of a training step's seed tensor, ``models/gps_layer.py`` ``StepSeeds``,
+    or ``common.device_seed``'s: a CUDA graph that captures the launch reads
+    whatever the word holds at each replay), or null when no site drops
+    (``t`` = 0: the kernel reads no seed, and ``seed`` may be anything). The
+    pointer holds the tensor for as long as the argument lives."""
+    if t == 0:
+        return _SeedPtr(None)
+    if not torch.is_tensor(seed):
+        raise TypeError(f"a dropout seed on {device} is a one-element int32 "
+                        f"tensor there (common.device_seed), got {seed!r}")
+    if seed.numel() != 1 or seed.dtype != torch.int32:
+        raise ValueError(f"seed: a one-element int32 tensor, got "
+                         f"{seed.dtype} of shape {tuple(seed.shape)}")
+    if seed.device != device:
+        raise ValueError(f"seed on {seed.device}, expected {device}")
+    arg = _SeedPtr(seed.data_ptr())
+    arg.tensor = seed
+    return arg
+
+
 def stream_of(device) -> ctypes.c_void_p:
     """PyTorch's current stream on ``device``. The C functions launch on the
     current device, so the tensors must live there."""

@@ -13,9 +13,9 @@ from .common import (act_fn, apply_dropout, check_rate, keep_rule,
                      needs_grad, true_f32)
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
 def combine_ffn_plain(x_in, v_loc, mu_x, inv_x, ga_x, be_x,
@@ -84,7 +84,9 @@ def _launch_forward(args, seed, rate, act, keep: bool):
     fn = build.cfunc("combine_ffn", "combine_ffn_forward", _FWD_ARGTYPES)
     err = fn(*map(build.ptr, args + (out, h, z)),
              ctypes.c_void_p(a1.data_ptr() if keep else 0), R, d, dh,
-             build.ACTS[act], int(seed), t_keep, scale, build.stream_of(dev))
+             build.ACTS[act],
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
+             build.stream_of(dev))
     build.check_launch("fused_combine_ffn", err)
     fused_combine_ffn.launches += 1
     return out, h, z, a1
@@ -125,7 +127,8 @@ def combine_ffn_backward(x_in, v_loc, mu_x, inv_x, ga_x, be_x, s_attn,
     err = fn(*map(build.ptr, (v_loc, mu_x, inv_x, ga_x, be_x, s_attn, mu_a,
                               inv_a, ga_a, w1, w2, h, a1, z, g, dxin, dv, dsa,
                               dvec, dw1, db1, dw2, db2, da2, da1, scratch)),
-             R, d, dh, build.ACTS[act], int(seed), t_keep, scale,
+             R, d, dh, build.ACTS[act],
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
              build.stream_of(dev))
     build.check_launch("combine_ffn_backward", err)
     combine_ffn_backward.launches += 1

@@ -49,7 +49,10 @@ def true_f32() -> None:
 # (bits & 255) ≥ t, kept values scaled by 1 / (1 − t/256). Here it runs in
 # torch int64 ops (every value kept in [0, 2^32), products split in 16-bit
 # halves so nothing overflows); csrc/common.cuh runs it in uint32, so a kernel
-# and its plain version draw bit-identical masks.
+# and its plain version draw bit-identical masks. A seed is an int or a
+# one-element int32 tensor (an element of a training step's seed tensor,
+# ``models/gps_layer.py`` ``StepSeeds``), with the same masks for the same
+# 32 bits; a kernel on the card takes only the tensor (``build.seed_arg``).
 
 _M32 = 0xFFFFFFFF
 
@@ -68,8 +71,29 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def drop_key(seed: int, site: int) -> int:
+def drop_key(seed, site: int):
+    """The hash key of a site: an int for an int ``seed`` or a seed tensor
+    that carries the value it holds (``host_value``: an eager step's,
+    ``models/gps_layer.py`` ``StepSeeds``, whose seeds were drawn on the
+    host: the key then costs no device op); for another seed tensor (a
+    one-element int32 tensor, its bits read as uint32 as the kernels read
+    them: a captured step's) a 0-d int64 tensor on its device, with the
+    same value and no host synchronisation."""
+    if torch.is_tensor(seed):
+        host = getattr(seed, "host_value", None)
+        if host is None:
+            s = seed.reshape(()).to(torch.int64) & _M32
+            return _mix32((s + (0x9E3779B9 * (site + 1) & _M32)) & _M32)
+        seed = host
     return _mix32((int(seed) + 0x9E3779B9 * (site + 1)) & _M32)
+
+
+def device_seed(seed: int, device) -> torch.Tensor:
+    """``seed``'s 32 bits in a one-element int32 tensor on ``device``: the
+    form in which a kernel wrapper takes a dropout seed on the card."""
+    s = int(seed) & _M32
+    return torch.tensor([s - (s >> 31 << 32)], dtype=torch.int32,
+                        device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +107,7 @@ def keep_rule(rate: float) -> Tuple[int, float]:
     return t, float(np.float32(1.0 / (1.0 - t / 256.0)))
 
 
-def drop_bits(seed: int, site: int, rows: int, cols: int, device=None,
+def drop_bits(seed, site: int, rows: int, cols: int, device=None,
               row0: int = 0, col0: int = 0, width: Optional[int] = None):
     """(rows, cols) int64 hash values in [0, 2^32) of view rows
     ``row0 .. row0 + rows`` and columns ``col0 .. col0 + cols`` of a view
@@ -97,7 +121,7 @@ def drop_bits(seed: int, site: int, rows: int, cols: int, device=None,
     return _mix32((idx & _M32) ^ hi)
 
 
-def dropout_mask(seed: int, site: int, rows: int, cols: int, rate: float,
+def dropout_mask(seed, site: int, rows: int, cols: int, rate: float,
                  device=None, col0: int = 0,
                  width: Optional[int] = None) -> Optional[torch.Tensor]:
     """The f32 (rows, cols) multiplier of a site: 0 where dropped, the keep
@@ -111,7 +135,7 @@ def dropout_mask(seed: int, site: int, rows: int, cols: int, rate: float,
     return keep.to(torch.float32) * scale
 
 
-def apply_dropout(v, seed: int, site: int, rate: float):
+def apply_dropout(v, seed, site: int, rate: float):
     """``v`` times its site's mask over the view (v.numel() / cols, cols),
     cols = v.shape[-1] (``v`` itself at rate 0)."""
     cols = v.shape[-1]
@@ -119,7 +143,7 @@ def apply_dropout(v, seed: int, site: int, rate: float):
     return v if m is None else v * m.reshape(v.shape)
 
 
-def exact_dropout(v, seed: int, site: int, rate: float):
+def exact_dropout(v, seed, site: int, rate: float):
     """flax ``nn.Dropout``'s rule over the port's counter hash: keep with
     probability 1 − rate (to 2⁻²⁴; flax draws ``jax.random.bernoulli``),
     kept values divided by 1 − rate, on the view (v.numel() / cols, cols),

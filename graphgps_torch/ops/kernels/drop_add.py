@@ -12,7 +12,7 @@ from . import build
 from .common import apply_dropout, check_rate, keep_rule, needs_grad
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 2 + _FWD_ARGTYPES[3:]
 
@@ -48,7 +48,8 @@ def _launch_forward(x_in, v, seed, rate):
     t_keep, scale = keep_rule(rate)
     out = torch.empty_like(v)
     fn = build.cfunc("drop_add", "drop_add_forward", _FWD_ARGTYPES)
-    err = fn(*map(build.ptr, (x_in, v, out)), R * d, int(seed), t_keep, scale,
+    err = fn(*map(build.ptr, (x_in, v, out)), R * d,
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
              build.stream_of(dev))
     build.check_launch("fused_drop_add", err)
     fused_drop_add.launches += 1
@@ -71,7 +72,8 @@ def drop_add_backward(g, seed, rate: float):
     t_keep, scale = keep_rule(rate)
     dv = torch.empty_like(g)
     fn = build.cfunc("drop_add", "drop_add_backward", _BWD_ARGTYPES)
-    err = fn(*map(build.ptr, (g, dv)), R * d, int(seed), t_keep, scale,
+    err = fn(*map(build.ptr, (g, dv)), R * d,
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
              build.stream_of(dev))
     build.check_launch("drop_add_backward", err)
     drop_add_backward.launches += 1

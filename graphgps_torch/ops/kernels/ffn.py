@@ -21,10 +21,10 @@ from .common import (act_fn, apply_dropout, check_rate, keep_rule,
 from .ffn_fused import takes_fused
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
 
 
@@ -97,8 +97,9 @@ def _launch_forward(args, seed, rate, act, drop2, keep_a1: bool = False):
     t1, t2, scale = _thresholds(rate, drop2)
     fn = build.cfunc("ffn", "ffn_forward", _FWD_ARGTYPES)
     err = fn(*map(build.ptr, args + (out,)), opt(z), opt(a1), R, d, dh,
-             build.ACTS[act], int(seed), t1, t2, scale, int(fused),
-             build.stream_of(dev))
+             build.ACTS[act],
+             build.seed_arg(seed, max(t1, t2), dev), t1, t2, scale,
+             int(fused), build.stream_of(dev))
     build.check_launch("fused_ffn", err)
     fused_ffn.launches += 1
     return (out, a1) if keep_a1 else out
@@ -132,7 +133,8 @@ def ffn_backward(h, w1, b1, w2, b2, g, seed, rate: float, act: str = "relu",
     fn = build.cfunc("ffn", "ffn_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (h, w1, b1, w2, g, dx, dw1, db1, dw2, db2)),
              *map(opt, work), build.ptr(scratch), R, d, dh, build.ACTS[act],
-             int(seed), t1, t2, scale, int(fused), build.stream_of(dev))
+             build.seed_arg(seed, max(t1, t2), dev), t1, t2, scale,
+             int(fused), build.stream_of(dev))
     build.check_launch("ffn_backward", err)
     ffn_backward.launches += 1
     return dx, dw1, db1, dw2, db2

@@ -21,7 +21,7 @@ from .common import apply_dropout, check_rate, keep_rule, needs_grad, true_f32
 MAX_NODES = 128
 MAX_HEAD_DIM = 128
 
-_CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint32,
+_CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_float,
                                        ctypes.c_void_p]
 _FWD_ARGTYPES = [ctypes.c_void_p] * 11 + _CONF_ARGTYPES
@@ -91,7 +91,7 @@ def _check_args(x, kmask, wqkv, bqkv, wo, bo, H):
 
 def _conf(B, N, d, H, seed, rate, dev):
     t, sc = keep_rule(rate)
-    return (B, N, d, H, attn_scale(d, H), int(seed), t, sc,
+    return (B, N, d, H, attn_scale(d, H), build.seed_arg(seed, t, dev), t, sc,
             build.stream_of(dev))
 
 

@@ -20,7 +20,7 @@ MAX_NODES = 128
 MAX_HEAD_DIM = 128
 SMEM_LIMIT = 227 * 1024
 
-_DROP_ARGTYPES = [ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
+_DROP_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + _DROP_ARGTYPES)
@@ -125,10 +125,10 @@ def _check_args(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca, wnq, bnq, wc,
     return B, N, E, d, dev
 
 
-def _drop_args(seed, attn_rate, drop_rate):
+def _drop_args(seed, attn_rate, drop_rate, dev):
     t_a, sc_a = keep_rule(attn_rate)
     t_d, sc_d = keep_rule(drop_rate)
-    return int(seed), t_a, sc_a, t_d, sc_d
+    return build.seed_arg(seed, max(t_a, t_d), dev), t_a, sc_a, t_d, sc_d
 
 
 def _launch_forward(args, seed, H, scale, attn_rate, drop_rate):
@@ -151,7 +151,7 @@ def _launch_forward(args, seed, H, scale, attn_rate, drop_rate):
     err = fn(*map(build.ptr, args + (x_new, gate, s_attn, moments, proj,
                                      attn, mrow, lrow, part)),
              B, N, E, d, H, float(scale),
-             *_drop_args(seed, attn_rate, drop_rate), build.stream_of(dev))
+             *_drop_args(seed, attn_rate, drop_rate, dev), build.stream_of(dev))
     build.check_launch("fused_gps_front", err)
     fused_gps_front.launches += 1
     px, pg, pa = (m[None].clone() for m in moments)
@@ -207,7 +207,7 @@ def gps_front_backward(x, e, s_loc, r_loc, emask, nmask, cx, cg, ca,
                               dwnq, dbnq, dwc, dbc, dwo, dbo, dproj, dgate,
                               gsa3, dy, do, drow, scratch)),
              B, N, E, d, H, float(scale),
-             *_drop_args(seed, attn_rate, drop_rate), build.stream_of(dev))
+             *_drop_args(seed, attn_rate, drop_rate, dev), build.stream_of(dev))
     build.check_launch("gps_front_backward", err)
     gps_front_backward.launches += 1
     return dx, de, dwnq, dbnq, dwc, dbc, dwo, dbo

@@ -15,10 +15,10 @@ from .common import (act_fn, apply_dropout, check_rate, keep_rule,
 EPS = 1e-6
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [
-    ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -86,7 +86,8 @@ def _launch_forward(args, seed, r1, r2, act, eps, keep: bool):
     null = ctypes.c_void_p(0)
     err = fn(*map(build.ptr, args + (out, y, z)),
              *((build.ptr(a1), build.ptr(stats)) if keep else (null, null)),
-             R, d, dh, build.ACTS[act], int(seed), t1, s1, t2, s2, eps,
+             R, d, dh, build.ACTS[act],
+             build.seed_arg(seed, max(t1, t2), dev), t1, s1, t2, s2, eps,
              build.stream_of(dev))
     build.check_launch("fused_ln_ffn", err)
     fused_ln_ffn.launches += 1
@@ -126,7 +127,8 @@ def ln_ffn_backward(h0, ga, be, w1, b1, w2, b2, g, seed, r1: float,
     fn = build.cfunc("ln_ffn", "ln_ffn_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (h0, ga, w1, w2, y, a1, z, stats, g, dh0, dbias,
                               dw1, dw2, da2, da1, dy, scratch)),
-             R, d, dh, build.ACTS[act], int(seed), t1, s1, t2, s2,
+             R, d, dh, build.ACTS[act],
+             build.seed_arg(seed, max(t1, t2), dev), t1, s1, t2, s2,
              build.stream_of(dev))
     build.check_launch("ln_ffn_backward", err)
     ln_ffn_backward.launches += 1

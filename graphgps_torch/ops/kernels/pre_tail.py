@@ -12,10 +12,10 @@ from . import build
 from .common import act_fn, apply_dropout, check_rate, keep_rule, needs_grad
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -52,7 +52,9 @@ def _launch_forward(x_in, v, mu, inv, gamma, beta, seed, rate, act):
     out = torch.empty_like(v)
     fn = build.cfunc("pre_tail", "pre_tail_forward", _FWD_ARGTYPES)
     err = fn(*map(build.ptr, (x_in, v, mu, inv, gamma, beta, out)), R, d,
-             build.ACTS[act], int(seed), t_keep, scale, build.stream_of(dev))
+             build.ACTS[act],
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
+             build.stream_of(dev))
     build.check_launch("fused_pre_tail", err)
     fused_pre_tail.launches += 1
     return out
@@ -110,7 +112,8 @@ def pre_tail_backward(v, mu, inv, gamma, beta, g, seed, rate: float,
     fn = build.cfunc("pre_tail", "pre_tail_backward", _BWD_ARGTYPES)
     err = fn(*map(build.ptr, (v, mu, inv, gamma, beta, g, dv, dvec, scratch,
                               tickets)),
-             R, d, build.ACTS[act], int(seed), t_keep, scale,
+             R, d, build.ACTS[act],
+             build.seed_arg(seed, t_keep, dev), t_keep, scale,
              build.stream_of(dev))
     build.check_launch("pre_tail_backward", err)
     pre_tail_backward.launches += 1

@@ -21,7 +21,7 @@ from .common import apply_dropout, check_rate, keep_rule, needs_grad, true_f32
 # pads a head to a multiple of 8 columns in shared memory
 MAX_HEAD_DIM = 64
 
-_CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint32,
+_CONF_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_float,
                                        ctypes.c_void_p]
 _FWD_ARGTYPES = [ctypes.c_void_p] * 11 + _CONF_ARGTYPES
@@ -86,7 +86,8 @@ def _check_args(x, counts, wqkv, bqkv, wo, bo, H):
 
 def _conf(B, N, d, H, scale, seed, rate, dev):
     t, sc = keep_rule(rate)
-    return B, N, d, H, float(scale), int(seed), t, sc, build.stream_of(dev)
+    return (B, N, d, H, float(scale), build.seed_arg(seed, t, dev), t, sc,
+            build.stream_of(dev))
 
 
 def _launch_forward(args, seed, H, scale, rate):

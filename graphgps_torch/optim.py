@@ -20,17 +20,24 @@ BETAS = (0.9, 0.999)
 EPS = 1e-8
 
 
-def build_optimizer(cfg, params: Iterable[torch.nn.Parameter]):
+def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
+                    capturable: bool = False):
     """``adamW`` (decoupled weight decay ``cfg.optim.weight_decay``) or
-    ``adam``, on optax's defaults; the learning rate is set per epoch."""
+    ``adam``, on optax's defaults; the learning rate is set per epoch.
+    ``capturable``: the form a CUDA graph can capture (the K-step path on
+    the card): its step count on the device, and its learning rate a
+    one-element tensor there that :func:`set_lr` fills in place."""
     name = cfg.optim.optimizer
     params = list(params)
+    lr, extra = cfg.optim.base_lr, {}
+    if capturable:
+        lr = torch.tensor(float(lr), device=params[0].device)
+        extra = dict(capturable=True)
     if name == "adamW":
-        return torch.optim.AdamW(params, lr=cfg.optim.base_lr, betas=BETAS,
-                                 eps=EPS, weight_decay=cfg.optim.weight_decay)
+        return torch.optim.AdamW(params, lr=lr, betas=BETAS, eps=EPS,
+                                 weight_decay=cfg.optim.weight_decay, **extra)
     if name == "adam":
-        return torch.optim.Adam(params, lr=cfg.optim.base_lr, betas=BETAS,
-                                eps=EPS)
+        return torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS, **extra)
     raise NotImplementedError(
         f"optim.optimizer={name!r} is not ported (adamW, adam; ROADMAP Queue "
         "1 item 17)")
@@ -140,8 +147,19 @@ def build_schedule(cfg) -> Union[Callable[[int], float], ReduceLROnPlateau]:
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """The learning rate of every group. A capturable optimizer's rate is a
+    tensor on its parameters' device, written in place (a captured step
+    reads it there); one that a checkpoint left elsewhere is put back on
+    that device first."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if not group.get("capturable"):
+            group["lr"] = lr
+            continue
+        dev = group["params"][0].device
+        cur = group["lr"]
+        if not torch.is_tensor(cur) or cur.device != dev:
+            group["lr"] = cur = torch.zeros((), device=dev)
+        cur.fill_(lr)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):

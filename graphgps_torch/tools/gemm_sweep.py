@@ -31,6 +31,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from graphgps_torch.ops.kernels import build  # noqa: E402
+from graphgps_torch.ops.kernels.common import device_seed  # noqa: E402
 
 # (layout, M, N, K): 0 NN, 1 NT, 2 TN
 SHAPES = [(0, 10240, 768, 256), (0, 10240, 1792, 256), (0, 24576, 256, 256),
@@ -46,7 +47,7 @@ EPILOGUES = {"none": {}, "bias": dict(bias=True),
              "bias+gelu+drop+pre": dict(bias=True, act=2, drop=True, pre=True),
              "bias+drop+res": dict(bias=True, drop=True, res=True)}
 ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_uint32,
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_void_p,
                                        ctypes.c_void_p])
@@ -98,11 +99,14 @@ def main() -> None:
                      res=torch.randn(M, N, generator=g, device=dev),
                      pre=torch.empty(M, N, device=dev))
 
+        seed = device_seed(7, dev)
+
         def call(act=0, drop=False, **on):
             opt = lambda k: ptr(epi_t[k]) if on.get(k) else None  # noqa
             build.check_launch("gemm_tc", fn(
                 lay, ptr(a), ptr(b), ptr(c), M, N, K, opt("bias"), opt("res"),
-                opt("pre"), act, 7, 1, 26 if drop else 0,
+                opt("pre"), act, build.seed_arg(seed, 26 if drop else 0, dev),
+                1, 26 if drop else 0,
                 256 / 230 if drop else 1.0, ptr(scratch), stream))
 
         call()

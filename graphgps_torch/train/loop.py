@@ -1,20 +1,24 @@
 """Train and evaluation modes (counterpart of ``graphgps_tpu/train/loop.py``:
-``train_step`` :146-153, ``train_epoch`` :732-768, ``eval_epoch`` :812,
-``custom_train`` :884-1057, ``inference_only`` :1060, ``ogblsc_inference``
-:1075, ``_loss_mask`` :81; the L1, cross-entropy, binary and weighted
-cross-entropy losses and the dispatch of ``graphgps_tpu/models/losses.py``
-:23, :41, :52, :73, :104)."""
+``train_step`` :146-153, ``train_epoch`` :732-768, K steps per dispatch
+``scan_steps_core``/``make_scan_steps`` :196-307 and ``train_epoch_scan``
+:771, ``eval_epoch`` :812, ``custom_train`` :884-1057, ``inference_only``
+:1060, ``ogblsc_inference`` :1075, ``_loss_mask`` :81; the L1,
+cross-entropy, binary and weighted cross-entropy losses and the dispatch of
+``graphgps_tpu/models/losses.py`` :23, :41, :52, :73, :104)."""
 from __future__ import annotations
 
 import logging
 import os
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..logging_utils import SplitLogger
+from ..models.gps_layer import StepSeeds, seed_values
+from ..ops import kernels
 from ..optim import (ReduceLROnPlateau, build_optimizer, build_schedule,
                      clip_by_global_norm, set_lr)
 from . import checkpoint
@@ -170,13 +174,13 @@ def eval_epoch(cfg, model, loader, logger: SplitLogger) -> None:
     model.train(was_training)
 
 
-def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
-    """One optimizer step: forward in training mode (dropout seeds and
-    LapPE signs from ``gen``), the task's loss over the real graphs or
-    nodes, backward, optax-rule gradient clipping, update. Returns (loss,
-    pred, true, mask), detached."""
-    opt.zero_grad(set_to_none=True)
-    pred, true = model(batch, gen)
+def _step(cfg, model, opt, batch, seeds):
+    """The body of a training step, its gradients None on entry: forward in
+    training mode (dropout seeds from ``seeds``), the task's loss over the
+    real graphs or nodes, backward, optax-rule gradient clipping, update.
+    Returns (loss, pred, true, mask), detached. A CUDA graph captures it
+    as it is (no host synchronisation, nothing drawn on the host)."""
+    pred, true = model(batch, seeds)
     pred = _f32(pred)
     mask = loss_mask(batch, pred)
     loss = compute_loss(cfg, pred, true, mask)
@@ -194,6 +198,27 @@ def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
     return loss.detach(), pred.detach(), true, mask
 
 
+# the dropout seeds a model's last eager step took, where it drew nothing
+# else from its generator (no LapPE signs): the next step draws that many
+# at once and copies them to the device in one copy (``StepSeeds``)
+_SEEDS_TAKEN: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def train_step(cfg, model, opt, batch, gen: Optional[torch.Generator]):
+    """One optimizer step: :func:`_step` with the step's dropout seeds (and
+    LapPE's signs) drawn from ``gen`` as its modules take them, the seeds
+    into int32 tensors on the batch's device. Returns (loss, pred, true,
+    mask), detached."""
+    opt.zero_grad(set_to_none=True)
+    if gen is None:
+        return _step(cfg, model, opt, batch, None)
+    seeds = StepSeeds(gen, batch.device, expect=_SEEDS_TAKEN.get(model, 0))
+    out = _step(cfg, model, opt, batch, seeds)
+    seeds.settle()
+    _SEEDS_TAKEN[model] = 0 if seeds.host_draws else seeds.used
+    return out
+
+
 def train_epoch(cfg, model, opt, loader, logger: SplitLogger, lr: float,
                 gen: Optional[torch.Generator]) -> None:
     """One pass over the train split, one step per batch; the epoch's wall
@@ -208,6 +233,209 @@ def train_epoch(cfg, model, opt, loader, logger: SplitLogger, lr: float,
            (time.perf_counter() - t_epoch) / max(len(results), 1))
 
 
+# graphs' extras a DeviceLoader takes in the JAX driver (``_dev_ok_extras``,
+# ``graphgps_tpu/driver.py:114-119``): only there does JAX run K steps per
+# dispatch
+DEVICE_LOADER_EXTRAS = {"edge_label", "edge_label_index", "edge_label_mask"}
+# eager steps a run takes on the card before it captures its training step
+WARMUP_STEPS = 2
+
+
+def k_steps_eligible(cfg, train_graph_extras) -> bool:
+    """Whether ``train.steps_per_dispatch`` > 1 runs K steps per dispatch:
+    JAX's rule (``graphgps_tpu/train/loop.py:896-904``), which takes them
+    with no gradient accumulation and no mesh (the port runs one device) on
+    a DeviceLoader train split, and JAX's loader choice, a DeviceLoader when
+    ``train.device_loader`` is on, no negative edges are resampled and the
+    train graphs' extras are at most the edge-label keys. Where JAX falls
+    back to one step per dispatch for want of a DeviceLoader it logs its
+    warning; so does this."""
+    if cfg.train.steps_per_dispatch <= 1:
+        return False
+    if max(1, cfg.optim.batch_accumulation) != 1:
+        return False
+    resample = (cfg.dataset.resample_negative
+                and "edge_label_index" in train_graph_extras)
+    if (cfg.train.device_loader and not resample
+            and set(train_graph_extras) <= DEVICE_LOADER_EXTRAS):
+        return True
+    log.warning("train.steps_per_dispatch>1 needs a DeviceLoader (dataset "
+                "without host-collated extras) — falling back to one step "
+                "per dispatch")
+    return False
+
+
+def epoch_groups(loader, K: int):
+    """The epoch's ``(n_groups, K, B)`` int64 table of graph indices (JAX
+    ``train_epoch_scan``): the loader's shuffle (``seed + epoch``, which
+    advances its epoch), its batches in order, the trailing group padded
+    with all-(−1) filler batches; and the ``(n_groups, K)`` real graphs per
+    batch (0 for a filler)."""
+    B = loader.batch_size
+    n = loader.arenas.num_graphs_total
+    idx = np.arange(n)
+    if loader.shuffle:
+        np.random.default_rng(loader.seed + loader.epoch).shuffle(idx)
+    loader.epoch += 1
+    n_batches = -(-n // B)
+    n_groups = -(-n_batches // K)
+    sel = -np.ones((n_groups * K * B,), np.int64)
+    sel[:n] = idx
+    sel = sel.reshape(n_groups, K, B)
+    return sel, (sel >= 0).sum(axis=2)
+
+
+class KSteps:
+    """K training steps per dispatch (JAX ``make_scan_steps``), each step
+    assembling its batch on the device from a row of the group's index
+    table. A filler batch (all padding, only in an epoch's last group) is
+    not run: parameters, optimizer state, BatchNorm statistics and the step
+    count stay as the real steps leave them, as JAX's guard keeps them.
+
+    On the CPU each real step runs eagerly (:func:`train_step` on the
+    assembled batch). On the card the run's first ``WARMUP_STEPS`` steps run
+    eagerly on a side stream (they build the optimizer's state, the edge
+    tail's backward tickets and the step's seed count), then one step is
+    captured as a CUDA graph (:meth:`capture`) and every later step is a
+    replay: a dispatch copies the group's indices and seeds to the device
+    at once, then for each real step copies its row into the static row
+    buffer and replays. ``opt`` is then capturable (``build_optimizer``)."""
+
+    def __init__(self, cfg, model, opt, loader, gen: torch.Generator):
+        self.cfg, self.model, self.opt, self.loader = cfg, model, opt, loader
+        self.gen = gen
+        self.K = cfg.train.steps_per_dispatch
+        self.on_card = loader.device.type == "cuda"
+        self.eager_steps = 0
+        self.n_seeds: Optional[int] = None
+        self.graph = None
+        self.row = self.out = None
+
+    def _eager(self, sel_row):
+        """One eager step on the batch of ``sel_row`` (B,) numpy indices."""
+        sel = torch.as_tensor(sel_row, dtype=torch.int64,
+                              device=self.loader.device)
+        batch = self.loader.arenas.assemble(sel, self.loader.max_nodes)
+        self.opt.zero_grad(set_to_none=True)
+        seeds = StepSeeds(self.gen, batch.device, expect=self.n_seeds or 0)
+        out = _step(self.cfg, self.model, self.opt, batch, seeds)
+        seeds.settle()
+        if self.n_seeds not in (None, seeds.used):
+            raise RuntimeError(f"a training step took {seeds.used} dropout "
+                               f"seeds, an earlier one {self.n_seeds}")
+        self.n_seeds = seeds.used
+        self.eager_steps += 1
+        return out
+
+    def _warmup(self, sel_row):
+        """An eager step on a side stream, as a capture wants its warm-up."""
+        side = torch.cuda.Stream(self.loader.device)
+        side.wait_stream(torch.cuda.current_stream(self.loader.device))
+        with torch.cuda.stream(side):
+            out = self._eager(sel_row)
+        torch.cuda.current_stream(self.loader.device).wait_stream(side)
+        return out
+
+    def _captured_step(self):
+        B = self.loader.batch_size
+        batch = self.loader.arenas.assemble(self.row[:B],
+                                            self.loader.max_nodes)
+        seeds = StepSeeds(table=self.row[B:].to(torch.int32))
+        # the BatchNorms replace their running statistics (a kernel's
+        # backward still holds the old ones as its moment shift): the step
+        # ends by writing each replaced buffer's new value into the old
+        # tensor and putting that back, so each replay reads the last one's
+        buffers = [(m, k, t) for m in self.model.modules()
+                   for k, t in m._buffers.items() if t is not None]
+        out = _step(self.cfg, self.model, self.opt, batch, seeds)
+        with torch.no_grad():
+            for m, k, t in buffers:
+                if m._buffers[k] is not t:
+                    t.copy_(m._buffers[k])
+                    m._buffers[k] = t
+        if seeds.used != self.n_seeds:
+            raise RuntimeError(f"the captured step took {seeds.used} dropout "
+                               f"seeds, the eager ones {self.n_seeds}")
+        return out
+
+    def capture(self) -> None:
+        """Capture one training step: batch assembly from the static row's
+        first B entries (graph indices), the step with its seeds from the
+        rest, gradients set to None before (not inside) the capture. The
+        capture executes nothing and moves no host state."""
+        dev = self.loader.device
+        self.row = torch.zeros(self.loader.batch_size + self.n_seeds,
+                               dtype=torch.int64, device=dev)
+        self.opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self._captured_step()
+
+    def replay(self, row_dev):
+        """One captured step on ``row_dev`` (B + n_seeds,) int64 on the
+        device; returns its outputs, cloned before the next replay."""
+        self.row.copy_(row_dev)
+        self.graph.replay()
+        kernels.note_replay()
+        return tuple(t.clone() for t in self.out)
+
+    def __call__(self, sel, reals):
+        """One dispatch: the group's ``sel`` (K, B) numpy indices and
+        ``reals`` (K,) real graphs per batch → (loss, pred, true, mask,
+        real) rows of its real steps."""
+        rows = [k for k in range(self.K) if reals[k] > 0]
+        if not self.on_card:
+            return [(*self._eager(sel[k]), int(reals[k])) for k in rows]
+        results = []
+        while rows and self.graph is None and \
+                self.eager_steps < WARMUP_STEPS:
+            k = rows.pop(0)
+            results.append((*self._warmup(sel[k]), int(reals[k])))
+        if not rows:
+            return results
+        if self.graph is None:
+            self.capture()
+        # the group's indices and its real steps' seeds, drawn at once in
+        # step order, in one copy to the device
+        table = torch.zeros((len(rows), sel.shape[1] + self.n_seeds),
+                            dtype=torch.int64)
+        table[:, :sel.shape[1]] = torch.as_tensor(sel[rows])
+        table[:, sel.shape[1]:] = _draw_table(self.gen, len(rows),
+                                              self.n_seeds)
+        table = table.to(self.loader.device, non_blocking=True)
+        for i, k in enumerate(rows):
+            results.append((*self.replay(table[i]), int(reals[k])))
+        return results
+
+
+def _draw_table(gen, steps: int, n: int) -> torch.Tensor:
+    """(steps, n) dropout seeds as ``steps`` eager steps draw them from
+    ``gen``, n a step (``StepSeeds``)."""
+    return seed_values(gen, steps * n).reshape(steps, n)
+
+
+def train_epoch_k(cfg, model, k_steps: KSteps, loader, logger: SplitLogger,
+                  lr: float) -> None:
+    """One pass over the train split K steps per dispatch (JAX
+    ``train_epoch_scan``): the epoch's group table, one dispatch per group,
+    the filler batches' rows dropped, the epoch's wall time spread evenly
+    over its real steps."""
+    model.train()
+    sel, reals = epoch_groups(loader, k_steps.K)
+    results = []
+    replays = kernels.graph_replays()
+    t_epoch = time.perf_counter()
+    for gi in range(sel.shape[0]):
+        results.extend(k_steps(sel[gi], reals[gi]))
+    _sync(loader.device)
+    _drain(results, logger, lr,
+           (time.perf_counter() - t_epoch) / max(len(results), 1))
+    log.info("train: %d steps in %d dispatches of K=%d, %d of them graph "
+             "replays", len(results), sel.shape[0], k_steps.K,
+             kernels.graph_replays() - replays)
+
+
 def check_train_supported(cfg) -> None:
     """The training options this slice runs; others name their ROADMAP
     item."""
@@ -215,10 +443,6 @@ def check_train_supported(cfg) -> None:
         raise NotImplementedError(
             "optim.batch_accumulation > 1 is not ported (ROADMAP Queue 1 "
             "item 17)")
-    if cfg.train.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "train.steps_per_dispatch > 1 (K steps per dispatch, the CUDA "
-            "graphs item) is not ported (ROADMAP Queue 1 item 12)")
     if cfg.train.profiler or cfg.train.finetune or cfg.wandb.use:
         raise NotImplementedError(
             "train.profiler, train.finetune and wandb are not ported "
@@ -258,13 +482,21 @@ def custom_train(cfg, loaders, model, run_dir: str,
     ``eval_period``, the best epoch by ``metric_best`` (falling back to the
     loss, argmin, when the metric is missing), and checkpoints of the best
     epoch or every ``ckpt_period``, which carry the plateau scheduler's
-    state. ``gen`` draws the dropout seeds."""
+    state. ``gen`` draws the dropout seeds. With ``train.steps_per_dispatch``
+    K > 1 where JAX takes K steps (:func:`k_steps_eligible`) each train
+    epoch runs K steps per dispatch (:func:`train_epoch_k`); on the card
+    through replays of one captured step, with a capturable optimizer. A
+    resumed run takes up the train split's shuffle at its next epoch."""
     check_train_supported(cfg)
     if cfg.train.preempt_save:
         log.warning("train.preempt_save: preemption handling is not ported "
                     "(ROADMAP Queue 1 item 17); a stopped run resumes from "
                     "its last checkpoint with train.auto_resume")
-    opt = build_optimizer(cfg, model.parameters())
+    train_loader = loaders["train"]
+    k_path = k_steps_eligible(cfg, set(train_loader.arenas.extras))
+    opt = build_optimizer(cfg, model.parameters(),
+                          capturable=k_path
+                          and train_loader.device.type == "cuda")
     schedule = build_schedule(cfg)
     plateau = schedule if isinstance(schedule, ReduceLROnPlateau) else None
     metric = resolve_metric_best(cfg)
@@ -281,6 +513,11 @@ def custom_train(cfg, loaders, model, run_dir: str,
         start_epoch = checkpoint.load_ckpt(run_dir, model, opt,
                                            cfg.train.epoch_resume, gen,
                                            plateau)
+        # the shuffle of the epoch resumed at, so that a resumed run takes
+        # an uninterrupted one's batches; the JAX loop restarts its shuffle
+        # at epoch 0 here (it leaves the loader's counter alone)
+        train_loader.epoch = start_epoch
+    k_steps = KSteps(cfg, model, opt, train_loader, gen) if k_path else None
     ckpt = cfg.train.enable_ckpt
     history: Dict[str, List[Dict]] = {s: [] for s in loaders}
     best_val, best_epoch = None, -1
@@ -288,8 +525,12 @@ def custom_train(cfg, loaders, model, run_dir: str,
         lr = plateau.lr if plateau is not None else schedule(epoch)
         set_lr(opt, lr)
         t0 = time.perf_counter()
-        train_epoch(cfg, model, opt, loaders["train"], loggers["train"], lr,
-                    gen)
+        if k_steps is not None:
+            train_epoch_k(cfg, model, k_steps, train_loader, loggers["train"],
+                          lr)
+        else:
+            train_epoch(cfg, model, opt, train_loader, loggers["train"], lr,
+                        gen)
         epoch_s = time.perf_counter() - t0
         history["train"].append(loggers["train"].write_epoch(epoch))
         if is_eval_epoch(cfg, epoch):

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
@@ -193,7 +195,7 @@ def test_cuda_bn_ffn_matches_plain(cuda_device, R, d, rate, drop2):
 
     *ins, g = (torch.from_numpy(a).to(cuda_device)
                for a in bn_ffn_inputs(R, d, 2 * d, seed=R))
-    conf = (SEED, rate, "relu", drop2)
+    conf = (device_seed(SEED, cuda_device), rate, "relu", drop2)
     fwd, bwd = bn_ffn.fused_bn_ffn, bn_ffn.bn_ffn_backward
     tol = lambda w: dict(rtol=RTOL,  # noqa: E731
                          atol=ATOL * max(1.0, float(w.abs().max())))

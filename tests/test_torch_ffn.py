@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
@@ -220,7 +222,7 @@ def test_cuda_ffn_matches_plain(cuda_device, R, d, rate, act, drop2):
 
     *ins, g = (torch.from_numpy(a).to(cuda_device)
                for a in ffn_inputs(R, d, 2 * d, seed=R))
-    conf = (SEED, rate, act, drop2)
+    conf = (device_seed(SEED, cuda_device), rate, act, drop2)
     fwd, bwd = ffn.fused_ffn, ffn.ffn_backward
     tol = lambda w: dict(rtol=RTOL,  # noqa: E731
                          atol=ATOL * max(1.0, float(w.abs().max())))

@@ -15,6 +15,8 @@ plain versions on the card."""
 import numpy as np
 import pytest
 import torch
+
+from graphgps_torch.ops.kernels.common import device_seed
 from test_torch_kernels import tail_parity_cases
 
 torch.set_num_threads(2)
@@ -250,16 +252,17 @@ def test_cuda_gatedgcn_drop_add_match_plain(cuda_device, shape):
     R = B * N
     x, v, ct = (torch.randn(R, d, generator=g).to(cuda_device)
                 for _ in range(3))
+    seed = device_seed(77, cuda_device)
     for rate in (0.05, 0.5):
         v_ = v.clone().requires_grad_()
         before = (fused_drop_add.launches, drop_add_backward.launches)
-        out = fused_drop_add(x, v_, 77, rate)
+        out = fused_drop_add(x, v_, seed, rate)
         dv, = torch.autograd.grad(out, v_, ct)
         assert (fused_drop_add.launches, drop_add_backward.launches) == \
             (before[0] + 1, before[1] + 1)
         vp = v.clone().requires_grad_()
-        wout = drop_add_plain(x, vp, 77, rate)
+        wout = drop_add_plain(x, vp, seed, rate)
         wdv, = torch.autograd.grad(wout, vp, ct)
         torch.testing.assert_close(out, wout, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(dv, wdv, rtol=1e-6, atol=1e-6)
-        assert torch.equal(dv, drop_add_backward(ct, 77, rate))
+        assert torch.equal(dv, drop_add_backward(ct, seed, rate))

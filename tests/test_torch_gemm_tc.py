@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from graphgps_torch.ops.kernels import build
-from graphgps_torch.ops.kernels.common import apply_dropout, keep_rule
+from graphgps_torch.ops.kernels.common import (apply_dropout, device_seed,
+                                               keep_rule)
 
 RTOL, ATOL = 1e-4, 1e-5
 SEED = 4242
@@ -31,7 +32,7 @@ SEED = 4242
 SHAPES = [(10240, 1792, 256), (1000, 768, 304), (24576, 256, 256),
           (333, 304, 304), (77, 96, 40)]
 ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_uint32,
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_void_p,
                                        ctypes.c_void_p])
@@ -60,8 +61,8 @@ def _gemm(layout, a, b, M, N, K, bias=None, res=None, pre=None, act=0,
     t, sc = keep_rule(rate)
     fn = build.cfunc("gemm_tc", "gemm_tc", ARGTYPES)
     err = fn(layout, _ptr(a), _ptr(b), _ptr(c), M, N, K, _ptr(bias), _ptr(res),
-             _ptr(pre), act, SEED, 0, t, sc, _ptr(scratch),
-             build.stream_of(dev))
+             _ptr(pre), act, build.seed_arg(device_seed(SEED, dev), t, dev), 0,
+             t, sc, _ptr(scratch), build.stream_of(dev))
     build.check_launch("gemm_tc", err)
     torch.cuda.synchronize()
     return c

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 # by its file name: the card machine runs these tests without the conftest
 from test_torch_wide import _hold_on_card, cuda_device  # noqa: F401
 
@@ -497,11 +499,12 @@ def test_cuda_gps_attention_matches_plain(cuda_device, B, N, d, H):  # noqa: F81
 
     x, kmask, *w = (torch.from_numpy(a).to(cuda_device)
                     for a in _inputs(B, N, d, 2))
+    seed = device_seed(SEED, cuda_device)
     for rate in (0.0, 0.1):
         _hold_on_card(
-            lambda x_, *w_: ga.fused_gps_attention(x_, kmask, *w_, SEED, H,
+            lambda x_, *w_: ga.fused_gps_attention(x_, kmask, *w_, seed, H,
                                                    rate),
-            lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, SEED, H,
+            lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, seed, H,
                                                    rate),
             [x, *w], (ga.fused_gps_attention, ga.gps_attention_backward))
 
@@ -528,10 +531,11 @@ def test_cuda_gps_attention_key_mask(cuda_device, N, d, H):  # noqa: F811
     km[3, 0] = 0.0
     km[3, N - 1] = 1.0
     kmask = torch.from_numpy(km).to(cuda_device)
+    seed = device_seed(SEED, cuda_device)
     for rate in (0.0, 0.1):
         _hold_on_card(
-            lambda x_, *w_: ga.fused_gps_attention(x_, kmask, *w_, SEED, H,
+            lambda x_, *w_: ga.fused_gps_attention(x_, kmask, *w_, seed, H,
                                                    rate),
-            lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, SEED, H,
+            lambda x_, *w_: ga.gps_attention_plain(x_, kmask, *w_, seed, H,
                                                    rate),
             [x, *w], (ga.fused_gps_attention, ga.gps_attention_backward))

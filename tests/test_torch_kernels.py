@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
@@ -231,12 +233,13 @@ def test_cuda_kernels_match_plain(cuda_device):
     tail = (f(R, d), f(R, d), f(d), inv(), f(d), f(d))
     comb = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
             f(d), f(d), f(d, 2 * d) / 16, f(2 * d), f(2 * d, d) / 23, f(d))
+    seed = device_seed(7, cuda_device)
     cases = ((fused_gps_front, gps_front_plain, gps_front_backward, front,
-              (7, a["H"], a["scale"])),
+              (seed, a["H"], a["scale"])),
              (fused_pre_tail, pre_tail_plain, pre_tail_backward, tail,
-              (7,)),
+              (seed,)),
              (fused_combine_ffn, combine_ffn_plain, combine_ffn_backward,
-              comb, (7,)))
+              comb, (seed,)))
     for fused, plain, bwd, xs, head in cases:
         rates = (0.0, 0.0) if fused is fused_gps_front else (0.0,)
         extra = (*head, *rates) + (("gelu",) if fused is not fused_gps_front
@@ -305,7 +308,7 @@ def test_cuda_combine_ffn_matches_plain(cuda_device, R, d, act):
     xs = (f(R, d), f(R, d), f(d), inv(), f(d), f(d), f(R, d), f(d), inv(),
           f(d), f(d), f(d, 2 * d) / d ** 0.5, f(2 * d) * 0.1,
           f(2 * d, d) / (2 * d) ** 0.5, f(d))
-    conf = (7, 0.1, act)
+    conf = (device_seed(7, cuda_device), 0.1, act)
     before = cf.fused_combine_ffn.launches
     out, h, z, a1 = cf._launch_forward(xs, *conf, True)
     assert cf.fused_combine_ffn.launches == before + 1
@@ -370,7 +373,7 @@ def test_cuda_pre_tail_drop_add_match_plain(cuda_device, R, d, act, offset):
     tests/test_torch_kernels.py``."""
     from graphgps_torch.ops.kernels import drop_add, pre_tail
 
-    conf = (7, 0.1, act)
+    conf = (device_seed(7, cuda_device), 0.1, act)
     (x, v, *norm), cot = _tail_inputs(R, d, cuda_device, 8)
     if offset:
         x, v, cot = (_offset_copy(t, offset) for t in (x, v, cot))
@@ -421,7 +424,7 @@ def test_cuda_pre_tail_backward_one_launch_and_graph(cuda_device):
     call replays to the eager call's bits."""
     from graphgps_torch.ops.kernels import pre_tail
 
-    conf = (11, 0.1, "relu")
+    conf = (device_seed(11, cuda_device), 0.1, "relu")
     (_, v, *norm), cot = _tail_inputs(3072, 64, cuda_device, 9)
     pre_tail.pre_tail_backward(v, *norm, cot, *conf)
     torch.cuda.synchronize()

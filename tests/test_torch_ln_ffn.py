@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
@@ -129,7 +131,7 @@ def test_cuda_ln_ffn_matches_plain(cuda_device, R, d, r1, r2):
 
     *ins, g = (torch.from_numpy(a).to(cuda_device)
                for a in ln_ffn_inputs(R, d, d, seed=R))
-    conf = (SEED, r1, r2, "gelu")
+    conf = (device_seed(SEED, cuda_device), r1, r2, "gelu")
     fwd, bwd = ln_ffn.fused_ln_ffn, ln_ffn.ln_ffn_backward
     tol = lambda w: dict(rtol=1e-4,  # noqa: E731
                          atol=1e-5 * max(1.0, float(w.abs().max())))

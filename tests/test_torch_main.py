@@ -6,6 +6,7 @@
   split, and keeps the best epoch's checkpoint, which reloads;
 - without ``--device`` the entry point runs on the GPU, so a machine with
   no CUDA device raises instead of carrying on on the CPU;
+- training refuses gradient accumulation and runs K steps per dispatch;
 - ``graphgps_torch`` and ``chip_smoke.py`` import nothing of JAX, flax or
   ``graphgps_tpu``.
 """
@@ -141,13 +142,22 @@ def test_training_resumes_from_checkpoint(tmp_path):
 @pytest.mark.parametrize("key", ["optim.batch_accumulation",
                                  "train.steps_per_dispatch"])
 def test_training_mode_raises(tmp_path, key):
-    """What training still refuses: gradient accumulation and K steps per
-    dispatch, each naming its ROADMAP item."""
+    """What training still refuses: gradient accumulation, naming its
+    ROADMAP item. K = 2 steps per dispatch, which it refused before, runs:
+    one train stats line per epoch."""
     from graphgps_torch.driver import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--device", "cpu", "--cfg", CFG, *SMALL, "train.mode", "custom",
-              key, "2", "out_dir", str(tmp_path)])
+    argv = ["--device", "cpu", "--cfg", CFG, *SMALL, "train.mode", "custom",
+            key, "2", "optim.max_epoch", "2", "out_dir", str(tmp_path)]
+    if key == "optim.batch_accumulation":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(argv)
+        return
+    hist = main(argv)[0]
+    assert [r["epoch"] for r in hist["train"]] == [0, 1]
+    rows = (tmp_path / "pcqm4m-GPSdeep+RWSE" / "0" / "train" /
+            "stats.json").read_text().splitlines()
+    assert [json.loads(r)["epoch"] for r in rows] == [0, 1]
 
 
 def _sources():

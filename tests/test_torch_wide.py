@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from graphgps_torch.ops.kernels.common import device_seed
+
 torch.set_num_threads(2)
 
 RTOL = ATOL = 1e-5
@@ -367,7 +369,8 @@ def test_cuda_long_graph_kernels_match_plain(cuda_device, B, N, E, d, H):
            (x, wqkv3.reshape(d, 3 * d), bqkv2.reshape(3 * d), wo, bo)]
     tc = torch.from_numpy(counts).to(dev)
     for rate in (0.0, 0.5):
-        conf = (SEED, H, 1.0 / float(d // H) ** 0.5, rate)
+        conf = (device_seed(SEED, dev), H, 1.0 / float(d // H) ** 0.5,
+                rate)
         _hold_on_card(
             lambda x_, *w: wa.fused_wide_attention(x_, tc, *w, *conf),
             lambda x_, *w: wa.wide_attention_plain(x_, tc, *w, *conf), ins,
