@@ -143,8 +143,11 @@ one. Phases, each fatal on failure:
    switches ``GGPS_TILED_SEGMENT=1`` and ``GGPS_USE_CSR_KERNEL=1`` and as
    ``gt.layer_type GCN+BigBird`` (training at attention dropout 0, which
    the block-sparse kernel requires), these three over
-   SWITCH_RATE_BATCHES batches a pass), each with every launch count set to
-   0 just before a run and read just after:
+   SWITCH_RATE_BATCHES batches a pass, and zinc-GPS+RWSE (GINE ∥
+   Transformer 10x64, 4 heads, attention dropout 0.5, add pooling, batch
+   32, at its published ``train.steps_per_dispatch`` 32 in b: no kernel
+   wrapper runs at these settings, and every count stays 0), each with
+   every launch count set to 0 just before a run and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
    b. the entry point in ``train.mode custom`` (3 epochs, warm-up 1,
@@ -173,7 +176,7 @@ one. Phases, each fatal on failure:
    e. the same for training steps (forward, backward, clipping, adamW),
       with the peak device memory (on wn-squirrel, whose epoch is one step,
       over SQUIRREL_RATE_BATCHES repeats of its one batch);
-   and after each of the last five paths, one model's evaluation
+   and after each of the five paths behind a switch, one model's evaluation
    predictions on one val batch on both sides of its switch (merged front
    vs the fused rung; auto's wide attention vs flash; index_add vs the
    tiled and the CSR kernel; the block-sparse kernel vs BigBird's dense
@@ -181,10 +184,13 @@ one. Phases, each fatal on failure:
    side's launches;
 5. K training steps per dispatch (``train.steps_per_dispatch``), on the card
    replays of one captured CUDA graph of the training step, for GPS-deep on
-   the merged path (16x256, batch 256, dropout 0.1 / 0.1, K = 3) and
+   the merged path (16x256, batch 256, dropout 0.1 / 0.1, K = 3),
    ogbg-molhiv (10x64, batch 32, dropout 0.05 / 0.5: the unmerged kernels
-   and the torch-op attention mask, K = 4), K such that the stand-in's
-   train split ends in a partial group, from 4's calibrated states:
+   and the torch-op attention mask, K = 4) and zinc-GPS+RWSE (10x64, batch
+   32, attention dropout 0.5: GINE and the blocked segment sums in PyTorch
+   ops, its published K = 32 over 40 train batches, one full group and one
+   of 8 real batches and 24 fillers), K such that the stand-in's train
+   split ends in a partial group, from 4's calibrated states:
    a. the entry point in ``train.mode custom`` for 2 epochs: finite stats
       lines, the graph replays (every step but the eager warm-up ones) and
       the launches: the per-step table for the eager steps and the capture,
@@ -207,7 +213,12 @@ one. Phases, each fatal on failure:
    the phase's seconds against its budget of KSTEP_BUDGET_S.
 
 A watchdog prints every thread's stack and exits non-zero if the script
-runs WATCHDOG_S seconds.
+runs WATCHDOG_S seconds. After some tens of profiles in one process the
+card's ``torch.profiler`` can come back without device events; where it
+records none in PROFILER_TRIES runs, CUDA events around the same calls time
+them (the stream's time, launch gaps included), a line says so, and what
+only a profile gives (busy ms, launches, the wide attention's split) is
+not measured (None).
 
 A ``{"phase_done": ...}`` line gives the seconds since the start after each
 phase. Each kernel row's ``bound_ms`` is the larger of its bytes at the
@@ -336,9 +347,17 @@ BIGBIRD_OPTS = ["gt.layer_type", "GCN+BigBird"]
 BIGBIRD_TRAIN_OPTS = ["gt.attn_dropout", "0.0"]
 SQUIRREL_BIGBIRD_LAUNCHES = {**SQUIRREL_LAUNCHES, "bigbird": (1, 1),
                              "bigbird_bwd": (1, 0)}
-# rate batches of those three paths: fewer than SQUIRREL_RATE_BATCHES, so
-# the script stays inside its time limit
+# rate batches of those three paths: no more than SQUIRREL_RATE_BATCHES,
+# so the script stays inside its time limit
 SWITCH_RATE_BATCHES = 1
+# zinc-GPS+RWSE (GINE ∥ Transformer, 10 x 64): at its published settings no
+# kernel wrapper runs (dropout 0: no drop-add or FFN kernel; d = 64: no
+# fused attention; GINE and its blocked segment sums in PyTorch ops), so
+# every launch count must stay 0 in its runs
+ZINC_GPS_CFG = "configs/GPS/zinc-GPS+RWSE.yaml"
+ZINC_GPS_LAUNCHES = {}
+# its stand-in in phase 5: 1,600 graphs, 40 train batches of 32
+ZINC_GPS_KSTEP_OPTS = ("dataset.synth_num_graphs", "1600")
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 # operations' rates by the units that run them: f32 outside the tensor cores
 # (most kernels run f32 on CUDA cores); 3xTF32 on the tensor cores, three
@@ -396,8 +415,9 @@ RATE_BATCHES = 10
 RATE_PASSES = 2
 # the profiled pass of 4d and 4e runs the rate loop's first batches only:
 # the profiler's processing of the whole loop's events (some 40,000 a
-# GPS-deep pass) took most of each path's 4e seconds
-PROFILE_BATCHES = 3
+# GPS-deep pass) took most of each path's 4e seconds (3 until
+# zinc-GPS+RWSE joined the script)
+PROFILE_BATCHES = 2
 # phase 3b: dropout on every site, and the seed of the layer-0 calls
 DROP_RATE = 0.1
 DROP_SEED = 20260
@@ -427,8 +447,9 @@ ACTOR_ROWS, ACTOR_DIM = 7680, 64
 # rate batches of the wn-squirrel recipe: one epoch is one step over the one
 # train batch, and a step runs ~20k launches of the chunked attention (5
 # until RATE_BATCHES was halved to 10; 3 until phase 5 joined the script:
-# each batch cost its 4e ~20 s, the profiled pass's share most of it)
-SQUIRREL_RATE_BATCHES = 2
+# each batch cost its 4e ~20 s, the profiled pass's share most of it; 2
+# until zinc-GPS+RWSE joined it: 966 s on a slow H100 80GB HBM3 host)
+SQUIRREL_RATE_BATCHES = 1
 # phase 3h: the fused attention rung at the pcqm4m-GPS+RWSE width (d 304, 4
 # heads, attention dropout 0.5) on seeded inputs
 PCQM_GPS_DIM, PCQM_GPS_HEADS, PCQM_GPS_ATTN_RATE = 304, 4, 0.5
@@ -475,11 +496,13 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
 # phase 4b: epochs of the training run through the entry point
 TRAIN_EPOCHS = 3
 
-# phase 5: (path, config, K, launches per layer); K the smallest from 3 up
-# that leaves a partial group (GPS-deep's stand-in has 4 train batches,
-# ogbg-molhiv's 30)
-KSTEP_PATHS = (("pcqm4m-GPSdeep", CFG, 3, GPSDEEP_LAUNCHES),
-               ("ogbg-molhiv", MOLHIV_CFG, 4, MOLHIV_LAUNCHES))
+# phase 5: (path, config, K, launches per layer, config overrides); K the
+# smallest from 3 up that leaves a partial group (GPS-deep's stand-in has 4
+# train batches, ogbg-molhiv's 30), zinc-GPS+RWSE's published 32 over 40
+KSTEP_PATHS = (("pcqm4m-GPSdeep", CFG, 3, GPSDEEP_LAUNCHES, ()),
+               ("ogbg-molhiv", MOLHIV_CFG, 4, MOLHIV_LAUNCHES, ()),
+               ("zinc-GPS+RWSE", ZINC_GPS_CFG, 32, ZINC_GPS_LAUNCHES,
+                ZINC_GPS_KSTEP_OPTS))
 KSTEP_EPOCHS = 2
 # captured and eager steps timed in 5e
 KSTEP_TIMED = 10
@@ -627,6 +650,25 @@ def profiled_rows(torch, body):
     return None, None
 
 
+def event_ms(torch, body, n: int) -> float:
+    """Device ms of one of the ``n`` calls ``body()`` makes, by CUDA events
+    around them: the stream's time, launch gaps included."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    body()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / n
+
+
+def no_profile(what: str, **numbers) -> None:
+    """The line that says a time was taken without the profiler."""
+    print(json.dumps(dict(
+        note=f"torch.profiler recorded no device time in {PROFILER_TRIES} "
+             f"runs ({what}): CUDA events around the same calls instead",
+        **numbers)), flush=True)
+
+
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
     """(Device time of one call of ``fn``, whether the profiler's record was
     whole): the CUDA kernels it launches, timed by ``torch.profiler`` over
@@ -637,8 +679,9 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
     once half of a kernel's), so a name's time is its mean over the events
     seen times its launches per call, ceil(seen / iters): the sum over
     ``iters`` in a whole record. A record that was not whole is marked in
-    the row (``profile_whole``). Fails, as ``profile_pass`` does, when no
-    run records any device time."""
+    the row (``profile_whole``). Where no run records any device time, CUDA
+    events around the same calls give it (:func:`event_ms`), and the row
+    counts as not whole."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -649,8 +692,9 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
 
     rows, _ = profiled_rows(torch, body)
     if rows is None:
-        fail(f"the profiler recorded no device time in {PROFILER_TRIES} "
-             "runs")
+        ms = event_ms(torch, body, iters)
+        no_profile("a call", event_ms=ms)
+        return ms, False
     us = sum(total / seen * -(-seen // iters) for _name, total, seen in rows)
     return us / 1e3, all(seen % iters == 0 for _n, _t, seen in rows)
 
@@ -728,10 +772,7 @@ def calibrated_model(torch, cfg, splits, batch):
     model = seeded_model(torch, cfg, splits, batch)
     nm, em = batch.node_mask, batch.edge_mask
     with torch.no_grad():
-        rwse = getattr(model.encoder, "rwse", None)
-        if rwse is not None and rwse.raw_norm is not None:
-            fit(rwse.raw_norm, batch.pe["pestat_RWSE"], nm)
-        x, e = model.encoder(batch)
+        x, e = encoded(model, batch)
         for layer in model.layers:
             xo, gate, sa = branch_outputs(layer, batch, x, e)
             fit(layer.local.norm_x, xo, nm)
@@ -747,6 +788,35 @@ def calibrated_model(torch, cfg, splits, batch):
             fit(out, h, nm)
             out.weight.copy_(w)
             out.bias.copy_(b)
+            x, e = layer(batch, x, e)
+    return model
+
+
+def encoded(model, batch):
+    """The model's encoder output on ``batch``, its RWSE input norm (if
+    any) fitted to the batch first."""
+    rwse = getattr(model.encoder, "rwse", None)
+    if rwse is not None and rwse.raw_norm is not None:
+        fit(rwse.raw_norm, batch.pe["pestat_RWSE"], batch.node_mask)
+    return model.encoder(batch)
+
+
+def calibrated_plain_local_model(torch, cfg, splits, batch):
+    """``calibrated_model`` for GPS layers on the plain local path (GINE or
+    GCN with BatchNorm): each layer's local and attention norms fitted to
+    their residual sums, its last norm to the FFN block's output, layer by
+    layer (evaluation: no dropout)."""
+    model = seeded_model(torch, cfg, splits, batch)
+    nm = batch.node_mask
+    with torch.no_grad():
+        x, e = encoded(model, batch)
+        for layer in model.layers:
+            s_local = x + layer.local(batch, x, e)[0]
+            s_attn = x + layer.attention(batch, x)
+            fit(layer.norm_local, s_local, nm)
+            fit(layer.norm_attn, s_attn, nm)
+            h = layer.norm_local(s_local, nm) + layer.norm_attn(s_attn, nm)
+            fit(layer.norm_out, layer.ffn(h), nm)
             x, e = layer(batch, x, e)
     return model
 
@@ -1500,8 +1570,9 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
         torch.cuda.synchronize()
         prof, _ = profiled_rows(torch, lambda: [fn() for _ in range(20)])
         if prof is None:
-            fail("phase 3d: the profiler recorded no device time of the "
-                 "wide attention")
+            no_profile("the wide attention by part: not measured")
+            split_ms[kind] = None
+            continue
         body = sum(us for name, us, _ in prof if "attn_" in name) / 20e3
         rest = sum(us for name, us, _ in prof if "attn_" not in name) / 20e3
         split_ms[kind] = dict(attention_ms=body, projections_ms=rest,
@@ -2220,16 +2291,17 @@ def cold_device_ms(torch, fn, flush, iters: int = 20) -> float:
     """Device ms of one call of ``fn`` with the L2 cache flushed before it
     (``flush``, larger than the 50 MB L2, written between calls), as
     ``device_ms`` counts it; the flush's own kernels are left out by
-    name (learnt from the first call's profile of the flush alone)."""
+    name (learnt from the first call's profile of the flush alone). Where
+    the profiler records nothing, CUDA events: the calls with their
+    flushes less the flushes alone."""
+    def flushes():
+        return [flush.fill_(0.0) for _ in range(iters)]
+
     if not FLUSH_NAMES:
         # a profile of one kernel can lose its one event: the flush, iters
         # times
-        rows, _ = profiled_rows(torch, lambda: [flush.fill_(0.0)
-                                                for _ in range(iters)])
-        if rows is None:
-            fail(f"the profiler recorded no device time of the L2 flush in "
-                 f"{PROFILER_TRIES} runs")
-        FLUSH_NAMES.update(r[0] for r in rows)
+        rows, _ = profiled_rows(torch, flushes)
+        FLUSH_NAMES.update(r[0] for r in rows or ())
     fn()
     torch.cuda.synchronize()
 
@@ -2238,10 +2310,11 @@ def cold_device_ms(torch, fn, flush, iters: int = 20) -> float:
             flush.fill_(0.0)
             fn()
 
-    rows, _ = profiled_rows(torch, body)
+    rows = profiled_rows(torch, body)[0] if FLUSH_NAMES else None
     if rows is None:
-        fail(f"the profiler recorded no device time of L2-cold calls in "
-             f"{PROFILER_TRIES} runs")
+        ms = event_ms(torch, body, iters) - event_ms(torch, flushes, iters)
+        no_profile("L2-cold calls", event_ms=ms)
+        return ms
     return sum(total / seen * -(-seen // iters) for name, total, seen in rows
                if name not in FLUSH_NAMES) / 1e3
 
@@ -2908,7 +2981,9 @@ def profile_pass(torch, one_pass, n: int, top: int, unit: str):
     """One pass of ``one_pass`` (``n`` batches) under ``torch.profiler``:
     prints the ``top`` CUDA kernels by device time, one JSON line each, and
     returns (device busy ms per batch, profiled wall ms per batch, CUDA
-    kernel launches per batch)."""
+    kernel launches per batch); where the profiler records nothing, the
+    pass's stream time by CUDA events stands for the wall ms, and busy ms
+    and launches are not measured (None)."""
     def body():
         t0 = time.perf_counter()
         one_pass()
@@ -2917,8 +2992,10 @@ def profile_pass(torch, one_pass, n: int, top: int, unit: str):
 
     rows, prof_wall = profiled_rows(torch, body)
     if rows is None:
-        fail(f"the profiler recorded no device time in {PROFILER_TRIES} "
-             "passes")
+        ms = event_ms(torch, body, n)
+        no_profile("a pass: busy ms and launches not measured",
+                   event_ms=ms)
+        return None, ms, None
     busy_us = sum(r[1] for r in rows)
     for name, us, cnt in rows[:top]:
         print(json.dumps({"device_kernel": name[:90],
@@ -2956,15 +3033,17 @@ def measure(torch, step, loader, unit: str, top: int) -> dict:
         torch, lambda: one_pass(head), head, top, unit)
     ms = 1e3 * wall / n
     nodes = RATE_PASSES * sum(int(b.node_mask.sum()) for _real, b in loader)
+    idle = (lambda t: None if busy_ms is None  # noqa: E731
+            else 1.0 - busy_ms / t)
     return {"graphs_per_s": n * loader.batch_size / wall,
             "nodes_per_s": nodes / wall, "full_batches": n,
             "timed_s": wall, f"{unit}_ms": ms,
             f"profiled_{unit}_ms": prof_ms, "device_busy_ms": busy_ms,
             f"device_launches_per_{unit}": launches,
-            "profiled_idle_share": 1.0 - busy_ms / prof_ms,
+            "profiled_idle_share": idle(prof_ms),
             # busy time of the profiled pass over the same loop's time
             # without the profiler: an estimate across two windows
-            "idle_share_estimate": 1.0 - busy_ms / ms,
+            "idle_share_estimate": idle(ms),
             "peak_memory_allocated_gb": peak / 1e9}
 
 
@@ -3235,8 +3314,9 @@ def eager_bits(torch, step, model, opt) -> dict:
 
 
 def check_k_steps(torch, name: str, cfg_path: str, K: int, table: dict,
-                  state: dict, device, card: str) -> None:
-    """Phase 5 for one path (see the module docstring)."""
+                  state: dict, device, card: str, extra=()) -> None:
+    """Phase 5 for one path (see the module docstring); ``extra`` are
+    config overrides of every run."""
     from graphgps_torch.config import load_cfg, new_cfg, update_from_list
     from graphgps_torch.data.datasets import load_dataset
     from graphgps_torch.driver import create_loaders, infer_dims
@@ -3249,7 +3329,7 @@ def check_k_steps(torch, name: str, cfg_path: str, K: int, table: dict,
                                            _step, is_eval_epoch)
 
     t_path = time.perf_counter()
-    opts = ["seed", str(SEED), "train.steps_per_dispatch", str(K),
+    opts = [*extra, "seed", str(SEED), "train.steps_per_dispatch", str(K),
             "optim.max_epoch", str(KSTEP_EPOCHS)]
     cfg = new_cfg()
     load_cfg(cfg, cfg_path)
@@ -3451,6 +3531,22 @@ def check_k_steps(torch, name: str, cfg_path: str, K: int, table: dict,
     del k_steps
 
 
+def zinc_gps_state(torch, device) -> dict:
+    """zinc-GPS+RWSE's seeded model calibrated on its first val batch, as a
+    state dict."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders
+
+    cfg = new_cfg()
+    load_cfg(cfg, ZINC_GPS_CFG)
+    update_from_list(cfg, ["seed", str(SEED)])
+    splits = load_dataset(cfg)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["val"]))
+    return calibrated_plain_local_model(torch, cfg, splits,
+                                        batch).state_dict()
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         fail("takes no arguments")
@@ -3469,7 +3565,7 @@ def main() -> None:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
     for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG, SAN_CFG,
-                 SQUIRREL_CFG):
+                 SQUIRREL_CFG, ZINC_GPS_CFG):
         if not os.path.exists(path):
             fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
@@ -3656,12 +3752,18 @@ def main() -> None:
                       (bigbird_kernel, bigbird_dense),
                       (SQUIRREL_BIGBIRD_LAUNCHES, SQUIRREL_LAUNCHES))
     phase("4 wn-squirrel bigbird")
+    # the ZINC GPS family's flagship: GINE, TypeDictNode+RWSE, TypeDictEdge
+    zg_state = zinc_gps_state(torch, device)
+    zg_counts = drive_recipe(torch, "zinc-GPS+RWSE", ZINC_GPS_CFG,
+                             ZINC_GPS_LAUNCHES, "mae", zg_state, device, card)
+    phase("4 zinc-GPS+RWSE")
 
     # 5. K training steps per dispatch as replays of one captured step
     t5 = time.perf_counter()
-    for name, cfg_path, k, table in KSTEP_PATHS:
-        check_k_steps(torch, name, cfg_path, k, table,
-                      state if cfg_path == CFG else mol_state, device, card)
+    k_states = {CFG: state, MOLHIV_CFG: mol_state, ZINC_GPS_CFG: zg_state}
+    for name, cfg_path, k, table, extra in KSTEP_PATHS:
+        check_k_steps(torch, name, cfg_path, k, table, k_states[cfg_path],
+                      device, card, extra)
     print(json.dumps(dict(phase_done="5", elapsed_s=time.perf_counter()
                           - t_start, phase_s=time.perf_counter() - t5,
                           budget_s=KSTEP_BUDGET_S)), flush=True)
@@ -3700,6 +3802,7 @@ def main() -> None:
         r["launches_wn_squirrel_tiled"] = tiled_counts[r["name"]]
         r["launches_wn_squirrel_csr"] = csr_counts[r["name"]]
         r["launches_wn_squirrel_bigbird"] = bb_counts[r["name"]]
+        r["launches_zinc_gps_rwse"] = zg_counts[r["name"]]
         r["launch_floor_ms"] = floor_ms
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
@@ -3718,7 +3821,8 @@ def main() -> None:
                            "launches_voc_flash",
                            "launches_wn_squirrel_tiled",
                            "launches_wn_squirrel_csr",
-                           "launches_wn_squirrel_bigbird")} for r in rows])),
+                           "launches_wn_squirrel_bigbird",
+                           "launches_zinc_gps_rwse")} for r in rows])),
           flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(dict(ok=True, device=dict(

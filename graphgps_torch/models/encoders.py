@@ -1,18 +1,18 @@
 """Node/edge feature encoders of the ported paths: Atom and Bond (embedding
-sums), TypeDictNode (one embedding), VOCNode/LinearNode and VOCEdge/
-LinearEdge (one Linear over float features), the RWSE and LapPE encodings,
-the Graphormer bias encoder, and their composition.
+sums), TypeDictNode and TypeDictEdge (one embedding), VOCNode/LinearNode
+and VOCEdge/LinearEdge (one Linear over float features), the RWSE and LapPE
+encodings, the Graphormer bias encoder, and their composition.
 
 Counterparts: ``graphgps_tpu/models/encoders.py`` (``TypeDictNodeEncoder``
 :29-40, ``AtomEncoder`` :43, ``LinearNodeEncoder``/``VOCNodeEncoder``
-:58-77, ``BondEncoder`` :116, ``LinearEdgeEncoder`` :128-135,
-``KernelPENodeEncoder``/RWSE :199-230, ``LapPENodeEncoder`` :241-332 (its
-Transformer form :295-315),
+:58-77, ``TypeDictEdgeEncoder`` :105-113, ``BondEncoder`` :116,
+``LinearEdgeEncoder`` :128-135, ``KernelPENodeEncoder``/RWSE :199-230,
+``LapPENodeEncoder`` :241-332 (its Transformer form :295-315),
 ``GraphormerBiasEncoder`` :441-509) and
-``graphgps_tpu/models/networks.py:80-132`` ``FeatureEncoder``: the dataset
-encoder embeds into ``d − dim_pe`` channels, the PE encoder appends its
-``dim_pe`` (GraphormerBias adds its degree embeddings in place and takes no
-width), and padded node slots are zeroed.
+``graphgps_tpu/models/networks.py:92-127`` ``FeatureEncoder``: the dataset
+encoder embeds into ``d − Σ dim_pe`` channels, each encoding of the name
+appends its ``dim_pe`` in the name's order (GraphormerBias adds its degree
+embeddings in place and takes no width), and padded node slots are zeroed.
 """
 from __future__ import annotations
 
@@ -77,6 +77,11 @@ class TypeDictNodeEncoder(nn.Module):
 
     def forward(self, feats):
         return self.embedding(feats[:, 0].long())
+
+
+class TypeDictEdgeEncoder(TypeDictNodeEncoder):
+    """One embedding of the edge type, column 0 of the integer edge
+    features (ZINC: 4 bond types)."""
 
 
 class LinearEncoder(nn.Module):
@@ -337,87 +342,123 @@ class GraphormerBiasEncoder(nn.Module):
         return self.graph_token[None, :].expand(num_graphs, -1)
 
 
-NODE_ENCODERS = ("Atom", "VOCNode", "LinearNode")
+# the dataset encoders, encodings and edge encoders the port builds, and the
+# encodings of JAX's FeatureEncoder it does not (ROADMAP Queue 1 item 16)
+NODE_ENCODERS = ("TypeDictNode", "Atom", "VOCNode", "LinearNode")
 PE_ENCODERS = ("RWSE", "LapPE")
-EDGE_ENCODERS = ("Bond", "VOCEdge", "LinearEdge")
+PE_TODO = ("HKdiagSE", "ElstaticSE", "SignNet", "EquivStableLapPE")
+EDGE_ENCODERS = ("TypeDictEdge", "Bond", "VOCEdge", "LinearEdge")
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 "
+                              f"{item})")
 
 
 class FeatureEncoder(nn.Module):
-    """The dataset's node encoder with one appended encoding, and its edge
-    encoder, from ``dataset.node_encoder_name`` (``<node>+<pe>``) and
-    ``dataset.edge_encoder_name``: ``Atom+RWSE``/``Bond`` on the molecule
-    recipes (modules ``atom``, ``rwse``, ``bond``), ``VOCNode+LapPE``/
-    ``VOCEdge`` on the superpixels (``node_lin``, ``lap``, ``edge_lin``);
-    an encoding's name alone (``LapPE`` on the transductive node recipes)
-    projects the raw float features to ``dim_h - dim_pe`` with one Linear
-    (``node_lin``, JAX ``networks.py:105-112``) before the encoding is
-    appended; with ``edge_encoder`` off there is no edge encoder and e is
-    None; ``TypeDictNode+GraphormerBias`` and no edge encoder on the
-    Graphormer recipe (``type_dict``, ``graphormer``: the degree embeddings
-    added in place; the network reads the attention bias and the graph
-    token from ``graphormer``)."""
+    """The node encoder ``dataset.node_encoder_name`` names and the edge
+    encoder ``dataset.edge_encoder_name`` names, composed as JAX's
+    ``FeatureEncoder`` composes them. The name is a dataset encoder
+    (``TypeDictNode``: ``type_dict``; ``Atom``: ``atom``; ``VOCNode`` or
+    ``LinearNode``: ``node_lin``), then encodings (``RWSE``: ``rwse``;
+    ``LapPE``: ``lap``), each joined by ``+``: the dataset encoder embeds
+    into ``dim_h − Σ dim_pe`` channels and each encoding appends its
+    ``dim_pe``, in the name's order (``TypeDictNode+LapPE+RWSE``: LapPE,
+    then RWSE). A name of encodings alone (``LapPE`` on the transductive
+    node recipes) projects the raw float features to ``dim_h − Σ dim_pe``
+    with one Linear (``node_lin``, JAX ``networks.py:108-116``) where that
+    leaves room. The edge encoder: ``TypeDictEdge`` (``edge_type_dict``),
+    ``Bond`` (``bond``), ``VOCEdge``/``LinearEdge`` (``edge_lin``), or none
+    with ``edge_encoder`` off (e is None). ``TypeDictNode+GraphormerBias``
+    with no edge encoder on the Graphormer recipe (``type_dict``,
+    ``graphormer``: the degree embeddings added in place; the network reads
+    the attention bias and the graph token from ``graphormer``). Modules
+    are made in that order (dataset encoder, encodings, edge encoder), so a
+    seed gives the same weights to each as before they composed."""
 
     def __init__(self, cfg, dim_h: int):
         super().__init__()
         ds = cfg.dataset
-        node, _, pe = ds.node_encoder_name.partition("+")
+        parts = ds.node_encoder_name.split("+")
         self.graphormer = None
-        if pe == "GraphormerBias":
-            self._init_graphormer(cfg, dim_h, node)
+        if "GraphormerBias" in parts:
+            self._init_graphormer(cfg, dim_h, parts)
             return
-        pe_only = node in PE_ENCODERS and not pe
-        if pe_only:
-            node, pe = None, node
-        if not (ds.node_encoder and (pe_only or node in NODE_ENCODERS)
-                and pe in PE_ENCODERS
-                and (not ds.edge_encoder
-                     or ds.edge_encoder_name in EDGE_ENCODERS)
-                and not ds.node_encoder_bn and not ds.edge_encoder_bn
-                and (pe != "RWSE" or cfg.posenc_RWSE.model == "Linear")):
-            raise NotImplementedError(
-                f"encoders {ds.node_encoder_name!r}/{ds.edge_encoder_name!r}: "
-                f"the port has one of {NODE_ENCODERS} with one of "
-                f"{PE_ENCODERS} (RWSE with a Linear model, LapPE as a "
-                "DeepSet or a Transformer), or one of those encodings alone, "
-                f"one of {EDGE_ENCODERS} or none, and no encoder BatchNorm "
-                "(ROADMAP Queue 1 items 12 and 16)")
-        p = cfg[f"posenc_{pe}"]
+        if not ds.node_encoder:
+            _refuse("dataset.node_encoder=false (raw node features)",
+                    "item 4")
+        if ds.node_encoder_bn or ds.edge_encoder_bn:
+            _refuse("dataset.node_encoder_bn / edge_encoder_bn", "item 4")
+        node = parts[0] if parts[0] not in PE_ENCODERS + PE_TODO else None
+        pes = parts[1:] if node is not None else parts
+        if node is not None and node not in NODE_ENCODERS:
+            _refuse(f"node encoder {node!r} (the port has {NODE_ENCODERS})",
+                    "item 4")
+        for pe in pes:
+            if pe in PE_TODO:
+                _refuse(f"the {pe} encoding", "item 16")
+            if pe not in PE_ENCODERS:
+                _refuse(f"node encoder name {ds.node_encoder_name!r} (the "
+                        f"port composes one of {NODE_ENCODERS} with "
+                        f"{PE_ENCODERS})", "item 4")
+        if "RWSE" in pes and cfg.posenc_RWSE.model != "Linear":
+            _refuse(f"posenc_RWSE.model={cfg.posenc_RWSE.model!r} (the port "
+                    "has Linear)", "item 16")
+        if ds.edge_encoder and ds.edge_encoder_name not in EDGE_ENCODERS:
+            _refuse(f"edge encoder {ds.edge_encoder_name!r} (the port has "
+                    f"{EDGE_ENCODERS})", "item 4")
+        width = dim_h - sum(cfg[f"posenc_{pe}"].dim_pe for pe in pes)
+        self.node_name = None
         if node == "Atom":
-            self.atom = AtomEncoder(dim_h - p.dim_pe)
-        else:
-            if pe_only and not cfg.share.dim_in:
+            self.atom = AtomEncoder(width)
+            self.node_name = "atom"
+        elif node == "TypeDictNode":
+            self.type_dict = TypeDictNodeEncoder(ds.node_encoder_num_types,
+                                                 width)
+            self.node_name = "type_dict"
+        elif node is not None or width > 0:
+            if node is None and not cfg.share.dim_in:
                 raise ValueError("the raw features' width cfg.share.dim_in "
                                  "is unset (driver.infer_dims sets it)")
             self.node_lin = LinearEncoder(cfg.share.dim_in or VOC_NODE_DIM,
-                                          dim_h - p.dim_pe)
-        if pe == "RWSE":
-            times = p.kernel.times or parse_times_func(p.kernel.times_func)
-            self.rwse = RWSENodeEncoder(len(times), p.dim_pe, p.raw_norm_type)
-        else:
-            self.lap = LapPENodeEncoder(
-                p.dim_pe, p.eigen.max_freqs,
-                model=p.model if p.model != "none" else "DeepSet",
-                layers=p.layers, post_layers=p.post_layers,
-                raw_norm_type=p.raw_norm_type, n_heads=p.n_heads)
+                                          width)
+            self.node_name = "node_lin"
+        self.pe_names = []
+        for pe in pes:
+            p = cfg[f"posenc_{pe}"]
+            if pe == "RWSE":
+                times = p.kernel.times or parse_times_func(p.kernel.times_func)
+                self.rwse = RWSENodeEncoder(len(times), p.dim_pe,
+                                            p.raw_norm_type)
+                self.pe_names.append("rwse")
+            else:
+                self.lap = LapPENodeEncoder(
+                    p.dim_pe, p.eigen.max_freqs,
+                    model=p.model if p.model != "none" else "DeepSet",
+                    layers=p.layers, post_layers=p.post_layers,
+                    raw_norm_type=p.raw_norm_type, n_heads=p.n_heads)
+                self.pe_names.append("lap")
         self.edge_name = None
         if ds.edge_encoder and ds.edge_encoder_name == "Bond":
             self.bond = BondEncoder(dim_h)
             self.edge_name = "bond"
+        elif ds.edge_encoder and ds.edge_encoder_name == "TypeDictEdge":
+            self.edge_type_dict = TypeDictEdgeEncoder(
+                ds.edge_encoder_num_types, dim_h)
+            self.edge_name = "edge_type_dict"
         elif ds.edge_encoder:
             self.edge_lin = LinearEncoder(VOC_EDGE_DIM, dim_h)
             self.edge_name = "edge_lin"
-        self.node_name = "atom" if node == "Atom" else "node_lin"
-        self.pe_name = "rwse" if pe == "RWSE" else "lap"
 
-    def _init_graphormer(self, cfg, dim_h: int, node: str) -> None:
+    def _init_graphormer(self, cfg, dim_h: int, parts) -> None:
         ds = cfg.dataset
-        if not (ds.node_encoder and node == "TypeDictNode"
+        if not (ds.node_encoder and parts == ["TypeDictNode", "GraphormerBias"]
                 and not ds.edge_encoder and not ds.node_encoder_bn):
             raise NotImplementedError(
                 f"encoders {ds.node_encoder_name!r} with edge_encoder="
                 f"{ds.edge_encoder}: the port has TypeDictNode+GraphormerBias "
                 "with no edge encoder and no encoder BatchNorm (ROADMAP "
-                "Queue 1 items 12 and 16)")
+                "Queue 1 item 4)")
         p = cfg.posenc_GraphormerBias
         self.type_dict = TypeDictNodeEncoder(ds.node_encoder_num_types, dim_h)
         self.graphormer = GraphormerBiasEncoder(
@@ -434,8 +475,11 @@ class FeatureEncoder(nn.Module):
         if self.graphormer is not None:
             x = self.graphormer(batch, self.type_dict(batch.node_feat))
             return torch.where(batch.node_mask[:, None], x, 0.0), None
-        x = getattr(self, self.node_name)(batch.node_feat)
-        x = getattr(self, self.pe_name)(batch, x, gen)
+        x = None
+        if self.node_name is not None:
+            x = getattr(self, self.node_name)(batch.node_feat)
+        for name in self.pe_names:
+            x = getattr(self, name)(batch, x, gen)
         e = None
         if self.edge_name is not None:
             e = getattr(self, self.edge_name)(batch.edge_feat)

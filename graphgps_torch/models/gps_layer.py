@@ -24,19 +24,21 @@ JAX package chooses them (its VMEM caps are the TPU's and are not kept):
   drop-add, combine). Otherwise (evaluation, or training without dropout,
   at a width that is no multiple of 128) the tails, the branch sum and the
   FFN are plain PyTorch.
-- **GCN** (``local="GCN"``; JAX :218-243, :89-117 and :496-518). The GCN
-  layer (``local_gnn.py``), its residual ``x + drop(h_local)`` through
-  ``fused_drop_add`` (a plain add at rate 0) and its norm; the Transformer
-  branch, its residual through ``fused_drop_add`` and its norm; the branch
+- **plain local** (``local="GCN"`` or ``"GINE"``; JAX :218-243, :89-117
+  and :496-518). The GCN or GINE layer (``local_gnn.py``; GINE's edge
+  features pass through), its residual ``x + drop(h_local)`` through
+  ``fused_drop_add`` (a plain add at rate 0; flax ``nn.Dropout``'s exact
+  rate outside the tail envelope, below a width of 64) and its norm; the
+  Transformer branch, its residual likewise and its norm; the branch
   sum; the FFN through ``fused_ffn`` where JAX takes ``fused_ffn_padded``
   (the tail envelope, and a width that is a multiple of 128 or training
   with dropout), else plain PyTorch. Each norm is a full MaskedBatchNorm
   with ``batch_norm``, else the identity (JAX's ``Norm`` with both norms
-  off). Four dropout seeds: local drop-add, attention, attention
-  drop-add, FFN.
+  off). Four dropout seeds: local drop-add, attention, attention drop-add,
+  FFN. GINE takes every width; GCN and CustomGatedGCN from 64.
 
-The Transformer branch of the unmerged and GCN paths (:meth:`GPSLayer.
-attention`) takes JAX's rungs (:270-392) in JAX's order, by
+The Transformer branch of the unmerged and plain local paths
+(:meth:`GPSLayer.attention`) takes JAX's rungs (:270-392) in JAX's order, by
 ``gt.attn_impl``: ``fused_gps_attention`` (QKV projection, masked attention
 with hashed dropout on the probabilities, out-projection, in one call)
 under auto or fused within its envelope (:func:`fused_eligible`), under
@@ -70,11 +72,12 @@ of the ``[A|D|E|B]`` and ``[Wq|Wk|Wv]`` columns (:meth:`GPSLayer.node_proj`,
 model and its optimizer state when a checkpoint changes paths); at other
 widths it holds ``local.w_node``/``local.b_node`` = ``[A|D|E|B]`` and
 ``w_qkv``/``b_qkv``, each contiguous as the kernels need them; ``local``
-(``GatedGCNLayer_0`` or ``GCNLayer_0``), ``w_out``/``b_out``
-(``out_kernel``/``out_bias``), ``w_ffn1``..``b_ffn2``
+(``GatedGCNLayer_0``, ``GINELayer_0`` or ``GCNLayer_0``), ``w_out``/
+``b_out`` (``out_kernel``/``out_bias``), ``w_ffn1``..``b_ffn2``
 (``Dense_0``/``Dense_1``) and the norms: ``norm_attn`` (``Norm_0``) and
-``norm_out`` (``Norm_1``); on GCN ``norm_local``, ``norm_attn`` and
-``norm_out`` (``Norm_0``..``Norm_2``, present with ``batch_norm``).
+``norm_out`` (``Norm_1``); on the plain local path ``norm_local``,
+``norm_attn`` and ``norm_out`` (``Norm_0``..``Norm_2``, present with
+``batch_norm``).
 """
 from __future__ import annotations
 
@@ -89,27 +92,31 @@ from ..ops.kernels import (build, fused_combine_ffn, fused_drop_add,
                            fused_ffn, fused_gps_attention,
                            fused_wide_attention)
 from ..ops.bigbird import ATTENTION_TYPES, bigbird_attention
+from ..ops.kernels.common import exact_dropout
 from ..ops.mha import merge_heads, mha, mha_dispatch, split_heads
 from .common import MaskedBatchNorm, dense_params, get_act
-from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer
+from .local_gnn import FrontPack, GatedGCNLayer, GCNLayer, GINELayer
 
 # dropout seeds per layer and step. Merged: front, edge tail, combine+FFN;
-# unmerged: edge tail, attention, drop-add, combine+FFN; GCN: local
+# unmerged: edge tail, attention, drop-add, combine+FFN; plain local: local
 # drop-add, attention, attention drop-add, FFN
 SEEDS_PER_LAYER = 3
 SEEDS_PER_LAYER_UNMERGED = 4
-# the local layers and global models a GPSLayer takes
-LOCAL_TYPES = ("CustomGatedGCN", "GCN")
+# the local layers of the plain local path, all the local layers and the
+# global models a GPSLayer takes
+PLAIN_LOCAL = ("GCN", "GINE")
+LOCAL_TYPES = ("CustomGatedGCN",) + PLAIN_LOCAL
 GLOBAL_TYPES = ("Transformer", "BigBird")
 # the merged front holds a graph's N x N scores in shared memory
 MERGED_MAX_NODES = 128
-# the unmerged and GCN paths' attention: fused_wide_attention above
+# the unmerged and plain local paths' attention: fused_wide_attention above
 # WIDE_MIN_NODES node slots per graph and up to the TPU kernel's own limit
 # (``wide_eligible``, fused_attn_wide.py :365), the mha dispatch elsewhere
 WIDE_MIN_NODES = 128
 WIDE_MAX_NODES = 768
 # below this width the JAX package runs no fused kernel (fused_gatedgcn.py
-# :498, fused_tail.py :495)
+# :498, fused_tail.py :495); CustomGatedGCN and GCN layers need it, GINE's
+# path runs plain below it, as JAX's
 MIN_DIM = 64
 # the values of gt.attn_impl a GPSLayer takes (JAX's but ring)
 ATTN_IMPLS = ("auto", "dense", "chunked", "flash", "fused")
@@ -266,11 +273,11 @@ class GPSLayer(nn.Module):
                  bigbird: Optional[dict] = None, layer_index: int = 0):
         """A CustomGatedGCN layer at a multiple of 128 takes the merged
         front per batch wherever JAX does (:meth:`takes_merged`); its weight
-        layout follows the width alone. A ``local="GCN"`` layer takes
-        the GCN path, with its three norms MaskedBatchNorms under
-        ``batch_norm`` and the identity otherwise (a CustomGatedGCN layer
-        always has BatchNorm). ``attn_impl`` is ``gt.attn_impl``
-        (ATTN_IMPLS). ``global_type`` BigBird takes ``bigbird``'s
+        layout follows the width alone. A ``local="GCN"`` or ``"GINE"``
+        layer takes the plain local path, with its three norms
+        MaskedBatchNorms under ``batch_norm`` and the identity otherwise (a
+        CustomGatedGCN layer always has BatchNorm). ``attn_impl`` is
+        ``gt.attn_impl`` (ATTN_IMPLS). ``global_type`` BigBird takes ``bigbird``'s
         ``attention_type``, ``block_size`` and ``num_random_blocks``
         (``gt.bigbird``) and draws its plan from the seed ``layer_index``,
         as JAX's layer does."""
@@ -278,7 +285,7 @@ class GPSLayer(nn.Module):
         if dim_h % num_heads:
             raise ValueError(f"dim_h={dim_h} is not divisible by "
                              f"num_heads={num_heads}")
-        if dim_h < MIN_DIM:
+        if dim_h < MIN_DIM and local != "GINE":
             raise NotImplementedError(
                 f"dim_h={dim_h} < {MIN_DIM}: the layer's path without fused "
                 "kernels is not ported (ROADMAP Queue 1 item 5)")
@@ -311,9 +318,9 @@ class GPSLayer(nn.Module):
         self.dropout = dropout
         self.attn_dropout = attn_dropout
         self.attn_impl = attn_impl
-        self.gcn = local == "GCN"
+        self.plain_local = local in PLAIN_LOCAL
         # the joint front weight, held at a multiple of 128 on either path
-        self.holds_front = not self.gcn and merged_width(dim_h)
+        self.holds_front = not self.plain_local and merged_width(dim_h)
         if self.holds_front:
             # A, D, E, B, Wq, Wk, Wv side by side, each drawn as a (d, d) Dense
             ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(7)))
@@ -323,15 +330,17 @@ class GPSLayer(nn.Module):
             ws, bs = zip(*(dense_params(dim_h, dim_h) for _ in range(3)))
             self.w_qkv = nn.Parameter(torch.cat(ws, dim=1).detach())
             self.b_qkv = nn.Parameter(torch.cat(bs).detach())
-        bn = batch_norm or not self.gcn
-        if self.gcn:
-            self.local = GCNLayer(dim_h)
+        bn = batch_norm or not self.plain_local
+        if self.plain_local:
+            self.local = (GCNLayer(dim_h) if local == "GCN"
+                          else GINELayer(dim_h, act))
             self.norm_local = MaskedBatchNorm(dim_h, eps) if bn else None
         else:
             self.local = GatedGCNLayer(dim_h, act, eps,
                                        own_node_proj=not self.holds_front)
         self.w_out, self.b_out = dense_params(dim_h, dim_h)
-        self.norm_attn = (MaskedBatchNorm(dim_h, eps, stats_only=not self.gcn)
+        self.norm_attn = (MaskedBatchNorm(dim_h, eps,
+                                          stats_only=not self.plain_local)
                           if bn else None)
         self.w_ffn1, self.b_ffn1 = dense_params(dim_h, 2 * dim_h)
         self.w_ffn2, self.b_ffn2 = dense_params(2 * dim_h, dim_h)
@@ -414,8 +423,8 @@ class GPSLayer(nn.Module):
                 self.rates[0], self.act)
 
     def attention(self, batch: GraphBatch, x, seed: int = 0):
-        """The Transformer branch of the unmerged and GCN paths up to the
-        out-projection: (B*N, d), on JAX's rungs in JAX's order (module
+        """The Transformer branch of the unmerged and plain local paths up to
+        the out-projection: (B*N, d), on JAX's rungs in JAX's order (module
         docstring): ``fused_gps_attention`` where :meth:`takes_fused`, under
         auto ``fused_wide_attention`` for graphs of more than WIDE_MIN_NODES
         and at most WIDE_MAX_NODES node slots, else the ``mha`` dispatch
@@ -506,24 +515,33 @@ class GPSLayer(nn.Module):
         """``h + FFN(h)``: ``fused_ffn`` where the JAX layer takes
         ``fused_ffn_padded`` (:497-511: the tail envelope, and a width that
         is a multiple of 128 or training with dropout), else plain PyTorch
-        (:512-518), reached only at rate 0: every width from 64 with a
-        multiple of 8 rows is in the envelope."""
+        (:512-518) with flax ``nn.Dropout``'s exact rate on the hidden units
+        and the output (sites 0 and 1 of ``seed``), which drops only below
+        the envelope's width of 64: every width from 64 with a multiple of
+        8 rows is in it."""
         rate = self.rates[0]
         if (tail_eligible(h.shape[0], self.dim_h, self.act)
                 and (self.dim_h % 128 == 0 or rate > 0.0)):
             return fused_ffn(h, self.w_ffn1, self.b_ffn1, self.w_ffn2,
                              self.b_ffn2, seed, rate, self.act)
         h2 = get_act(self.act)(h @ self.w_ffn1 + self.b_ffn1)
-        return h + (h2 @ self.w_ffn2 + self.b_ffn2)
+        h2 = exact_dropout(h2, seed, 0, rate) @ self.w_ffn2 + self.b_ffn2
+        return h + exact_dropout(h2, seed, 1, rate)
 
     def branch_sum(self, batch: GraphBatch, x, e, seeds):
-        """The GCN path up to the FFN: ``norm(x + drop(GCN(x))) + norm(x +
-        drop(attention(x)))`` and e, from the first three of the layer's
-        ``seeds`` (local drop-add, attention, attention drop-add)."""
+        """The plain local path up to the FFN: ``norm(x + drop(local(x))) +
+        norm(x + drop(attention(x)))`` and e, from the first three of the
+        layer's ``seeds`` (local drop-add, attention, attention drop-add).
+        The drop-add is ``fused_drop_add`` in the tail envelope (JAX's
+        ``_drop_add``), flax ``nn.Dropout``'s exact rate below it."""
         rate, mask = self.rates[0], batch.node_mask
+        fused = tail_eligible(x.shape[0], self.dim_h, "identity")
 
         def tail(norm, v, seed):
-            s = fused_drop_add(x, v, seed, rate) if rate > 0.0 else x + v
+            if rate > 0.0 and fused:
+                s = fused_drop_add(x, v, seed, rate)
+            else:
+                s = x + exact_dropout(v, seed, 0, rate)
             return s if norm is None else norm(s, mask)
 
         h_local, e = self.local(batch, x, e)
@@ -531,7 +549,7 @@ class GPSLayer(nn.Module):
         return h + tail(self.norm_attn, self.attention(batch, x, seeds[1]),
                         seeds[2]), e
 
-    def forward_gcn(self, batch: GraphBatch, x, e, gen):
+    def forward_plain_local(self, batch: GraphBatch, x, e, gen):
         # seeds: local drop-add, attention, attention drop-add, FFN
         seeds = [0] * SEEDS_PER_LAYER_UNMERGED
         if any(self.rates):
@@ -542,8 +560,8 @@ class GPSLayer(nn.Module):
     def forward(self, batch: GraphBatch, x, e,
                 gen: Optional[torch.Generator] = None):
         """``gen`` draws the layer's dropout seeds in training."""
-        if self.gcn:
-            h, e = self.forward_gcn(batch, x, e, gen)
+        if self.plain_local:
+            h, e = self.forward_plain_local(batch, x, e, gen)
         elif self.takes_merged(batch):
             h, e = self.forward_merged(batch, x, e, gen)
         else:

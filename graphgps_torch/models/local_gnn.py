@@ -1,8 +1,10 @@
 """The local message-passing layers: GatedGCN (counterpart of
 ``graphgps_tpu/models/local_gnn.py`` ``GatedGCNLayer`` :74-329: the merged
 dispatch :106-149, the standalone fused core :150-184, the long-graph rung
-:185-233, the fused tails :258-316 and the plain tails :318-329) and GCN
-(``GCNLayer`` :386-403, at the end of this file).
+:185-233, the fused tails :258-316 and the plain tails :318-329), GINE
+(``GINELayer`` :333-368 with ``_es_pe_scale`` :38-46) and GCN (``GCNLayer``
+:386-403); GINE and GCN at the end of this file, in PyTorch ops (neither
+reaches a Pallas kernel in JAX).
 
 Two paths. On the merged path (:meth:`GatedGCNLayer.forward`) the front
 kernel takes the node projections A, D, E, B (flax ``Dense_0``,
@@ -49,8 +51,9 @@ from ..data.graph import GraphBatch
 from ..ops.kernels import (fused_edge_gate, fused_gatedgcn, fused_gps_front,
                            fused_pre_tail)
 from ..ops.kernels.gatedgcn import MAX_NODES as CORE_MAX_NODES
+from ..ops.kernels.common import exact_dropout
 from ..ops.segment import gather, segment_sum
-from .common import MaskedBatchNorm, dense_params, get_act
+from .common import MLP, MaskedBatchNorm, dense_params, get_act
 
 
 class FrontPack(NamedTuple):
@@ -206,6 +209,65 @@ class GatedGCNLayer(nn.Module):
         return self.x_tail_args(x, xo, mom_x, batch.node_mask), e_new
 
 
+def seg_kw(batch: GraphBatch) -> dict:
+    """The batch's layout, which picks the segment ops' rungs (JAX's
+    ``_seg_kw``): the shapes alone, nothing read from the device."""
+    return dict(edge_block=batch.edge_block, max_nodes=batch.max_nodes)
+
+
+class GINELayer(nn.Module):
+    """GINEConv: per edge ``m = relu(x[s] + e)`` (``relu(x[s])`` without
+    edge features), scaled by ``sigmoid(MLP(‖pe[s] − pe[r]‖²))`` where the
+    batch holds ``pe_EquivStableLapPE`` and the layer was built with
+    ``equivstable_pe``; ``h = (1 + eps)·x + Σ_receivers m``, then a 2-layer
+    MLP (``mlp``). With ``wrap_norm_act`` (the ``custom_gnn`` form) ``h``
+    then takes the norm (a MaskedBatchNorm with ``batch_norm``, else none),
+    the activation, flax ``nn.Dropout``'s exact-rate dropout (site 0 of
+    ``seed``) and the residual. The edge features pass through unchanged.
+
+    flax names: ``eps``; ``MLP_0`` the ES scale's MLP (``es_mlp``) when
+    built with ``equivstable_pe``, then the update MLP (``MLP_1``, else
+    ``MLP_0``); in the wrapped form ``Norm_0`` (``norm``)."""
+
+    def __init__(self, dim: int, act: str = "relu",
+                 equivstable_pe: bool = False, wrap_norm_act: bool = False,
+                 batch_norm: bool = False, dropout: float = 0.0,
+                 residual: bool = True, norm_eps: float = 1e-5):
+        super().__init__()
+        self.act = act
+        self.eps = nn.Parameter(torch.zeros(()))
+        self.es_mlp = (MLP(1, dim, 1, num_layers=2, act="relu")
+                       if equivstable_pe else None)
+        self.mlp = MLP(dim, dim, dim, num_layers=2, act=act)
+        self.wrap_norm_act = wrap_norm_act
+        self.norm = (MaskedBatchNorm(dim, norm_eps)
+                     if wrap_norm_act and batch_norm else None)
+        self.dropout = dropout
+        self.residual = residual
+
+    def forward(self, batch: GraphBatch, x, e, seed=0):
+        kw = seg_kw(batch)
+        xs = gather(x, batch.senders, **kw)
+        m = torch.relu(xs + e) if e is not None else torch.relu(xs)
+        pe = batch.pe.get("pe_EquivStableLapPE")
+        if self.es_mlp is not None and pe is not None:
+            diff = (gather(pe, batch.senders, **kw)
+                    - gather(pe, batch.receivers, **kw))
+            m = m * torch.sigmoid(self.es_mlp((diff * diff).sum(
+                -1, keepdim=True)))
+        agg = segment_sum(m, batch.receivers, batch.num_node_slots,
+                          mask=batch.edge_mask, **kw)
+        h = self.mlp((1.0 + self.eps) * x + agg)
+        if self.wrap_norm_act:
+            if self.norm is not None:
+                h = self.norm(h, batch.node_mask)
+            rate = self.dropout if self.training else 0.0
+            h = exact_dropout(get_act(self.act)(h), seed, 0, rate)
+            if self.residual:
+                h = x + h
+        return h, e
+
+
 class GCNLayer(nn.Module):
     """GCN with the symmetric degree norm and an implicit self-loop:
     ``h = x W + b``, ``deg = (real in-edges) + 1``, and each node gets
@@ -221,8 +283,7 @@ class GCNLayer(nn.Module):
         s, r = batch.senders, batch.receivers
         h = x @ self.w + self.b
         S = batch.num_node_slots
-        # the batch's layout picks the segment ops' rungs, as JAX's _seg_kw
-        kw = dict(edge_block=batch.edge_block, max_nodes=batch.max_nodes)
+        kw = seg_kw(batch)
         deg = segment_sum(batch.edge_mask.to(h.dtype), r, S, **kw) + 1.0
         dinv = torch.rsqrt(deg)
         sl, rl = s.long(), r.long()

@@ -1,5 +1,5 @@
-"""GPSModel: FeatureEncoder → L × GPSLayer (CustomGatedGCN or GCN ∥
-Transformer) → head, SANTransformer:
+"""GPSModel: FeatureEncoder → L × GPSLayer (CustomGatedGCN, GCN or GINE ∥
+Transformer or BigBird) → head, SANTransformer:
 FeatureEncoder → L × SANLayer → head, and the dispatch to GraphormerNet
 (``models/graphormer.py``) (counterpart of
 ``graphgps_tpu/models/networks.py:175-239`` ``GPSModel``, :153 ``_make_head``,
@@ -77,16 +77,19 @@ def check_stack_supported(cfg) -> None:
 
 
 # local GNNs of the JAX GPSLayer the port does not run yet (local_gnn.py
-# :332-519): ROADMAP Queue 1 item 13 brings them
-LOCAL_TODO = ("GINE", "GIN", "GAT", "GENConv", "PNA")
+# :370-519): ROADMAP Queue 1 item 13 brings them
+LOCAL_TODO = ("GIN", "GAT", "GENConv", "PNA")
+# global models of the JAX GPSLayer the port does not run yet
+# (gps_layer.py:362-427): ROADMAP Queue 1 item 15 brings them
+GLOBAL_TODO = ("BiasedTransformer", "Performer")
 
 
 def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
-    Transformer or BigBird with BatchNorm or GCN ∥ Transformer or BigBird
-    with BatchNorm or none,
-    no LayerNorm, ``gt.attn_impl`` any of JAX's but ring, the san_graph,
-    inductive_node or node head, at a width of 64 or more; a SANTransformer,
+    Transformer or BigBird with BatchNorm, or GCN or GINE ∥ Transformer or
+    BigBird with BatchNorm or none, no LayerNorm, ``gt.attn_impl`` any of
+    JAX's but ring, the san_graph, inductive_node or node head, at a width
+    of 64 or more but with GINE at any width; a SANTransformer,
     ``check_san_supported``; or a Graphormer,
     ``check_graphormer_supported``); anything else names the ROADMAP item
     that brings it."""
@@ -101,11 +104,12 @@ def check_supported(cfg) -> None:
             "item 15)")
     local, _, glob = gt.layer_type.partition("+")
     if glob not in GLOBAL_TYPES or local not in LOCAL_TYPES:
-        item = "Queue 1 item 13" if local in LOCAL_TODO else \
-            "Queue 1 items 12-15"
+        item = ("Queue 1 item 13" if local in LOCAL_TODO else
+                "Queue 1 item 15" if glob in GLOBAL_TODO else
+                "Queue 1 items 12-15")
         raise NotImplementedError(
             f"gt.layer_type={gt.layer_type!r}: the port runs "
-            f"{' and '.join(LOCAL_TYPES)} with {' or '.join(GLOBAL_TYPES)} "
+            f"{', '.join(LOCAL_TYPES)} with {' or '.join(GLOBAL_TYPES)} "
             f"(ROADMAP {item})")
     if gt.layer_norm:
         raise NotImplementedError(
@@ -115,7 +119,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             "CustomGatedGCN+Transformer needs gt.batch_norm=true (ROADMAP "
             "Queue 1 item 15)")
-    if gt.dim_hidden < MIN_DIM:
+    if gt.dim_hidden < MIN_DIM and local != "GINE":
         raise NotImplementedError(
             f"gt.dim_hidden={gt.dim_hidden} < {MIN_DIM}: the layer's path "
             "without fused kernels is not ported (ROADMAP Queue 1 item 5)")

@@ -1,19 +1,27 @@
 """Segment reductions over the flat edge list of a padded batch
 (counterpart of ``graphgps_tpu/ops/segment.py``: ``segment_sum`` :158,
-``gather`` :371 with ``_sorted_bwd_take`` :335 and ``in_degree`` :394).
+``blocked_segment_sum`` :64 and ``blocked_gather`` :91, ``gather`` :371
+with ``_sorted_bwd_take`` :335 and ``in_degree`` :394).
 
 JAX picks among five forms of the same sum by the TPU's layout, in this
 order (:func:`segment_rung`): blocked (per-graph one-hot matmuls,
 ``_blocked_ok``), dense (one (E, S) one-hot matmul), tiled
 (``tiled_segment_sum`` where ``tiled_eligible``), CSR (``segment_sum_csr``
 under ``GGPS_USE_CSR_KERNEL=1`` on the TPU) and XLA's scatter. The port
-takes the same rung under the same switches and sizes: on the card the
-tiled and CSR rungs launch their kernels (``kernels/segment_sum.py``) and
-the other three are one ``index_add_``; on the CPU the CSR rung is never
-taken and the tiled one only under ``GGPS_TILED_FORCE=1`` (as JAX off the
-TPU), through the kernel's plain version. The backward of every rung is
-the gather ``index_select``. A gather's backward takes the tiled rung where
-JAX's ``_sbt_bwd`` does, ``index_add_`` otherwise. The tiled and CSR rungs
+takes the same rung under the same switches and sizes: the blocked rung is
+JAX's per-graph one-hot products (``torch.bmm`` in f32: fixed-order sums,
+the same bits run after run, where ``index_add_`` on the card adds with
+atomics); on the card the tiled and CSR rungs launch their kernels
+(``kernels/segment_sum.py``) and the dense and scatter rungs are one
+``index_add_``; on the CPU the CSR rung is never taken and the tiled one
+only under ``GGPS_TILED_FORCE=1`` (as JAX off the TPU), through the
+kernel's plain version. The backward of every rung but the blocked one is
+the gather ``index_select``. A gather in the blocked layout is JAX's
+``blocked_gather``, its backward the blocked sum; elsewhere the gather's
+backward takes the tiled rung where JAX's ``_sbt_bwd`` does,
+``index_add_`` otherwise. The blocked rung keeps JAX's precondition: an
+edge slot's id lies in its graph's node range (the loader's layout), and
+one outside it adds nowhere. The tiled and CSR rungs
 build one plan per id tensor (``kernels/segment_sum.py`` ``plan_for``): a
 GCN step over a batch builds the receivers' and, in its backward, the
 senders', whatever its depth, as JAX sorts once per batch.
@@ -93,6 +101,36 @@ def segment_rung(shape, floating: bool, num_segments: int, device_type: str,
     return "scatter"
 
 
+def _block_onehot(ids, edge_block: int, max_nodes: int, dtype):
+    """(B, max_nodes, edge_block) one-hot of each edge slot's graph-local
+    id (JAX's ``_block_onehot``, transposed)."""
+    B = ids.shape[0] // edge_block
+    base = torch.arange(B, device=ids.device)[:, None] * max_nodes
+    local = ids.reshape(B, edge_block).long() - base
+    nodes = torch.arange(max_nodes, device=ids.device)
+    return (local[:, None, :] == nodes[None, :, None]).to(dtype)
+
+
+def blocked_segment_sum(data, segment_ids, edge_block: int, max_nodes: int):
+    """The blocked rung: per graph, the (max_nodes, edge_block) one-hot of
+    its edges' local ids times their rows; autograd's backward is the
+    transposed product (JAX's ``blocked_segment_sum``)."""
+    B = data.shape[0] // edge_block
+    oh = _block_onehot(segment_ids, edge_block, max_nodes, data.dtype)
+    out = torch.bmm(oh, data.reshape(B, edge_block, -1))
+    return out.reshape(B * max_nodes, *data.shape[1:])
+
+
+def blocked_gather(x, idx, edge_block: int, max_nodes: int):
+    """Rows ``x[idx]`` in the blocked layout as per-graph one-hot products
+    (exact: one row selected per output row); the backward is the blocked
+    sum (JAX's ``blocked_gather``)."""
+    B = idx.shape[0] // edge_block
+    oh = _block_onehot(idx, edge_block, max_nodes, x.dtype)
+    out = torch.bmm(oh.transpose(1, 2), x.reshape(B, max_nodes, -1))
+    return out.reshape(idx.shape[0], *x.shape[1:])
+
+
 def _index_add(data, segment_ids, num_segments: int):
     out = data.new_zeros((num_segments, *data.shape[1:]))
     return out.index_add(0, segment_ids.long(), data)
@@ -112,6 +150,8 @@ def segment_sum(data, segment_ids, num_segments: int,
                         num_segments, data.device.type, edge_block, max_nodes)
     if mask is not None:
         data = torch.where(mask.reshape(-1, *[1] * (data.ndim - 1)), data, 0)
+    if rung == "blocked":
+        return blocked_segment_sum(data, segment_ids, edge_block, max_nodes)
     if rung == "tiled":
         flat = data.reshape(data.shape[0], -1).float().contiguous()
         out = kseg.tiled_segment_sum(flat, segment_ids.to(torch.int32),
@@ -152,13 +192,16 @@ class _SortedBwdTake(torch.autograd.Function):
 
 def gather(x, idx, edge_block: Optional[int] = None,
            max_nodes: Optional[int] = None):
-    """Rows ``x[idx]``: a neighbour's features per edge. Where JAX takes
-    ``_sorted_bwd_take`` (float 2-D ``x``, 4,096 indices or more, not
-    blocked, ``GGPS_SORTED_TAKE`` not 0) the backward is
-    :func:`sorted_take_backward`; elsewhere autograd's ``index_add_``."""
+    """Rows ``x[idx]``: a neighbour's features per edge. In the blocked
+    layout (float ``x``) :func:`blocked_gather`, as JAX's default
+    ``GGPS_BLOCKED_GATHER``; where JAX takes ``_sorted_bwd_take`` (float 2-D
+    ``x``, 4,096 indices or more, ``GGPS_SORTED_TAKE`` not 0) the backward
+    is :func:`sorted_take_backward`; elsewhere autograd's ``index_add_``."""
     floating = x.is_floating_point()
+    if floating and _blocked(idx.shape[0], x.shape[0], edge_block,
+                             max_nodes):
+        return blocked_gather(x, idx, edge_block, max_nodes)
     if (floating and x.dim() == 2 and idx.shape[0] >= 4096
-            and not _blocked(idx.shape[0], x.shape[0], edge_block, max_nodes)
             and os.environ.get("GGPS_SORTED_TAKE", "1") == "1"
             and needs_grad(x)):
         return _SortedBwdTake.apply(x, idx)

@@ -486,7 +486,9 @@ def custom_train(cfg, loaders, model, run_dir: str,
     K > 1 where JAX takes K steps (:func:`k_steps_eligible`) each train
     epoch runs K steps per dispatch (:func:`train_epoch_k`); on the card
     through replays of one captured step, with a capturable optimizer. A
-    resumed run takes up the train split's shuffle at its next epoch."""
+    resumed run (``train.auto_resume``) leaves the train loader's epoch
+    counter at 0, as JAX's ``custom_train`` does: its first epoch takes the
+    shuffle of epoch 0 (``seed + 0``), whatever epoch it resumes at."""
     check_train_supported(cfg)
     if cfg.train.preempt_save:
         log.warning("train.preempt_save: preemption handling is not ported "
@@ -513,10 +515,6 @@ def custom_train(cfg, loaders, model, run_dir: str,
         start_epoch = checkpoint.load_ckpt(run_dir, model, opt,
                                            cfg.train.epoch_resume, gen,
                                            plateau)
-        # the shuffle of the epoch resumed at, so that a resumed run takes
-        # an uninterrupted one's batches; the JAX loop restarts its shuffle
-        # at epoch 0 here (it leaves the loader's counter alone)
-        train_loader.epoch = start_epoch
     k_steps = KSteps(cfg, model, opt, train_loader, gen) if k_path else None
     ckpt = cfg.train.enable_ckpt
     history: Dict[str, List[Dict]] = {s: [] for s in loaders}

@@ -1,5 +1,6 @@
-"""Carry a JAX GPSModel's (CustomGatedGCN or GCN layers), SANTransformer's
-or GraphormerNet's flax variables over to the port's state dict.
+"""Carry a JAX GPSModel's (CustomGatedGCN, GCN or GINE layers),
+SANTransformer's or GraphormerNet's flax variables over to the port's state
+dict.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the variables). The same mapping names a
@@ -8,8 +9,9 @@ parameter names, so tests compare gradients, updated parameters and updated
 running statistics key by key. A flax ``Dense`` kernel
 is (in, out): the GPS layers keep it so, since their kernels take that
 layout, and the ``nn.Linear`` weights of the encoders (RWSE, LapPE, the
-Linear node and edge encoders) and of the heads (san_graph, the node head's
-MLP) take it transposed (out, in); an ``Embed`` table stays as it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
+Linear node and edge encoders, GINE's MLPs) and of the heads (san_graph, the
+node head's MLP) take it transposed (out, in); an ``Embed`` table stays as
+it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
 running ``mean``/``var`` (biased) become ``weight``/``bias`` and
 ``running_mean``/``running_var``. The layer stack may be unrolled
 (``GPSLayer_<i>``, or ``CheckpointGPSLayer_<i>`` under remat) or stacked on
@@ -64,8 +66,8 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
     names are the same on both paths, in training and in evaluation
     (``Norm_0`` the attention norm, ``Norm_1`` the final norm). ``s=None``
     maps the parameters only."""
-    if "GCNLayer_0" in p:
-        return gcn_layer_state_dict(p, s, prefix)
+    if "GCNLayer_0" in p or "GINELayer_0" in p:
+        return plain_local_state_dict(p, s, prefix)
     out: dict = {}
     g = p["GatedGCNLayer_0"]
     gs = None if s is None else s["GatedGCNLayer_0"]
@@ -97,17 +99,39 @@ def gps_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
     return {k.lstrip("."): v for k, v in out.items()}
 
 
-def gcn_layer_state_dict(p: dict, s, prefix: str = "") -> dict:
-    """One GCN+Transformer GPSLayer's flax params/batch_stats → the port's
-    ``GPSLayer`` state dict: ``GCNLayer_0/Dense_0`` → ``local.w``/
-    ``local.b``, ``qkv_*`` → ``w_qkv``/``b_qkv``, ``out_*``, the FFN's
-    ``Dense_0``/``Dense_1``, and with BatchNorm ``Norm_0``/``Norm_1``/
-    ``Norm_2`` → ``norm_local``/``norm_attn``/``norm_out`` (without it the
-    norms hold no variables)."""
+def gine_state_dict(g: dict, s, prefix: str = "") -> dict:
+    """One GINELayer's flax params/batch_stats → the port's ``GINELayer``
+    state dict: ``eps``; with the ES scale ``MLP_0`` → ``es_mlp`` and
+    ``MLP_1`` → ``mlp``, without it ``MLP_0`` → ``mlp``; in the wrapped
+    form ``Norm_0`` → ``norm`` (with BatchNorm)."""
+    out: dict = {f"{prefix}.eps": np.asarray(g["eps"])}
+    if "MLP_1" in g:
+        _dense_list(out, f"{prefix}.es_mlp.layers", g["MLP_0"])
+        _dense_list(out, f"{prefix}.mlp.layers", g["MLP_1"])
+    else:
+        _dense_list(out, f"{prefix}.mlp.layers", g["MLP_0"])
+    if "Norm_0" in g:
+        _norm(out, f"{prefix}.norm", g, s, "Norm_0")
+    return {k.lstrip("."): v for k, v in out.items()}
+
+
+def plain_local_state_dict(p: dict, s, prefix: str = "") -> dict:
+    """One GCN+ or GINE+Transformer GPSLayer's flax params/batch_stats →
+    the port's ``GPSLayer`` state dict: ``GCNLayer_0/Dense_0`` →
+    ``local.w``/``local.b`` or ``GINELayer_0`` → ``local``
+    (:func:`gine_state_dict`), ``qkv_*`` → ``w_qkv``/``b_qkv``, ``out_*``,
+    the FFN's ``Dense_0``/``Dense_1``, and with BatchNorm ``Norm_0``/
+    ``Norm_1``/``Norm_2`` → ``norm_local``/``norm_attn``/``norm_out``
+    (without it the norms hold no variables)."""
     out: dict = {}
     d = p["qkv_kernel"].shape[0]
-    out[f"{prefix}.local.w"] = p["GCNLayer_0"]["Dense_0"]["kernel"]
-    out[f"{prefix}.local.b"] = p["GCNLayer_0"]["Dense_0"]["bias"]
+    if "GINELayer_0" in p:
+        out.update(gine_state_dict(
+            p["GINELayer_0"], None if s is None else s.get("GINELayer_0"),
+            f"{prefix}.local"))
+    else:
+        out[f"{prefix}.local.w"] = p["GCNLayer_0"]["Dense_0"]["kernel"]
+        out[f"{prefix}.local.b"] = p["GCNLayer_0"]["Dense_0"]["bias"]
     out[f"{prefix}.w_qkv"] = np.asarray(p["qkv_kernel"]).reshape(d, 3 * d)
     out[f"{prefix}.b_qkv"] = np.asarray(p["qkv_bias"]).reshape(3 * d)
     out[f"{prefix}.w_out"] = p["out_kernel"]
@@ -243,9 +267,11 @@ def _dense_list(out: dict, prefix: str, tree: dict, first: int = 0,
 
 
 def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
-    """The FeatureEncoder's flax trees: embedding tables (Atom, Bond) or one
-    Dense (VOCNode/LinearNode, VOCEdge/LinearEdge), and RWSE or LapPE (as a
-    DeepSet or a Transformer)."""
+    """The FeatureEncoder's flax trees, each module under its class name
+    whatever else the name composes: embedding tables (Atom, Bond,
+    TypeDictNode, TypeDictEdge) or one Dense (VOCNode/LinearNode,
+    VOCEdge/LinearEdge), and RWSE and LapPE (as a DeepSet or a
+    Transformer)."""
     def stats(name):
         return None if fs is None else fs[name]["MaskedBatchNorm_0"]
 
@@ -253,9 +279,11 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
         for k, v in fe.get(name, {}).items():
             i = int(k.split("_")[1])
             out[f"encoder.{enc}.embeddings.{i}.weight"] = v["embedding"]
-    if "TypeDictNodeEncoder_0" in fe:
-        out["encoder.type_dict.embedding.weight"] = \
-            fe["TypeDictNodeEncoder_0"]["Embed_0"]["embedding"]
+    for enc, name in (("type_dict", "TypeDictNodeEncoder_0"),
+                      ("edge_type_dict", "TypeDictEdgeEncoder_0")):
+        if name in fe:
+            out[f"encoder.{enc}.embedding.weight"] = \
+                fe[name]["Embed_0"]["embedding"]
     if "GraphormerBiasEncoder_0" in fe:
         _graphormer_bias_state_dict(out, fe["GraphormerBiasEncoder_0"])
     if "Dense_0" in fe:

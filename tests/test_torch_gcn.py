@@ -578,6 +578,7 @@ def test_squirrel_model_eval_matches_jax(monkeypatch, loaders):
     against JAX's 32-slot batch, logits on every real node of the val and
     test views."""
     from graphgps_torch.driver import infer_dims
+    from graphgps_torch.models.local_gnn import GCNLayer
     from graphgps_torch.models.networks import build_model
     from graphgps_torch.weights import load_flax
 
@@ -587,7 +588,8 @@ def test_squirrel_model_eval_matches_jax(monkeypatch, loaders):
     jb = _jax_batch(jl["val"])
     jmodel, (params, stats) = _jax_model(jcfg, dim_out, jb)
     model = build_model(tcfg, dim_out).eval()
-    assert model.layers[0].gcn and model.layers[0].norm_out is None
+    assert isinstance(model.layers[0].local, GCNLayer)
+    assert model.layers[0].norm_out is None
     load_flax(model, params, stats)
     for split in ("val", "test"):
         jb = _jax_batch(jl[split])
@@ -679,6 +681,7 @@ def test_actor_recipe_builds_and_steps():
     stand-in: the model builds on the GCN path, two train steps move the
     parameters with finite losses, and evaluation gives finite logits."""
     from graphgps_torch.driver import infer_dims
+    from graphgps_torch.models.local_gnn import GCNLayer
     from graphgps_torch.models.networks import build_model
     from graphgps_torch.optim import build_optimizer
     from graphgps_torch.train.loop import eval_step, train_step
@@ -689,7 +692,8 @@ def test_actor_recipe_builds_and_steps():
     torch.manual_seed(0)
     model = build_model(tcfg, dim_out).train()
     assert len(model.layers) == 2 and model.layers[0].dim_h == 64
-    assert model.layers[0].gcn and model.layers[0].attn_dropout == 0.0
+    assert isinstance(model.layers[0].local, GCNLayer)
+    assert model.layers[0].attn_dropout == 0.0
     opt = build_optimizer(tcfg, model.parameters())
     before = [p.detach().clone() for p in model.parameters()]
     gen = torch.Generator().manual_seed(0)
@@ -709,7 +713,7 @@ def test_actor_recipe_builds_and_steps():
     (["gt.layer_type", "GAT+Transformer"], "Queue 1 item 13"),
     (["gt.layer_type", "GENConv+Transformer"], "Queue 1 item 13"),
     (["gt.layer_type", "PNA+Transformer"], "Queue 1 item 13"),
-    (["gt.layer_type", "GINE+Transformer"], "Queue 1 item 13"),
+    (["gt.layer_type", "GINE+BiasedTransformer"], "Queue 1 item 15"),
     (["gt.layer_norm", "True"], "Queue 1 item 15")])
 def test_gcn_recipe_refusals(opts, match):
     """What the GCN+Transformer recipes still refuse, each naming its

@@ -7,8 +7,9 @@ On the CPU (the kernels' plain versions; JAX imported inside the tests):
   = 3 over a train split of 4 batches, so the last group holds one real
   batch and two fillers) against the JAX package's ``make_scan_steps`` on
   the same weights and index table at dropout 0, for a 2-layer GPS-deep at
-  d = 128 on the merged path (``GGPS_FUSED_FRONT=1``) and a 2-layer
-  ogbg-molhiv at d = 64, from random weights with running statistics
+  d = 128 on the merged path (``GGPS_FUSED_FRONT=1``), a 2-layer
+  ogbg-molhiv at d = 64 and a 2-layer zinc-GPS+RWSE (GINE) at d = 64, from
+  random weights with running statistics
   calibrated on the split (``_calibrated_stats``): per-step losses and
   loss masks, parameters, running statistics, Adam's moments and step
   counts, at the train-step tests' tolerances (rtol = atol = 1e-4; a
@@ -24,9 +25,9 @@ On the CPU (the kernels' plain versions; JAX imported inside the tests):
 - the eligibility rule equals JAX's loader decision, with JAX's warning;
 - each seeded kernel's plain version and the torch-op hash give the same
   bits for an int seed and for the same seed in a 0-d int32 tensor;
-- a run stopped after epoch 1 and resumed ends where an uninterrupted one
-  ends, K-step and eager (the resumed run takes the shuffle of the epoch
-  it resumes at; JAX's restarts at epoch 0).
+- a run stopped after epoch 1 and resumed trains its epoch over the
+  train split's shuffle of epoch 0, K-step and eager, as JAX's loop does
+  (its loader's epoch counter starts at 0 and a resume leaves it there).
 
 On the card (``cuda`` marker, no JAX; ``python -m pytest --noconftest -o
 addopts= -m cuda tests/test_torch_kstep.py``): every kernel that reads its
@@ -39,6 +40,7 @@ running statistics and Adam state.
 import copy
 import json
 import logging
+import pathlib
 
 import numpy as np
 import pytest
@@ -71,8 +73,15 @@ SCAN_LR = 1e-4
 # rule, rate, step count or batch would move most entries
 SMALL_STEP_ENTRIES = 2
 K = 3
+# zinc-GPS+RWSE (GINE, TypeDictNode+RWSE, TypeDictEdge) and its LapPE
+# neighbour cut to 2 layers on 40 graphs: train 32 (4 batches of 8)
+ZINC_CFG = str(pathlib.Path(CFG).with_name("zinc-GPS+RWSE.yaml"))
+ZINC_LAPPE_CFG = str(pathlib.Path(CFG).with_name("zinc-GPS.yaml"))
+ZINC_SMALL = ["gt.layers", "2", "train.batch_size", "8",
+              "dataset.synth_num_graphs", "40"]
 RECIPES = {"pcqm4m-GPSdeep": dict(cfg_path=CFG, small=SMALL),
-           "ogbg-molhiv": dict(cfg_path=MOLHIV_CFG, small=MOLHIV_SMALL)}
+           "ogbg-molhiv": dict(cfg_path=MOLHIV_CFG, small=MOLHIV_SMALL),
+           "zinc-GPS+RWSE": dict(cfg_path=ZINC_CFG, small=ZINC_SMALL)}
 
 
 def _port_run(recipe, *extra, device="cpu"):
@@ -288,7 +297,8 @@ def _calibrated_stats(model, loader, sel, params, stats):
 
 
 @pytest.mark.parametrize("recipe", ["pcqm4m-GPSdeep", "ogbg-molhiv", "VOC",
-                                    "ogbg-molhiv-SAN"])
+                                    "ogbg-molhiv-SAN", "zinc-GPS+RWSE",
+                                    "zinc-GPS"])
 def test_eligibility_matches_jax(recipe, caplog):
     """``k_steps_eligible`` takes K steps exactly where the JAX driver builds
     a ``DeviceLoader`` for the train split (and so runs ``make_scan_steps``),
@@ -304,6 +314,7 @@ def test_eligibility_matches_jax(recipe, caplog):
 
     which = dict(RECIPES, VOC=dict(cfg_path=VOC_CFG, small=VOC_SMALL))
     which["ogbg-molhiv-SAN"] = dict(cfg_path=SAN_CFG, small=SAN_SMALL)
+    which["zinc-GPS"] = dict(cfg_path=ZINC_LAPPE_CFG, small=ZINC_SMALL)
     jcfg, tcfg = small_cfgs("train.steps_per_dispatch", "4", **which[recipe])
     jsplits = jload(jcfg)
     jax_k = isinstance(jcreate(jcfg, jsplits)["train"], DeviceLoader)
@@ -314,7 +325,10 @@ def test_eligibility_matches_jax(recipe, caplog):
     warned = [r for r in caplog.records
               if "steps_per_dispatch>1 needs a DeviceLoader" in r.message]
     assert len(warned) == (0 if jax_k else 1)
-    assert not k_steps_eligible(small_cfgs(**which[recipe])[1], set())
+    # the recipe's own setting: one step per dispatch, but zinc-GPS+RWSE's
+    # published K = 32
+    own = small_cfgs(**which[recipe])[1]
+    assert k_steps_eligible(own, set()) == (recipe == "zinc-GPS+RWSE")
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +337,8 @@ def test_eligibility_matches_jax(recipe, caplog):
 @pytest.mark.parametrize("recipe", list(RECIPES))
 def test_k_step_epochs_equal_eager_epochs(monkeypatch, tmp_path, recipe):
     """Two epochs at the recipe's dropout (GPS-deep 0.1 / 0.1 on the merged
-    path, ogbg-molhiv 0.05 / 0.5 with the torch-op attention mask), K = 3:
+    path, ogbg-molhiv 0.05 / 0.5 and zinc-GPS+RWSE 0 / 0.5 with the torch-op
+    attention mask), K = 3:
     the same stats lines, parameters, running statistics, Adam state and
     generator state as two eager epochs from the same generator seed."""
     from graphgps_torch.logging_utils import SplitLogger
@@ -393,43 +408,97 @@ def _resumed_run_ends_where_an_uninterrupted_one_ends(tmp_path, k: int):
     """A 3-epoch run at ``train.steps_per_dispatch`` k keeps a checkpoint
     per epoch; with epoch 2's removed (a run stopped after epoch 1), a run
     with ``train.auto_resume`` trains epoch 2 again from epoch 1's
-    checkpoint (model, Adam state, generator, and the train split's shuffle
-    of epoch 2) and saves the same state."""
-    from graphgps_torch.driver import main
+    checkpoint (model, Adam state, generator) over the train split's
+    shuffle of epoch 0, as the JAX package's loop does: its
+    ``DeviceLoader`` starts at epoch 0, ``custom_train`` leaves the counter
+    alone, and both its epoch forms (``__iter__``, ``train_epoch_scan``)
+    shuffle with ``default_rng(seed + epoch)``. The resumed run saves the
+    state of epoch 1's checkpoint plus one epoch over epoch 0's order,
+    computed here batch by batch with ``train_step``; the uninterrupted
+    run's epoch 2 (over epoch 2's order) ends elsewhere."""
+    from graphgps_torch import config as tc
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import create_loaders, infer_dims, main
+    from graphgps_torch.models.networks import build_model
+    from graphgps_torch.optim import build_optimizer, build_schedule, set_lr
+    from graphgps_torch.train import checkpoint
+    from graphgps_torch.train.loop import train_step
+    from tests.test_torch_data import both_loaders
 
-    base = ["--device", "cpu", "--cfg", CFG, *SMALL, "train.mode", "custom",
-            "train.steps_per_dispatch", str(k), "train.ckpt_best", "False",
-            "train.ckpt_period", "1", "optim.max_epoch", "3",
-            "optim.num_warmup_epochs", "1", "out_dir", str(tmp_path)]
+    opts = [*SMALL, "train.mode", "custom", "train.steps_per_dispatch",
+            str(k), "train.ckpt_best", "False", "train.ckpt_period", "1",
+            "optim.max_epoch", "3", "optim.num_warmup_epochs", "1",
+            "out_dir", str(tmp_path)]
+    base = ["--device", "cpu", "--cfg", CFG, *opts]
     main(base)
-    ckpt = tmp_path / "pcqm4m-GPSdeep+RWSE" / "0" / "ckpt"
+    run_dir = tmp_path / "pcqm4m-GPSdeep+RWSE" / "0"
+    ckpt = run_dir / "ckpt"
     whole = torch.load(ckpt / "2.pt", weights_only=True)
     (ckpt / "2.pt").unlink()
     second = main(base + ["train.auto_resume", "True"])[0]
     assert [r["epoch"] for r in second["train"]] == [2]
     resumed = torch.load(ckpt / "2.pt", weights_only=True)
-    for key, v in whole["model"].items():
+
+    # epoch 1's checkpoint plus one epoch over epoch 0's order
+    cfg = tc.new_cfg()
+    tc.load_cfg(cfg, CFG)
+    tc.update_from_list(cfg, opts)
+    splits = load_dataset(cfg)
+    loader = create_loaders(cfg, splits, "cpu")["train"]
+    model = build_model(cfg, infer_dims(cfg, splits))
+    opt = build_optimizer(cfg, model.parameters())
+    gen = torch.Generator()
+    assert checkpoint.load_ckpt(str(run_dir), model, opt, 1, gen) == 2
+    set_lr(opt, build_schedule(cfg)(2))
+    model.train()
+    n, B = loader.arenas.num_graphs_total, loader.batch_size
+    order = np.arange(n)
+    np.random.default_rng(cfg.seed + 0).shuffle(order)
+    later = np.arange(n)
+    np.random.default_rng(cfg.seed + 2).shuffle(later)
+    assert not np.array_equal(order, later)
+    chunks = [np.concatenate([order[s:s + B],
+                              -np.ones(max(0, s + B - n), np.int64)])
+              for s in range(0, n, B)]
+    batches = [loader.arenas.assemble(torch.as_tensor(c), loader.max_nodes)
+               for c in chunks]
+    for batch in batches:
+        train_step(cfg, model, opt, batch, gen)
+    for key, v in model.state_dict().items():
         assert torch.equal(v, resumed["model"][key]), key
-    assert torch.equal(whole["generator"], resumed["generator"])
-    for i, st in whole["optimizer"]["state"].items():
+    assert torch.equal(gen.get_state(), resumed["generator"])
+    for i, st in opt.state_dict()["state"].items():
         for key, v in st.items():
             assert torch.equal(v, resumed["optimizer"]["state"][i][key]), \
                 (i, key)
+    assert any(not torch.equal(v, resumed["model"][key])
+               for key, v in whole["model"].items())
+
+    # the JAX side of the rule: a new train DeviceLoader at epoch 0 gives
+    # the graphs of that order
+    from graphgps_tpu.data.device_loader import DeviceLoader
+
+    jloader = both_loaders(*opts[len(SMALL):])[2]["train"]
+    assert isinstance(jloader, DeviceLoader) and jloader.epoch == 0
+    assert jloader.seed == cfg.seed
+    got = [(real, jb) for real, jb in jloader]
+    assert len(got) == len(batches)
+    for (real, jb), batch in zip(got, batches):
+        np.testing.assert_array_equal(np.asarray(jb.y)[:real],
+                                      batch.y[:real].numpy())
 
 
 def test_resumed_k_step_run_ends_where_an_uninterrupted_one_ends(tmp_path):
     """``train.auto_resume`` with K = 3 (:func:`_resumed_run_ends_where_an_
-    uninterrupted_one_ends`)."""
+    uninterrupted_one_ends`): the resumed epoch's groups come from epoch 0's
+    order, as JAX's ``train_epoch_scan`` takes them on a new loader."""
     _resumed_run_ends_where_an_uninterrupted_one_ends(tmp_path, K)
 
 
 def test_resumed_eager_run_ends_where_an_uninterrupted_one_ends(tmp_path):
-    """``train.auto_resume`` with one step per dispatch: the resumed run
-    also takes the train split's shuffle of the epoch it resumes at, where
-    the JAX package's loop restarts its shuffle at epoch 0 (it leaves the
-    loader's epoch counter alone), so a resumed JAX run takes other
-    batches than an uninterrupted one. The port departs from it there, on
-    both paths alike."""
+    """``train.auto_resume`` with one step per dispatch: the resumed epoch
+    takes epoch 0's order, as a new JAX ``DeviceLoader``'s first
+    iteration does (:func:`_resumed_run_ends_where_an_uninterrupted_one_ends`)."""
     _resumed_run_ends_where_an_uninterrupted_one_ends(tmp_path, 1)
 
 

@@ -54,7 +54,7 @@ def test_unsupported_configs_raise():
     from graphgps_torch.models.networks import build_model
     from tests.test_torch_data import small_cfgs
 
-    for key, val in (("gt.layer_type", "GINE+Transformer"),
+    for key, val in (("gt.layer_type", "GIN+Transformer"),
                      ("gt.layer_norm", "true"), ("gnn.head", "graph"),
                      ("gt.dim_hidden", "32")):
         _, cfg = small_cfgs(key, val)

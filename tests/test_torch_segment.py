@@ -332,8 +332,9 @@ def test_gcn_layer_tiled_matches_jax(monkeypatch):
 def test_gather_backward_rungs(monkeypatch):
     """The gather's backward: the tiled rung only where JAX's ``_sbt_bwd``
     takes it (4,096 indices or more, not blocked, ``GGPS_SORTED_TAKE`` not
-    0, and the tiled conditions), ``index_add_`` otherwise; the gradient is
-    the same either way."""
+    0, and the tiled conditions), ``index_add_`` otherwise, and in the
+    blocked layout JAX's blocked gather (its ids in their graph's node
+    range, as the layout requires); the gradient is the same every way."""
     from graphgps_torch.ops import segment
     from graphgps_torch.ops.kernels import segment_sum as kseg
 
@@ -345,11 +346,15 @@ def test_gather_backward_rungs(monkeypatch):
     x0 = torch.from_numpy(rng.standard_normal((1024, 32)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(0, 1024, 16384).astype(np.int32))
     g = torch.from_numpy(rng.standard_normal((16384, 32)).astype(np.float32))
-    want = torch.zeros(1024, 32).index_add_(0, idx.long(), g)
+    # 32 graphs of 32 node slots and 512 edge slots, each edge's ids in its
+    # graph's range
+    local = (torch.arange(16384) // 512 * 32 + idx % 32).int()
 
     def grad(**kw):
         x = x0.clone().requires_grad_()
-        return torch.autograd.grad(segment.gather(x, idx, **kw), x, g)[0]
+        ids = local if kw else idx
+        got = torch.autograd.grad(segment.gather(x, ids, **kw), x, g)[0]
+        return got, torch.zeros(1024, 32).index_add_(0, ids.long(), g)
 
     on = {"GGPS_TILED_SEGMENT": "1", "GGPS_TILED_FORCE": "1"}
     for env, kw, tiled in (({}, {}, False), (on, {}, True),
@@ -362,7 +367,8 @@ def test_gather_backward_rungs(monkeypatch):
         for key, val in env.items():
             monkeypatch.setenv(key, val)
         calls.clear()
-        torch.testing.assert_close(grad(**kw), want, rtol=1e-5, atol=1e-5)
+        got, want = grad(**kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         assert len(calls) == tiled, env
 
 
