@@ -129,6 +129,16 @@ one. Phases, each fatal on failure:
    tolerances with bit-identical backward reruns;
    ``F.scaled_dot_product_attention`` with the boolean mask of allowed
    pairs is held against the kernel and timed as ``library_ms``;
+3l. the long-range recipes' shapes: ``gatedgcn`` and ``wide_attention``
+   (rate 0.5) forward and backward on layer 0's inputs of the long-range
+   path (peptides-func-GPS: batch 128, 152 node slots, d=96, 4 heads of
+   24), then kernels only: ogbg-molpcba's merged layer (``gps_front``,
+   ``pre_tail``, ``combine_ffn``: batch 512, d=384, 4 heads of 96) as 3
+   and 3b hold GPS-deep's, the backward at its dropout 0.2 and attention
+   dropout 0.5; ogbg-molhiv GPS+RWSEdev's unmerged layer (batch 128, d=72)
+   as 3c holds ogbg-molhiv's, at its dropout 0.3; COCO superpixels' wide
+   attention (8 heads of 12 columns, 512 slots) at rates 0.5 and 0 as 3d
+   holds VOC's;
 4. per main path (GPS-deep 16x256 at batch 256, ogbg-molhiv 10x64 at batch
    32, VOC superpixels 4x96 at batch 32 on graphs of 400-500 nodes, ZINC
    Graphormer 12x80 with 8 heads and the graph token at batch 256,
@@ -146,7 +156,12 @@ one. Phases, each fatal on failure:
    SWITCH_RATE_BATCHES batches a pass, and zinc-GPS+RWSE (GINE ∥
    Transformer 10x64, 4 heads, attention dropout 0.5, add pooling, batch
    32, at its published ``train.steps_per_dispatch`` 32 in b: no kernel
-   wrapper runs at these settings, and every count stays 0), each with
+   wrapper runs at these settings, and every count stays 0), and
+   peptides-func-GPS (4x96, 4 heads, Atom+LapPE and Bond, attention dropout
+   0.5, mean pooling, the default head, multilabel binary cross-entropy,
+   ``ap``, batch 128 on JAX's peptides stand-in of 640 graphs: the GatedGCN
+   core and the wide attention, PEPTIDES_RATE_BATCHES rate batches), each
+   with
    every launch count set to 0 just before a run and read just after:
    a. the port's entry point ``graphgps_torch.driver.main`` in ``train.mode
       inference-only``: the launches per batch the path implies;
@@ -154,7 +169,8 @@ one. Phases, each fatal on failure:
       checkpoints on): one stats line per epoch and split (val and test at
       the evaluated epochs: every ``eval_period`` and the last) with finite
       losses (``auc`` on ogbg-molhiv, ``f1`` on VOC, ``accuracy`` on
-      wn-squirrel, ``mae`` otherwise), the launches per layer
+      wn-squirrel, ``ap`` on peptides-func, ``mae`` otherwise), the
+      launches per layer
       and training step (forward ones
       also per evaluated batch where evaluation runs them; the edge tail's
       backward in all layers but the last, whose edge output does not reach
@@ -239,7 +255,10 @@ ogbg-molhiv SAN's, the two of the GPS FFN block at wn-squirrel's, the two
 of the fused attention rung at GPS-deep's, the two of the flash attention
 at VOC's, the two segment sums and their plan kernel at wn-squirrel's
 aggregation and BigBird's two at wn-squirrel's first layer: twenty-nine;
-each row also carries the launch floor); the last line is ``{"ok": true,
+then phase 3l's twenty at the long-range recipes' shapes: four at
+peptides-func's, six at ogbg-molpcba's, eight at ogbg-molhiv
+GPS+RWSEdev's, two at COCO's; each row names its ``shape`` and also
+carries the launch floor); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -358,6 +377,34 @@ ZINC_GPS_CFG = "configs/GPS/zinc-GPS+RWSE.yaml"
 ZINC_GPS_LAUNCHES = {}
 # its stand-in in phase 5: 1,600 graphs, 40 train batches of 32
 ZINC_GPS_KSTEP_OPTS = ("dataset.synth_num_graphs", "1600")
+# peptides-func-GPS (LRGB; 4 x 96, 4 heads, Atom+LapPE and Bond, attention
+# dropout 0.5, mean pooling, the default head, multilabel BCE, ap) at full
+# width and depth on JAX's peptides stand-in (20-150 atoms, 152 node slots):
+# 640 graphs, 512 train (4 full batches of 128), 64 each for val and test
+PEPTIDES_CFG = "configs/GPS/peptides-func-GPS.yaml"
+PEPTIDES_OPTS = ["dataset.synth_num_graphs", "640"]
+# at d = 96 and dropout 0 the unmerged path with its tails and FFN plain:
+# the GatedGCN core (152 slots, within its 181) and the wide attention (129
+# to 768 slots) per layer, in training and evaluation
+PEPTIDES_LAUNCHES = {"gatedgcn": (1, 1), "gatedgcn_bwd": (1, 0),
+                     "wide_attention": (1, 1), "wide_attention_bwd": (1, 0)}
+# its rate batches: the 4 train batches (10 would repeat them)
+PEPTIDES_RATE_BATCHES = 4
+# phase 3l, kernels only, on seeded models and stand-ins: ogbg-molpcba's
+# merged layer (5 x 384, 4 heads of 96, batch 512 of 40 node slots, dropout
+# 0.2 and attention dropout 0.5; 640 graphs: one train batch), ogbg-molhiv
+# GPS+RWSEdev's unmerged layer (d 72, batch 128, dropout 0.3 and 0.5: the
+# tails deferred; 160 graphs) and COCO's wide attention (8 heads of 12
+# columns) on the voc-like stand-in at VOC's 400-500 nodes in 512 slots
+# (40 graphs: one train batch of 32)
+MOLPCBA_CFG = "configs/GPS/ogbg-molpcba-GPS+RWSE.yaml"
+MOLPCBA_OPTS = ["dataset.synth_num_graphs", "640"]
+RWSEDEV_CFG = "configs/GPS/ogbg-molhiv-GPS+RWSEdev.yaml"
+RWSEDEV_OPTS = ["dataset.synth_num_graphs", "160"]
+COCO_CFG = "configs/GPS/cocosuperpixels-GPS.yaml"
+COCO_OPTS = ["dataset.synth_min_nodes", "400", "dataset.synth_max_nodes",
+             "500", "dataset.synth_num_tasks", "81",
+             "dataset.synth_num_graphs", "40"]
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 # operations' rates by the units that run them: f32 outside the tensor cores
 # (most kernels run f32 on CUDA cores); 3xTF32 on the tensor cores, three
@@ -939,12 +986,13 @@ def launch_floor(torch, device) -> float:
     return ms
 
 
-def check_kernels(torch, cfg, splits, device, flush):
+def check_kernels(torch, cfg, splits, device, flush, front_off=True):
     """Phase 3: each kernel of the merged path vs its plain version on
     layer 0's inputs (``pre_tail`` also L2-cold, ``flush`` written between
-    calls), and the unmerged path's ``gatedgcn`` and ``drop_add`` at
-    GPS-deep's layer with the front off (G'). Returns the rows, the
-    calibrated model's state dict and layer 0's inputs."""
+    calls, unless it is None), and with ``front_off`` the unmerged path's
+    ``gatedgcn`` and ``drop_add`` at the layer with the front off (G' on
+    GPS-deep). Returns the rows, the calibrated model's state dict and
+    layer 0's inputs."""
     from graphgps_torch.driver import create_loaders
     from graphgps_torch.ops.kernels.combine_ffn import (combine_ffn_plain,
                                                          fused_combine_ffn)
@@ -988,7 +1036,8 @@ def check_kernels(torch, cfg, splits, device, flush):
         dict(name="pre_tail", fn=fused_pre_tail, plain=pre_tail_plain,
              args=tail_args, source="graphgps_torch/csrc/pre_tail.cu",
              replaces="graphgps_tpu/ops/pallas/fused_tail.py:189",
-             flops=tail_flops(gg.act) * e_real * d, cold=flush),
+             flops=tail_flops(gg.act) * e_real * d,
+             **({} if flush is None else dict(cold=flush))),
         dict(name="combine_ffn", fn=fused_combine_ffn, plain=combine_ffn_plain,
              args=comb_args, source="graphgps_torch/csrc/combine_ffn.cu",
              replaces="graphgps_tpu/ops/pallas/fused_combine.py:183",
@@ -998,6 +1047,12 @@ def check_kernels(torch, cfg, splits, device, flush):
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
                   real_edges=e_real)
     results = [forward_case(torch, c, shapes) for c in cases]
+    layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
+                  n_real=n_real, e_real=e_real, attn_pairs=attn_pairs,
+                  B=B, N=N, E=E, d=d, H=H, dh=dh, flush=flush)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    if not front_off:
+        return results, state, layer0
     # the GatedGCN core as GPS-deep's layers with the front off run it
     # (G'), forward and backward: printed, not in the kernels line, which
     # takes ogbg-molhiv's rows (3c)
@@ -1018,11 +1073,7 @@ def check_kernels(torch, cfg, splits, device, flush):
                         DROP_RATE, cotangents(torch, SEED + 18, device))
     forward_case(torch, da[0], at)
     backward_case(torch, da[1], DROP_SEED, DROP_RATE, at)
-    layer0 = dict(front=front_in, tail=tail_args, comb=comb_args,
-                  n_real=n_real, e_real=e_real, attn_pairs=attn_pairs,
-                  B=B, N=N, E=E, d=d, H=H, dh=dh, flush=flush)
-    return results, {k: v.clone() for k, v in model.state_dict().items()}, \
-        layer0
+    return results, state, layer0
 
 
 def tail_flops(act: str) -> int:
@@ -1053,7 +1104,8 @@ def backward_case(torch, c, seed, rate: float, shapes: dict,
     runs that differ in any bit. ``c``: name, run (cots or None → (cots,
     the backward call)), plain (cots → gradients), inputs (the tensors the
     backward reads beside the cotangents), sites [(name, rows, cols[,
-    site id, by default the place in the list])], flops, source, replaces,
+    site id, by default the place in the list[, the site's rate, by default
+    ``rate``]])], flops, source, replaces,
     ``library`` (cots → a call of autograd through one PyTorch function that
     computes the same forward, where there is one: timed, used nowhere in
     the port), and ``tol`` = (rtol, atol) to make the atol relative to each
@@ -1073,8 +1125,11 @@ def backward_case(torch, c, seed, rate: float, shapes: dict,
     floor = 0.0 if "tol" in c else 1.0
     ok, err, rel = grads_close(torch, got, want, rtol, atol, floor)
     device = cots[0].device
+    site_rate = {name: site[1] if len(site) > 1 else rate
+                 for name, _r, _c, *site in c["sites"]}
     kept = {name: float((dropout_mask(seed, site[0] if site else i, r_, c_,
-                                      rate, device) > 0).float().mean())
+                                      site_rate[name], device) > 0)
+                        .float().mean())
             for i, (name, r_, c_, *site) in enumerate(c["sites"])}
     row = dict(name=c["name"], route="cuda", source=c["source"],
                replaces=c["replaces"], max_abs_err=err,
@@ -1090,15 +1145,16 @@ def backward_case(torch, c, seed, rate: float, shapes: dict,
                   if timed else {}),
                **(dict(cold_ms=cold_device_ms(torch, bwd, c["cold"]))
                   if timed and "cold" in c else {}),
-               rate=rate, kept_fraction=kept, shapes=shapes)
+               rate=rate, site_rates=site_rate, kept_fraction=kept,
+               shapes=shapes)
     print(json.dumps(row), flush=True)
     if not same:
         fail(f"{c['name']}: two runs on the same inputs differ")
     if not ok:
         fail(f"{c['name']}: disagrees with autograd of its plain version "
              f"(max abs err {err}, {rel} of the tensor's largest entry)")
-    keep = 1.0 - keep_rule(rate)[0] / 256
     for name, frac in kept.items():
+        keep = 1.0 - keep_rule(site_rate[name])[0] / 256
         if abs(frac - keep) > KEEP_REL_TOL * keep:
             fail(f"{c['name']}: site {name!r} keeps {frac}, expected {keep}")
     return row
@@ -1180,11 +1236,15 @@ def combine_backward_case(torch, cin, cconf, cots_for, R: int, d: int,
                 flops=8 * n_real * d * dh, peak=PEAK_3XTF32)
 
 
-def check_backward(torch, layer0):
+def check_backward(torch, layer0, drop_rate: float = DROP_RATE,
+                   attn_rate: float = DROP_RATE):
     """Phase 3b: the three functions of the merged path with dropout
-    DROP_RATE on every site, forward and backward, through the kernels and
-    through autograd of their plain versions, on layer 0's inputs at the
-    main path's shapes. One JSON line per backward kernel."""
+    ``drop_rate`` on every site but the attention probabilities, which take
+    ``attn_rate`` (both DROP_RATE by default), forward and backward,
+    through the kernels and through autograd of their plain versions, on
+    layer 0's inputs at the main path's shapes (``pre_tail`` also L2-cold
+    where ``layer0`` holds a flush tensor). One JSON line per backward
+    kernel."""
     from graphgps_torch.ops.kernels import gps_front, pre_tail
     from graphgps_torch.ops.kernels.common import dropout_mask
 
@@ -1193,11 +1253,11 @@ def check_backward(torch, layer0):
     B, N, E, d, H, dh = (L[k] for k in ("B", "N", "E", "d", "H", "dh"))
     n, e_, pairs = L["n_real"], L["e_real"], L["attn_pairs"]
     R = B * N
-    rate, seed = DROP_RATE, drop_seed(torch, device)
+    rate, seed = drop_rate, drop_seed(torch, device)
     cots_for = cotangents(torch, SEED + 5, device)
 
     fin = tuple(L["front"][:15])
-    fconf = (seed, H, L["front"][17], rate, rate)
+    fconf = (seed, H, L["front"][17], attn_rate, rate)
     tin = tuple(L["tail"][:6])
     tconf = (seed, rate, L["tail"][8])
     cin = tuple(L["comb"][:15])
@@ -1216,13 +1276,14 @@ def check_backward(torch, layer0):
                  *fin, *fconf, *c),
              inputs=fin, source="graphgps_torch/csrc/gps_front.cu",
              replaces="graphgps_tpu/ops/pallas/fused_layer.py:352",
-             sites=[("attention P", B * H * N, N), ("out-projection", R, d)],
+             sites=[("attention P", B * H * N, N, 0, attn_rate),
+                    ("out-projection", R, d, 1, rate)],
              # dx, dWnq (7d wide), de, dWc, dO, dWo, and per head dv, dP,
              # dq, dk over the real pairs
              flops=4 * n * 7 * d * d + 4 * e_ * d * d + 4 * n * d * d
              + 8 * pairs * d, peak=PEAK_3XTF32),
         dict(tail_backward_case(torch, tin, tconf, cots_for, B * E, d, e_),
-             cold=L["flush"]),
+             **({} if L["flush"] is None else dict(cold=L["flush"]))),
         combine_backward_case(torch, cin, cconf, cots_for, R, d, dh, n),
     ]
 
@@ -1235,7 +1296,7 @@ def check_backward(torch, layer0):
     if not torch.equal(drawn, dropout_mask(seed, 0, B * E, d, rate, device)):
         fail("pre_tail: the kernel's mask differs from the port's hash")
 
-    shapes = dict(B=B, N=N, E=E, d=d, H=H)
+    shapes = dict(B=B, N=N, E=E, d=d, H=H, attn_rate=attn_rate)
     return [backward_case(torch, c, seed, rate, shapes) for c in cases]
 
 
@@ -1283,10 +1344,12 @@ def gatedgcn_cases(torch, gin, gg, batch, xo, gate, cots_for):
     return fwd, bwd
 
 
-def check_unmerged(torch, tag: str, cfg_path: str, opts, device, cold=None):
+def check_unmerged(torch, tag: str, cfg_path: str, opts, device, cold=None,
+                   rate: float = UNMERGED_DROP_RATE):
     """Phase 3c: the four functions of the unmerged layer path (GatedGCN
     core, edge tail, drop-add, combine+FFN), forward and backward with
-    dropout UNMERGED_DROP_RATE, kernels against plain versions, on layer
+    dropout ``rate`` (by default UNMERGED_DROP_RATE, ogbg-molhiv's; None:
+    the recipe's), kernels against plain versions, on layer
     0's inputs of the recipe ``cfg_path`` (``opts`` on top) at its batch
     size and width; the drop-add also L2-cold given the flush tensor
     ``cold``. Returns (cfg, splits, rows, the calibrated model's state
@@ -1310,7 +1373,8 @@ def check_unmerged(torch, tag: str, cfg_path: str, opts, device, cold=None):
     B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
     d, H, dh = layer.dim_h, layer.num_heads, layer.w_ffn1.shape[1]
     R = B * N
-    rate, seed = UNMERGED_DROP_RATE, drop_seed(torch, device)
+    seed = drop_seed(torch, device)
+    rate = cfg.gt.dropout if rate is None else rate
     with torch.no_grad():
         x, e = model.encoder(batch)
         gin = gg.core_args(batch, x, e)
@@ -1409,6 +1473,89 @@ def edge_gate_orders_note(torch, s_loc, r_loc, N: int, tag: str,
     return orders
 
 
+def mha_library(torch, counts, N: int, d: int, H: int):
+    """The library's yardstick of the wide attention: one call of
+    ``F.multi_head_attention_forward`` computes the QKV projection, the
+    key-masked attention, dropout on the probabilities and the
+    out-projection. It takes (N, B, d), (out, in) weights and a mask of the
+    padded keys; its dropout bits are its own, so at a rate above 0 only
+    its time compares. Timed, used nowhere in the port. Returns (the call
+    of (rate, xt, w_in, b_in, w_out, b_out), the padded keys' mask) for
+    graphs of ``counts`` real nodes in N node slots."""
+    import torch.nn.functional as F
+
+    n_keys = torch.where(counts > 0, counts, N)
+    padded = torch.arange(N, device=counts.device)[None, :] >= n_keys[:, None]
+
+    def call(rate, xt, w_in, b_in, w_out, b_out):
+        return F.multi_head_attention_forward(
+            xt, xt, xt, d, H, w_in, b_in, None, None, False, rate, w_out,
+            b_out, training=True, key_padding_mask=padded,
+            need_weights=False)[0]
+
+    return call, padded
+
+
+def library_inputs(ins):
+    """The wide attention's inputs (x, counts, w_qkv, b_qkv, w_out, b_out)
+    laid out as ``mha_library``'s call takes them."""
+    return [t.contiguous() for t in (ins[0].transpose(0, 1), ins[2].t(),
+                                     ins[3], ins[4].t(), ins[5])]
+
+
+def wide_attention_cases(torch, ins, H: int, rate: float, seed, cots_for,
+                         library: bool = True):
+    """``wide_attention``'s forward and backward cases on its inputs
+    ``ins`` = (x (B, N, d), counts, w_qkv, b_qkv, w_out, b_out) with H
+    heads at attention dropout ``rate``, at LONG_RTOL / LONG_ATOL; with
+    ``library``, ``mha_library``'s call as the rows' library."""
+    from graphgps_torch.ops.kernels import wide_attention
+
+    x, counts = ins[0], ins[1]
+    B, N, d = x.shape
+    conf = (seed, H, 1.0 / float(d // H) ** 0.5, rate)
+    # the rows the function needs: a graph's real nodes, or all N slots of
+    # a graph with none (uniform weights over its keys)
+    keys = torch.where(counts > 0, counts, N).long()
+    pairs = int((keys ** 2).sum())    # (query, key) pairs with weight
+    proj = 2 * int(keys.sum()) * d * 4 * d   # QKV and out-projection
+    src = "graphgps_torch/csrc/wide_attention.cu"
+    tpu = "graphgps_tpu/ops/pallas/fused_attn_wide.py"
+
+    def run(cots=None):
+        y, kept = wide_attention._launch_forward(ins, *conf)
+        cots = cots or cots_for([y])
+        return cots, lambda: wide_attention.wide_attention_backward(
+            *ins, *conf, cots[0], kept=kept)
+
+    lib_f, lib_b = {}, {}
+    if library:
+        call, _ = mha_library(torch, counts, N, d, H)
+        lib_in = library_inputs(ins)
+        leaves = [t.clone().requires_grad_() for t in lib_in]
+        y_lib = call(rate, *leaves)
+        lib_f = dict(library=lambda: call(rate, *lib_in))
+        lib_b = dict(library=lambda cots: lambda: torch.autograd.grad(
+            y_lib, leaves, cots[0].transpose(0, 1), retain_graph=True))
+    sites = [("attention P", B * H * N, N)] if rate > 0 else []
+    tol = (LONG_RTOL, LONG_ATOL)
+    return (dict(name="wide_attention",
+                 fn=wide_attention.fused_wide_attention,
+                 plain=wide_attention.wide_attention_plain,
+                 args=(*ins, *conf), tol=tol, source=src,
+                 replaces=f"{tpu}:244", peak=PEAK_3XTF32, **lib_f,
+                 # q k^T and P v over the weighted pairs, per head
+                 flops=proj + 4 * pairs * d),
+            dict(name="wide_attention_bwd", run=run,
+                 plain=lambda c: wide_attention.wide_attention_backward_plain(
+                     *ins, *conf, c[0]),
+                 inputs=ins, source=src, replaces=f"{tpu}:297",
+                 sites=sites, peak=PEAK_3XTF32, **lib_b,
+                 # dO, dWo, dx, dWqkv, and per head the logits again, dP,
+                 # dq, dk, dv over the weighted pairs
+                 flops=2 * proj + 10 * pairs * d))
+
+
 def check_long_graphs(torch, cfg_path: str, opts, device):
     """Phase 3d: the two functions of the long-graph rung (edge gate, wide
     attention), forward and backward, kernels against plain versions, on
@@ -1449,9 +1596,7 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
                layer.b_out.detach())
     cots_for = cotangents(torch, SEED + 7, device)
     eg_src = "graphgps_torch/csrc/edge_gate.cu"
-    wa_src = "graphgps_torch/csrc/wide_attention.cu"
     eg_tpu = "graphgps_tpu/ops/pallas/fused_edge_gate.py"
-    wa_tpu = "graphgps_tpu/ops/pallas/fused_attn_wide.py"
     tol = (LONG_RTOL, LONG_ATOL)
 
     def gate_cases(args, e_real, n_real, orders):
@@ -1475,61 +1620,12 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
                      inputs=args[1:], source=eg_src,
                      replaces=f"{eg_tpu}:167", sites=[], flops=2 * flops))
 
-    # the library's yardstick of the wide attention: one call of
-    # F.multi_head_attention_forward computes the QKV projection, the
-    # key-masked attention, dropout on the probabilities and the
-    # out-projection. It takes (N, B, d), (out, in) weights and a mask of the
-    # padded keys; its dropout bits are its own, so at a rate above 0 only
-    # its time compares. Timed here, used nowhere in the port.
-    n_keys = torch.where(batch.counts > 0, batch.counts, N)
-    padded = torch.arange(N, device=device)[None, :] >= n_keys[:, None]
-    lib_in = [t.contiguous() for t in (
-        attn_in[0].transpose(0, 1), attn_in[2].t(), attn_in[3],
-        attn_in[4].t(), attn_in[5])]
-
-    def library_mha(rate, xt, w_in, b_in, w_out, b_out):
-        return F.multi_head_attention_forward(
-            xt, xt, xt, d, H, w_in, b_in, None, None, False, rate, w_out,
-            b_out, training=True, key_padding_mask=padded,
-            need_weights=False)[0]
-
-    def library_backward(rate):
-        leaves = [t.clone().requires_grad_() for t in lib_in]
-        y = library_mha(rate, *leaves)
-        return lambda cots: lambda: torch.autograd.grad(
-            y, leaves, cots[0].transpose(0, 1), retain_graph=True)
+    library_mha, padded = mha_library(torch, batch.counts, N, d, H)
+    lib_in = library_inputs(attn_in)
 
     def attn_cases(rate, ins=attn_in, library=True):
-        conf = (seed, H, scale, rate)
-        counts = ins[1]
-        keys = torch.where(counts > 0, counts, N)
-        pairs = int(N * keys.sum())       # (query, key) pairs with weight
-        proj = 2 * B * N * d * 4 * d      # QKV and out-projection
-        def run(cots=None):
-            y, kept = wide_attention._launch_forward(ins, *conf)
-            cots = cots or cots_for([y])
-            return cots, lambda: wide_attention.wide_attention_backward(
-                *ins, *conf, cots[0], kept=kept)
-        sites = [("attention P", B * H * N, N)] if rate > 0 else []
-        lib_f = dict(library=lambda: library_mha(rate, *lib_in)) \
-            if library else {}
-        lib_b = dict(library=library_backward(rate)) if library else {}
-        return (dict(name="wide_attention",
-                     fn=wide_attention.fused_wide_attention,
-                     plain=wide_attention.wide_attention_plain,
-                     args=(*ins, *conf), tol=tol, source=wa_src,
-                     replaces=f"{wa_tpu}:244", peak=PEAK_3XTF32, **lib_f,
-                     # q k^T and P v over the weighted pairs, per head
-                     flops=proj + 4 * pairs * d),
-                dict(name="wide_attention_bwd", run=run,
-                     plain=lambda c:
-                         wide_attention.wide_attention_backward_plain(
-                             *ins, *conf, c[0]),
-                     inputs=ins, source=wa_src, replaces=f"{wa_tpu}:297",
-                     sites=sites, peak=PEAK_3XTF32, **lib_b,
-                     # dO, dWo, dx, dWqkv, and per head the logits again,
-                     # dP, dq, dk, dv over the weighted pairs
-                     flops=2 * proj + 10 * pairs * d))
+        return wide_attention_cases(torch, ins, H, rate, seed, cots_for,
+                                    library)
 
     n_real, e_real = int(batch.node_mask.sum()), int(batch.edge_mask.sum())
     shapes = dict(B=B, N=N, E=E, d=d, H=H, real_nodes=n_real,
@@ -1676,6 +1772,131 @@ def check_long_graphs(torch, cfg_path: str, opts, device):
             rows.append(r)
     return cfg, splits, rows, \
         {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def recipe_cfg(cfg_path: str, opts):
+    """(cfg, splits) of a recipe with ``opts`` on top, its widths set from
+    the data (``infer_dims``)."""
+    from graphgps_torch.config import load_cfg, new_cfg, update_from_list
+    from graphgps_torch.data.datasets import load_dataset
+    from graphgps_torch.driver import infer_dims
+
+    cfg = new_cfg()
+    load_cfg(cfg, cfg_path)
+    update_from_list(cfg, [*opts, "seed", str(SEED)])
+    splits = load_dataset(cfg)
+    infer_dims(cfg, splits)
+    return cfg, splits
+
+
+def check_lrgb(torch, device):
+    """Phase 3l: the long-range recipes' shapes. The GatedGCN core and the
+    wide attention (rate 0.5) forward and backward on layer 0's inputs of
+    peptides-func-GPS (batch 128, 152 node slots, d=96, 4 heads of 24);
+    then kernels only: ogbg-molpcba's merged layer (``gps_front``,
+    ``pre_tail``, ``combine_ffn``; d=384, heads of 96, batch 512) as phases
+    3 and 3b hold GPS-deep's, its backward at its dropout 0.2 and attention
+    dropout 0.5; ogbg-molhiv GPS+RWSEdev's unmerged layer (d=72, batch 128)
+    as 3c holds ogbg-molhiv's at its dropout 0.3; COCO's wide attention (8
+    heads of 12 on 512 slots) at rates 0.5 and 0 (untimed), as 3d holds
+    VOC's. Every row carries its ``shape`` and the ``main_path`` whose run
+    counts its launches; a line per part gives its seconds. Returns (rows,
+    peptides-func's calibrated state dict)."""
+    from graphgps_torch.driver import create_loaders
+    from graphgps_torch.models.gps_layer import WIDE_MAX_NODES, WIDE_MIN_NODES
+    from graphgps_torch.ops.kernels import gatedgcn
+
+    rows = []
+    t_part = [time.perf_counter()]
+
+    def tagged(new, shape, path):
+        for r in new:
+            r.update(shape=shape, main_path=path)
+        rows.extend(new)
+        now = time.perf_counter()
+        print(json.dumps(dict(phase="3l", part=shape,
+                              part_s=now - t_part[0])), flush=True)
+        t_part[0] = now
+
+    # peptides-func, layer 0
+    cfg, splits = recipe_cfg(PEPTIDES_CFG, PEPTIDES_OPTS)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = calibrated_model(torch, cfg, splits, batch)
+    layer = model.layers[0]
+    gg = layer.local
+    B, N, E = batch.num_graphs, batch.max_nodes, batch.edge_block
+    d, H = layer.dim_h, layer.num_heads
+    if layer.takes_merged(batch) or layer.defer or not (
+            WIDE_MIN_NODES < N <= WIDE_MAX_NODES):
+        fail(f"peptides-func: expected the unmerged path, plain tails and "
+             f"the wide attention at N={N}, d={d}")
+    seed = drop_seed(torch, device)
+    cots_for = cotangents(torch, SEED + 21, device)
+    with torch.no_grad():
+        x, e = model.encoder(batch)
+        gin = gg.core_args(batch, x, e)
+        xo, gate = (t.reshape(-1, d) for t in
+                    gatedgcn.fused_gatedgcn(*gin)[:2])
+    shapes = dict(B=B, N=N, E=E, d=d, H=H,
+                  real_nodes=int(batch.node_mask.sum()),
+                  real_edges=int(batch.edge_mask.sum()))
+    gf, gb = gatedgcn_cases(torch, gin, gg, batch, xo, gate, cots_for)
+    rate = cfg.gt.attn_dropout
+    af, ab = wide_attention_cases(
+        torch, (x.reshape(B, N, d), batch.counts, layer.w_qkv.detach(),
+                layer.b_qkv.detach(), layer.w_out.detach(),
+                layer.b_out.detach()), H, rate, seed, cots_for)
+    at = dict(shapes, attn_rate=rate)
+    tagged([forward_case(torch, gf, shapes),
+            backward_case(torch, gb, seed, 0.0, shapes),
+            forward_case(torch, af, at),
+            backward_case(torch, ab, seed, rate, at)],
+           "peptides-func", "peptides-func")
+    pep_state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, gin, x, e
+
+    # ogbg-molpcba's merged layer at d = 384: forward as phase 3, backward
+    # at the recipe's rates
+    cfg, splits = recipe_cfg(MOLPCBA_CFG, MOLPCBA_OPTS)
+    fwd, _state, layer0 = check_kernels(torch, cfg, splits, device, None,
+                                        front_off=False)
+    tagged(fwd + check_backward(torch, layer0, cfg.gt.dropout,
+                                cfg.gt.attn_dropout),
+           "ogbg-molpcba", "pcqm4m-GPSdeep")
+    del layer0
+
+    # ogbg-molhiv GPS+RWSEdev's unmerged layer at d = 72, its dropout
+    _, _, dev_rows, _ = check_unmerged(
+        torch, "ogbg-molhiv-GPS+RWSEdev", RWSEDEV_CFG,
+        [*RWSEDEV_OPTS, "seed", str(SEED)], device, rate=None)
+    tagged(dev_rows, "ogbg-molhiv-GPS+RWSEdev", "ogbg-molhiv")
+
+    # COCO's wide attention, 8 heads of 12 columns, on the seeded model's
+    # layer-0 inputs (no norm before the attention: no calibration)
+    cfg, splits = recipe_cfg(COCO_CFG, COCO_OPTS)
+    _real, batch = next(iter(create_loaders(cfg, splits, device)["train"]))
+    model = seeded_model(torch, cfg, splits, batch)
+    layer = model.layers[0]
+    B, N, d, H = batch.num_graphs, batch.max_nodes, layer.dim_h, \
+        layer.num_heads
+    with torch.no_grad():
+        x = model.encoder(batch)[0]
+    ins = (x.reshape(B, N, d), batch.counts, layer.w_qkv.detach(),
+           layer.b_qkv.detach(), layer.w_out.detach(), layer.b_out.detach())
+    shapes = dict(B=B, N=N, d=d, H=H, head_width=d // H,
+                  real_nodes=int(batch.node_mask.sum()))
+    for rate in (cfg.gt.attn_dropout, 0.0):
+        timed = rate > 0
+        af, ab = wide_attention_cases(torch, ins, H, rate, seed, cots_for,
+                                      library=timed)
+        at = dict(shapes, attn_rate=rate)
+        new = [forward_case(torch, af, at, timed=timed),
+               backward_case(torch, ab, seed, rate, at, timed=timed)]
+        for r in new:
+            r["attn_rate"] = rate
+        tagged(new, "cocosuperpixels" if rate > 0 else
+               "cocosuperpixels, rate 0", "vocsuperpixels")
+    return rows, pep_state
 
 
 def check_ln_ffn(torch, cfg_path: str, opts, device):
@@ -3565,7 +3786,8 @@ def main() -> None:
         fail(f"graphgps_torch is not importable ({e}): run from the "
              "repository root")
     for path in (CFG, MOLHIV_CFG, PCQM_GPS_CFG, VOC_CFG, ZINC_CFG, SAN_CFG,
-                 SQUIRREL_CFG, ZINC_GPS_CFG):
+                 SQUIRREL_CFG, ZINC_GPS_CFG, PEPTIDES_CFG, MOLPCBA_CFG,
+                 RWSEDEV_CFG, COCO_CFG):
         if not os.path.exists(path):
             fail(f"{path} not found: run from the repository root")
     device = torch.device("cuda", 0)
@@ -3679,6 +3901,13 @@ def main() -> None:
              and r["seed"] == 0]
     phase("3k")
 
+    # 3l. the long-range recipes' shapes: peptides-func's layer 0, and
+    # kernels only at ogbg-molpcba's, ogbg-molhiv GPS+RWSEdev's and COCO's;
+    # the kernels line takes the rows at each recipe's rates
+    lr_rows, pep_state = check_lrgb(torch, device)
+    rows += [r for r in lr_rows if r["shape"] != "cocosuperpixels, rate 0"]
+    phase("3l")
+
     # 4. the six main paths
     deep_counts = drive_recipe(torch, "pcqm4m-GPSdeep", CFG, GPSDEEP_LAUNCHES,
                                "mae", state, device, card)
@@ -3757,6 +3986,12 @@ def main() -> None:
     zg_counts = drive_recipe(torch, "zinc-GPS+RWSE", ZINC_GPS_CFG,
                              ZINC_GPS_LAUNCHES, "mae", zg_state, device, card)
     phase("4 zinc-GPS+RWSE")
+    # the long-range recipe: peptides-func-GPS, multilabel, ap
+    pep_counts = drive_recipe(torch, "peptides-func", PEPTIDES_CFG,
+                              PEPTIDES_LAUNCHES, "ap", pep_state, device,
+                              card, extra=PEPTIDES_OPTS,
+                              rate_batches=PEPTIDES_RATE_BATCHES)
+    phase("4 peptides-func")
 
     # 5. K training steps per dispatch as replays of one captured step
     t5 = time.perf_counter()
@@ -3767,9 +4002,14 @@ def main() -> None:
     print(json.dumps(dict(phase_done="5", elapsed_s=time.perf_counter()
                           - t_start, phase_s=time.perf_counter() - t5,
                           budget_s=KSTEP_BUDGET_S)), flush=True)
+    by_path = {"pcqm4m-GPSdeep": deep_counts, "ogbg-molhiv": mol_counts,
+               "vocsuperpixels": voc_counts, "peptides-func": pep_counts}
     for r in rows:
         path, counts = "pcqm4m-GPSdeep", deep_counts
-        if r["name"] in new:
+        if "main_path" in r:
+            # phase 3l's rows: the path named beside their shape
+            path, counts = r["main_path"], by_path[r["main_path"]]
+        elif r["name"] in new:
             path, counts = "ogbg-molhiv", mol_counts
         elif r["name"] in ("segment_csr", "segment_plan"):
             # the plan kernel also builds the edge gate's orders on VOC
@@ -3803,11 +4043,14 @@ def main() -> None:
         r["launches_wn_squirrel_csr"] = csr_counts[r["name"]]
         r["launches_wn_squirrel_bigbird"] = bb_counts[r["name"]]
         r["launches_zinc_gps_rwse"] = zg_counts[r["name"]]
+        r["launches_peptides_func"] = pep_counts[r["name"]]
         r["launch_floor_ms"] = floor_ms
+        r.setdefault("shape", path)
 
     print(card, flush=True)   # name, power limit, as nvidia-smi gives them
     print(json.dumps(dict(kernels=[
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
+        {k: r[k] for k in ("name", "shape", "route", "source", "replaces",
+                           "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "bound_rate", "library_ms",
                            "launch_floor_ms", "profile_whole",
@@ -3822,7 +4065,8 @@ def main() -> None:
                            "launches_wn_squirrel_tiled",
                            "launches_wn_squirrel_csr",
                            "launches_wn_squirrel_bigbird",
-                           "launches_zinc_gps_rwse")} for r in rows])),
+                           "launches_zinc_gps_rwse",
+                           "launches_peptides_func")} for r in rows])),
           flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(dict(ok=True, device=dict(

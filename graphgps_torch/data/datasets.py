@@ -1,15 +1,16 @@
 """Dataset loading for the port's paths: PCQM4Mv2, the OGB molecule sets
-(``ogbg-mol*``), ZINC, the VOC superpixels and the transductive node sets
-(Actor, WebKB, WikipediaNetwork), and the synthetic families they fall back
-to.
+(``ogbg-mol*``), ZINC, the LRGB peptides, the VOC and COCO superpixels and
+the transductive node sets (Actor, WebKB, WikipediaNetwork), and the
+synthetic families they fall back to.
 
 Counterparts: ``graphgps_tpu/data/datasets/synthetic.py`` (``zinc_like`` and
 ``voc_like``, the same generators and the same random streams, so both
 packages see the same graphs for one seed), ``data/datasets/real.py`` (the
-PCQM4Mv2, ``ogbg-*``, ``PyG-ZINC``, ``PyG-VOCSuperpixels`` and transductive
-→ synthetic fallbacks, :73-84, :87-96, :106-112, :189-209, :225-240 and
-:277-330) and
-``data/datasets/base.py``
+PCQM4Mv2, ``ogbg-*``, peptides, ``PyG-ZINC``, ``PyG-VOCSuperpixels``,
+``PyG-COCOSuperpixels`` and transductive → synthetic fallbacks, :73-84,
+:87-96, :106-112, :189-209, :222-241 and :277-330),
+``data/datasets/more_real.py`` (``_synthetic_molecular`` :54-80, the
+peptides stand-ins :93-119) and ``data/datasets/base.py``
 (``DatasetSplits``, ``load_dataset`` with the PE precompute).
 """
 from __future__ import annotations
@@ -76,15 +77,17 @@ def _graph_label(g: Graph, num_node_types: int, w: np.ndarray) -> float:
 
 def zinc_like(cfg) -> DatasetSplits:
     """Synthetic molecules (ZINC-like statistics) with graph-level targets:
-    regression scalars, or for a classification task one integer class per
-    graph (``max(2, synth_num_tasks)`` classes)."""
+    regression scalars; for a multilabel task ``synth_num_tasks`` 0/1
+    labels (a score above 0), a tenth of them NaN (missing, as on
+    ogbg-molpcba); for a classification task one integer class per graph
+    (``max(2, synth_num_tasks)`` classes)."""
     d = cfg.dataset
     if d.task_type not in ("regression", "classification",
-                           "classification_binary"):
+                           "classification_binary",
+                           "classification_multilabel"):
         raise NotImplementedError(
             f"dataset.task_type={d.task_type!r}: the port supports graph "
-            "regression and single-label classification (ROADMAP Queue 1 "
-            "item 17)")
+            "regression and classification (ROADMAP Queue 1 item 17)")
     rng = np.random.default_rng(d.synth_seed)
     n_types, e_types = d.node_encoder_num_types, d.edge_encoder_num_types
     w = rng.normal(size=(4 + n_types,))
@@ -97,12 +100,62 @@ def zinc_like(cfg) -> DatasetSplits:
             y = np.array([_graph_label(g, n_types, np.roll(w, t))
                           for t in range(tasks)], dtype=np.float32)
             g.y = y if tasks > 1 else y[:1]
+        elif d.task_type == "classification_multilabel":
+            t = max(1, d.synth_num_tasks)
+            scores = np.array([_graph_label(g, n_types, np.roll(w, k))
+                               for k in range(t)])
+            y = (scores > 0).astype(np.float32)
+            y[rng.random(t) < 0.1] = np.nan
+            g.y = y
         else:
             score = _graph_label(g, n_types, w)
             n_classes = max(2, d.synth_num_tasks)
             g.y = np.array([int(abs(score * 7)) % n_classes], dtype=np.int64)
         graphs.append(g)
     return _split(graphs, d.split if len(d.split) == 3 else (0.8, 0.1, 0.1))
+
+
+# the OGB-molecule-shaped stand-in's sizes (JAX ``_synthetic_molecular``'s
+# defaults, which no caller changes): atoms, atom and bond types, integer
+# node and edge columns
+MOL_MIN_NODES, MOL_MAX_NODES = 20, 150
+MOL_NODE_TYPES, MOL_EDGE_TYPES = 9, 3
+MOL_NODE_COLS, MOL_EDGE_COLS = 9, 3
+
+
+def synthetic_molecular(cfg, num_tasks: int, task_type: str) -> DatasetSplits:
+    """OGB-molecule-shaped stand-in (the peptides'): MOL_MIN_NODES..
+    MOL_MAX_NODES atoms, MOL_NODE_COLS integer node columns (the first of
+    MOL_NODE_TYPES types, the others of 4) and MOL_EDGE_COLS integer edge
+    columns (the first of MOL_EDGE_TYPES, the others of 2); ``num_tasks``
+    0/1 labels with 5% NaN for a multilabel task, else ``num_tasks``
+    regression targets. The dataset's own sizes, whatever
+    ``synth_min_nodes`` and ``synth_max_nodes`` say."""
+    n_types = MOL_NODE_TYPES
+    d = cfg.dataset
+    rng = np.random.default_rng(d.synth_seed)
+    w = rng.normal(size=(4 + n_types,))
+    graphs = []
+    for _ in range(d.synth_num_graphs):
+        g = _random_molecule(rng, MOL_MIN_NODES, MOL_MAX_NODES, n_types,
+                             MOL_EDGE_TYPES)
+        x = np.concatenate([g.node_feat] +
+                           [rng.integers(0, 4, size=(g.num_nodes, 1))
+                            for _ in range(MOL_NODE_COLS - 1)], axis=1)
+        e = np.concatenate([g.edge_feat] +
+                           [rng.integers(0, 2, size=(g.num_edges, 1))
+                            for _ in range(MOL_EDGE_COLS - 1)], axis=1)
+        g.node_feat, g.edge_feat = x.astype(np.int64), e.astype(np.int64)
+        scores = np.array([_graph_label(g, n_types, np.roll(w, t))
+                           for t in range(num_tasks)])
+        if task_type == "classification_multilabel":
+            y = (scores > 0).astype(np.float32)
+            y[rng.random(num_tasks) < 0.05] = np.nan
+        else:
+            y = scores.astype(np.float32)
+        g.y = y
+        graphs.append(g)
+    return _split(graphs)
 
 
 def _split(graphs: List[Graph], frac=(0.8, 0.1, 0.1)) -> DatasetSplits:
@@ -177,8 +230,7 @@ def _transductive(cfg) -> DatasetSplits:
                      "transductive")
 
 
-def _fallback(cfg, root: str, present: bool,
-              kind: str = "zinc-like") -> DatasetSplits:
+def _check_fallback(cfg, root: str, present: bool, kind: str) -> None:
     """The real files are not in the repository, so the run takes the same
     synthetic stand-in (``kind``) as the JAX loader's fallback; real files
     under ``root`` raise, since reading them is not ported."""
@@ -193,6 +245,12 @@ def _fallback(cfg, root: str, present: bool,
     log.warning("dataset %s/%s not cached under %s — substituting synthetic "
                 "%s", cfg.dataset.format, cfg.dataset.name, cfg.dataset.dir,
                 kind)
+
+
+def _fallback(cfg, root: str, present: bool,
+              kind: str = "zinc-like") -> DatasetSplits:
+    """``_check_fallback``, then the stand-in ``kind`` names."""
+    _check_fallback(cfg, root, present, kind)
     return {"voc-like": voc_like, "transductive": transductive_like}.get(
         kind, zinc_like)(cfg)
 
@@ -217,11 +275,45 @@ def _zinc(cfg) -> DatasetSplits:
     return _fallback(cfg, root, os.path.isdir(root))
 
 
-def _voc_superpixels(cfg) -> DatasetSplits:
-    """``PyG-VOCSuperpixels`` (``real.py:225`` ``load_superpixels``): the
-    upstream pickles sit under ``VOCSuperpixels/slic_compactness_<c>/``."""
-    root = os.path.join(cfg.dataset.dir, "VOCSuperpixels")
+def _superpixels(cfg, family: str) -> DatasetSplits:
+    """``PyG-VOCSuperpixels`` and ``PyG-COCOSuperpixels`` (``real.py:222``
+    ``load_superpixels``): the upstream pickles sit under
+    ``<family>/slic_compactness_<c>/``; both fall back to the voc-like
+    stand-in."""
+    root = os.path.join(cfg.dataset.dir, family)
     return _fallback(cfg, root, os.path.isdir(root), "voc-like")
+
+
+# the LRGB peptides: the cache and the raw folder JAX reads
+# (more_real.py:93-119, io_formats.py:488), and the stand-in's tasks
+PEPTIDES = {"functional": (10, "classification_multilabel"),
+            "structural": (11, "regression")}
+
+
+def _peptides(cfg, kind: str) -> DatasetSplits:
+    """``peptides-functional`` (10 labels) and ``peptides-structural`` (11
+    targets) (``more_real.py:93`` and :109): their npz cache or raw folder
+    under ``dataset.dir`` raise, since reading them is not ported; the
+    OGB-molecule-shaped stand-in otherwise."""
+    name = f"peptides-{kind}"
+    present = (os.path.exists(os.path.join(cfg.dataset.dir, f"{name}.npz"))
+               or os.path.isdir(os.path.join(cfg.dataset.dir, name)))
+    _check_fallback(cfg, os.path.join(cfg.dataset.dir, name), present, name)
+    return synthetic_molecular(cfg, *PEPTIDES[kind])
+
+
+def _peptides_kind(fmt: str, name: str):
+    """'functional' or 'structural' for the peptides' formats and names
+    (JAX's ``OGB`` dispatch on ``peptides-<kind>``, and the
+    ``PyG-Peptides-<kind>`` / ``OGB-peptides-<kind>`` formats), else
+    None."""
+    if fmt == "OGB" and name.startswith("peptides-"):
+        return ("functional" if name.split("-", 1)[1] == "functional"
+                else "structural")
+    for kind in PEPTIDES:
+        if fmt in (f"PyG-Peptides-{kind}", f"OGB-peptides-{kind}"):
+            return kind
+    return None
 
 
 def load_dataset(cfg) -> DatasetSplits:
@@ -235,8 +327,10 @@ def load_dataset(cfg) -> DatasetSplits:
             raise NotImplementedError(
                 f"dataset.format={fmt!r} is not ported (ROADMAP Queue 1 "
                 "item 14)")
-    elif fmt == "PyG-VOCSuperpixels":
-        splits = _voc_superpixels(cfg)
+    elif fmt in ("PyG-VOCSuperpixels", "PyG-COCOSuperpixels"):
+        splits = _superpixels(cfg, fmt[len("PyG-"):])
+    elif (kind := _peptides_kind(fmt, name)) is not None:
+        splits = _peptides(cfg, kind)
     elif fmt == "PyG-ZINC":
         splits = _zinc(cfg)
     elif ((fmt == "OGB" and name.startswith("PCQM4Mv2-"))
@@ -248,8 +342,8 @@ def load_dataset(cfg) -> DatasetSplits:
         splits = _transductive(cfg)
     else:
         raise NotImplementedError(
-            f"dataset {fmt}/{name} is not ported yet (ROADMAP Queue 1 "
-            "items 12-19)")
+            f"dataset {fmt}/{name} is not ported yet (its stand-in: ROADMAP "
+            "Queue 1 items 12-19)")
     if cfg.dataset.split_mode != "standard":
         raise NotImplementedError(
             f"dataset.split_mode={cfg.dataset.split_mode!r} is not ported "

@@ -68,13 +68,14 @@ def run_loop_settings(cfg: CfgNode, repeat: int) -> Tuple[List[int], List[int], 
 
 
 def infer_dims(cfg: CfgNode, splits: DatasetSplits) -> int:
-    """Output width from the targets (``graphgps_tpu/driver.py:66``): the
-    number of regression targets, or the largest class label of any split
-    plus one, a binary task taking one logit."""
+    """Output width from the targets (``graphgps_tpu/driver.py:66-90``): the
+    number of regression targets or of labels (a multilabel row's width),
+    or the largest class label of any split plus one, a binary task taking
+    one logit."""
     y0 = np.atleast_1d(splits.train[0].y)
     cfg.share.dim_in = int(splits.train[0].node_feat.shape[-1])
     tt = cfg.dataset.task_type
-    if tt == "regression":
+    if tt in ("regression", "classification_multilabel"):
         dim_out = int(y0.reshape(-1).shape[0])
     elif tt in ("classification", "classification_binary"):
         dim_out = 1 + max(int(np.nanmax(np.atleast_1d(g.y).astype(np.float64)))

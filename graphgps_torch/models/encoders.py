@@ -1,14 +1,15 @@
 """Node/edge feature encoders of the ported paths: Atom and Bond (embedding
-sums), TypeDictNode and TypeDictEdge (one embedding), VOCNode/LinearNode
-and VOCEdge/LinearEdge (one Linear over float features), the RWSE and LapPE
-encodings, the Graphormer bias encoder, and their composition.
+sums), TypeDictNode and TypeDictEdge (one embedding), VOCNode/COCONode/
+LinearNode and VOCEdge/LinearEdge (one Linear over float features), the
+RWSE and LapPE encodings, the Graphormer bias encoder, and their
+composition.
 
 Counterparts: ``graphgps_tpu/models/encoders.py`` (``TypeDictNodeEncoder``
 :29-40, ``AtomEncoder`` :43, ``LinearNodeEncoder``/``VOCNodeEncoder``
-:58-77, ``TypeDictEdgeEncoder`` :105-113, ``BondEncoder`` :116,
-``LinearEdgeEncoder`` :128-135, ``KernelPENodeEncoder``/RWSE :199-230,
-``LapPENodeEncoder`` :241-332 (its Transformer form :295-315),
-``GraphormerBiasEncoder`` :441-509) and
+:58-77, ``COCONodeEncoder`` :80-86, ``TypeDictEdgeEncoder`` :105-113,
+``BondEncoder`` :116, ``LinearEdgeEncoder`` :128-135,
+``KernelPENodeEncoder``/RWSE :199-230, ``LapPENodeEncoder`` :241-332 (its
+Transformer form :295-315), ``GraphormerBiasEncoder`` :441-509) and
 ``graphgps_tpu/models/networks.py:92-127`` ``FeatureEncoder``: the dataset
 encoder embeds into ``d − Σ dim_pe`` channels, each encoding of the name
 appends its ``dim_pe`` in the name's order (GraphormerBias adds its degree
@@ -85,8 +86,8 @@ class TypeDictEdgeEncoder(TypeDictNodeEncoder):
 
 
 class LinearEncoder(nn.Module):
-    """One Linear over float features (``VOCNode``/``LinearNode`` on the
-    nodes, ``VOCEdge``/``LinearEdge`` on the edges)."""
+    """One Linear over float features (``VOCNode``/``COCONode``/
+    ``LinearNode`` on the nodes, ``VOCEdge``/``LinearEdge`` on the edges)."""
 
     def __init__(self, dim_in: int, dim_emb: int):
         super().__init__()
@@ -344,7 +345,7 @@ class GraphormerBiasEncoder(nn.Module):
 
 # the dataset encoders, encodings and edge encoders the port builds, and the
 # encodings of JAX's FeatureEncoder it does not (ROADMAP Queue 1 item 16)
-NODE_ENCODERS = ("TypeDictNode", "Atom", "VOCNode", "LinearNode")
+NODE_ENCODERS = ("TypeDictNode", "Atom", "VOCNode", "COCONode", "LinearNode")
 PE_ENCODERS = ("RWSE", "LapPE")
 PE_TODO = ("HKdiagSE", "ElstaticSE", "SignNet", "EquivStableLapPE")
 EDGE_ENCODERS = ("TypeDictEdge", "Bond", "VOCEdge", "LinearEdge")
@@ -359,9 +360,9 @@ class FeatureEncoder(nn.Module):
     """The node encoder ``dataset.node_encoder_name`` names and the edge
     encoder ``dataset.edge_encoder_name`` names, composed as JAX's
     ``FeatureEncoder`` composes them. The name is a dataset encoder
-    (``TypeDictNode``: ``type_dict``; ``Atom``: ``atom``; ``VOCNode`` or
-    ``LinearNode``: ``node_lin``), then encodings (``RWSE``: ``rwse``;
-    ``LapPE``: ``lap``), each joined by ``+``: the dataset encoder embeds
+    (``TypeDictNode``: ``type_dict``; ``Atom``: ``atom``; ``VOCNode``,
+    ``COCONode`` or ``LinearNode``: ``node_lin``), then encodings
+    (``RWSE``: ``rwse``; ``LapPE``: ``lap``), each joined by ``+``: the dataset encoder embeds
     into ``dim_h − Σ dim_pe`` channels and each encoding appends its
     ``dim_pe``, in the name's order (``TypeDictNode+LapPE+RWSE``: LapPE,
     then RWSE). A name of encodings alone (``LapPE`` on the transductive

@@ -1,7 +1,8 @@
-"""Graph pooling, the san_graph, graphormer_graph and node heads
-(counterpart of ``graphgps_tpu/models/heads.py``: ``global_mean_pool`` :38,
-``graph_token_pool`` :52-60, ``SANGraphHead`` :67-89,
-``InductiveNodeHead`` :110-124, ``GraphormerGraphHead`` :128-138)."""
+"""Graph pooling, the san_graph, default graph, graphormer_graph and node
+heads (counterpart of ``graphgps_tpu/models/heads.py``: ``global_mean_pool``
+:38, ``graph_token_pool`` :52-60, ``SANGraphHead`` :67-89, ``GNNGraphHead``
+:90-107, ``InductiveNodeHead`` :110-124, ``GraphormerGraphHead``
+:128-138)."""
 from __future__ import annotations
 
 import torch
@@ -58,6 +59,25 @@ class SANGraphHead(nn.Module):
         for lin in self.hidden:
             g = self.act(lin(g))
         return self.out(g), batch.y
+
+
+class GNNGraphHead(nn.Module):
+    """The default graph head (``default`` or ``graph``): pool → ``layers``
+    Linears of the input width with relu between them, the last to
+    ``dim_out``. Like the JAX head it takes no BatchNorm, no dropout and
+    not ``gnn.act``."""
+
+    def __init__(self, dim_in: int, dim_out: int, pooling: str = "mean",
+                 layers: int = 1, act: str = "relu"):
+        super().__init__()
+        if pooling not in POOLING:
+            raise NotImplementedError(f"graph_pooling {pooling!r} is not ported")
+        self.pool = POOLING[pooling]
+        self.mlp = MLP(dim_in, dim_in, dim_out, num_layers=max(1, layers),
+                       act=act)
+
+    def forward(self, batch: GraphBatch, x):
+        return self.mlp(self.pool(x, batch)), batch.y
 
 
 class InductiveNodeHead(nn.Module):

@@ -16,7 +16,8 @@ from torch import nn
 from ..data.graph import GraphBatch
 from .encoders import FeatureEncoder
 from .gps_layer import ATTN_IMPLS, GLOBAL_TYPES, LOCAL_TYPES, MIN_DIM, GPSLayer
-from .heads import GraphormerGraphHead, InductiveNodeHead, SANGraphHead
+from .heads import (GNNGraphHead, GraphormerGraphHead, InductiveNodeHead,
+                    SANGraphHead)
 from .san import SANLayer
 
 
@@ -57,16 +58,19 @@ def check_san_supported(cfg) -> None:
 
 def check_stack_supported(cfg) -> None:
     """What a GPSModel and a SANTransformer share: no ``layers_pre_mp``,
-    the san_graph or the inductive_node head, no EquivStableLapPE, no
-    attention-weight logging."""
+    the san_graph, default graph or inductive_node head, no
+    EquivStableLapPE, no attention-weight logging."""
     if cfg.gnn.layers_pre_mp > 0:
         raise NotImplementedError(
             "gnn.layers_pre_mp > 0 is not ported (ROADMAP Queue 1 item 17)")
-    if cfg.gnn.head not in HEADS:
-        what = ("an edge head, for edge and link tasks"
-                if cfg.gnn.head in EDGE_HEADS else "the default graph head")
+    head = cfg.gnn.head
+    if head not in HEADS:
+        what = TODO_HEADS.get("edge" if head in EDGE_HEADS else head)
+        if what is None:
+            raise ValueError(f"gnn.head={head!r} is unknown: the port has "
+                             f"{sorted(HEADS)}")
         raise NotImplementedError(
-            f"gnn.head={cfg.gnn.head!r}: the port has {sorted(HEADS)} "
+            f"gnn.head={head!r}: the port has {sorted(HEADS)} "
             f"({what}: ROADMAP Queue 1 item 17)")
     if cfg.posenc_EquivStableLapPE.enable:
         raise NotImplementedError(
@@ -88,9 +92,9 @@ def check_supported(cfg) -> None:
     """The configurations the port runs (GPSModel, CustomGatedGCN ∥
     Transformer or BigBird with BatchNorm, or GCN or GINE ∥ Transformer or
     BigBird with BatchNorm or none, no LayerNorm, ``gt.attn_impl`` any of
-    JAX's but ring, the san_graph, inductive_node or node head, at a width
-    of 64 or more but with GINE at any width; a SANTransformer,
-    ``check_san_supported``; or a Graphormer,
+    JAX's but ring, the san_graph, default graph, inductive_node or node
+    head, at a width of 64 or more but with GINE at any width; a
+    SANTransformer, ``check_san_supported``; or a Graphormer,
     ``check_graphormer_supported``); anything else names the ROADMAP item
     that brings it."""
     gt = cfg.gt
@@ -133,18 +137,28 @@ def check_supported(cfg) -> None:
 
 
 # "node" is JAX's transductive alias of inductive_node (heads.py:110): the
-# split masks ride the loss mask
-HEADS = ("san_graph", "inductive_node", "node")
+# split masks ride the loss mask; "graph" the alias of the default graph
+# head (heads.py:90-91)
+HEADS = ("san_graph", "default", "graph", "inductive_node", "node")
 # the JAX package's heads over edges and links (graphgps_tpu/models/heads.py
 # :142, :198), which the port does not build yet
 EDGE_HEADS = ("inductive_edge", "infer_links")
+# the JAX package's heads the port's stacks do not build yet, each with
+# what it is for
+TODO_HEADS = {"edge": "an edge head, for edge and link tasks",
+              "ogb_code_graph": "the ogbg-code2 sequence head",
+              "graphormer_graph": "graphormer_graph outside a Graphormer"}
 
 
 def make_head(cfg, dim_in: int, dim_out: int) -> nn.Module:
     """The head ``gnn.head`` names: san_graph ignores ``gnn.layers_post_mp``
-    (two halving layers and the output), the node head takes it."""
+    (two halving layers and the output), the default graph head and the
+    node head take it."""
     if cfg.gnn.head == "san_graph":
         return SANGraphHead(dim_in, dim_out, pooling=cfg.model.graph_pooling)
+    if cfg.gnn.head in ("default", "graph"):
+        return GNNGraphHead(dim_in, dim_out, pooling=cfg.model.graph_pooling,
+                            layers=max(1, cfg.gnn.layers_post_mp))
     if cfg.gnn.head == "graphormer_graph":
         return GraphormerGraphHead(dim_in, dim_out,
                                    pooling=cfg.model.graph_pooling)

@@ -3,8 +3,9 @@
 ``scan_steps_core``/``make_scan_steps`` :196-307 and ``train_epoch_scan``
 :771, ``eval_epoch`` :812, ``custom_train`` :884-1057, ``inference_only``
 :1060, ``ogblsc_inference`` :1075, ``_loss_mask`` :81; the L1,
-cross-entropy, binary and weighted cross-entropy losses and the dispatch of
-``graphgps_tpu/models/losses.py`` :23, :41, :52, :73, :104)."""
+cross-entropy, binary, multilabel and weighted cross-entropy losses and the
+dispatch of ``graphgps_tpu/models/losses.py`` :23, :41, :52, :61, :73,
+:104)."""
 from __future__ import annotations
 
 import logging
@@ -38,9 +39,25 @@ def _f32(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
+def _abs(v):
+    """|v| with ``jnp.abs``'s gradient: slope 1 at 0 (``Tensor.abs`` takes
+    0 there), so a prediction equal to its target moves as in JAX."""
+    return torch.where(v >= 0, v, -v)
+
+
 def l1_loss(pred, true, mask):
     """Mean |pred − true| over the real graphs (NaN targets count as 0)."""
-    return _masked_mean((pred - torch.nan_to_num(true)).abs(), mask)
+    return _masked_mean(_abs(pred - torch.nan_to_num(true)), mask)
+
+
+def _bce_with_logits(pred, t):
+    """``max(p, 0) − p·t + log1p(exp(−|p|))``, the cross-entropy of logits
+    ``pred`` against targets ``t``, with JAX's gradients at a logit of
+    exactly 0: ``jnp.maximum`` splits a tie's gradient in two, and
+    ``jnp.abs`` takes the slope 1 there (so −t, where ``torch.clamp`` and
+    ``Tensor.abs`` would give 1 − t)."""
+    return (torch.maximum(pred, torch.zeros_like(pred)) - pred * t
+            + torch.log1p(torch.exp(-_abs(pred))))
 
 
 def binary_cross_entropy(pred, true, mask):
@@ -48,9 +65,18 @@ def binary_cross_entropy(pred, true, mask):
     (B, 1), true the 0/1 labels (any dtype)."""
     pred = _f32(pred.reshape(pred.shape[0], -1)[:, 0])
     t = torch.nan_to_num(true.float()).reshape(pred.shape)
-    vals = (torch.clamp(pred, min=0) - pred * t
-            + torch.log1p(torch.exp(-pred.abs())))
-    return _masked_mean(vals, mask)
+    return _masked_mean(_bce_with_logits(pred, t), mask)
+
+
+def multilabel_cross_entropy(pred, true, mask):
+    """Binary cross-entropy with logits per label over the real rows' labels
+    that are not NaN; pred and true (R, T), the mean over those entries."""
+    pred = _f32(pred)
+    valid = ~torch.isnan(true)
+    t = torch.nan_to_num(true.to(pred.dtype))
+    vals = _bce_with_logits(pred, t)
+    m = mask.reshape(mask.shape + (1,) * (vals.ndim - mask.ndim)) & valid
+    return (vals * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
 def _class_targets(pred, true):
@@ -87,12 +113,17 @@ def weighted_cross_entropy(pred, true, mask):
 
 def compute_loss(cfg, pred, true, mask):
     """The loss of the task (``losses.py:104-138``): ``l1`` for the
-    regression recipes; ``cross_entropy`` (or ``auto``) is binary
-    cross-entropy on a ``classification_binary`` task and the multiclass
-    one on ``classification``; ``weighted_cross_entropy`` as named."""
+    regression recipes (the mean over every target of the real rows);
+    ``cross_entropy`` (or ``auto``) is binary cross-entropy on a
+    ``classification_binary`` task, multilabel binary cross-entropy (NaN
+    targets left out) on ``classification_multilabel`` and the multiclass
+    one on ``classification``; ``weighted_cross_entropy`` as named. Under
+    ``model.size_average: sum`` the losses whose denominator depends on the
+    data (NaN-filtered, class-weighted) raise, as JAX's do."""
     name, tt = cfg.model.loss_fun, cfg.dataset.task_type
     if name in ("cross_entropy", "ce", "auto"):
         name = {"classification_binary": "binary_cross_entropy",
+                "classification_multilabel": "multilabel_cross_entropy",
                 "classification": "cross_entropy"}.get(tt)
     if name == "l1":
         loss = l1_loss(pred, true, mask)
@@ -103,18 +134,20 @@ def compute_loss(cfg, pred, true, mask):
     elif name == "cross_entropy":
         loss = cross_entropy(pred, true, mask)
         d = 1
-    elif name == "weighted_cross_entropy":
+    elif name in ("multilabel_cross_entropy", "weighted_cross_entropy"):
         if cfg.model.size_average == "sum":
             raise ValueError(
-                "model.size_average='sum' is not supported for "
-                "weighted_cross_entropy: its denominator is class-weighted; "
-                "use 'mean'")
-        return weighted_cross_entropy(pred, true, mask)
+                f"model.size_average='sum' is not supported for {name!r}: "
+                "its denominator is data-dependent (NaN-filtered / "
+                "class-weighted); use 'mean'")
+        return {"multilabel_cross_entropy": multilabel_cross_entropy,
+                "weighted_cross_entropy": weighted_cross_entropy}[name](
+                    pred, true, mask)
     else:
         raise NotImplementedError(
             f"model.loss_fun={cfg.model.loss_fun!r} on task_type={tt!r} is "
-            "not ported (multi-target and multilabel losses: ROADMAP Queue 1 "
-            "item 17)")
+            "not ported (mse, smoothl1 and the subtoken loss: ROADMAP Queue "
+            "1 item 17)")
     if cfg.model.size_average == "sum":
         loss = loss * mask.sum() * d
     return loss

@@ -10,7 +10,8 @@ running statistics key by key. A flax ``Dense`` kernel
 is (in, out): the GPS layers keep it so, since their kernels take that
 layout, and the ``nn.Linear`` weights of the encoders (RWSE, LapPE, the
 Linear node and edge encoders, GINE's MLPs) and of the heads (san_graph, the
-node head's MLP) take it transposed (out, in); an ``Embed`` table stays as
+MLPs of the default graph head, ``GNNGraphHead_0/MLP_0``, and of the node
+head) take it transposed (out, in); an ``Embed`` table stays as
 it is; a ``MaskedBatchNorm``'s ``scale``/``bias`` and its
 running ``mean``/``var`` (biased) become ``weight``/``bias`` and
 ``running_mean``/``running_var``. The layer stack may be unrolled
@@ -251,8 +252,8 @@ def state_dict_from_flax(params: dict,
             _linear(out, f"head.hidden.{i}", head[f"Dense_{i}"])
         _linear(out, "head.out", head[f"Dense_{n - 1}"])
     else:
-        _dense_list(out, "head.mlp.layers",
-                    params["InductiveNodeHead_0"]["MLP_0"])
+        head = params.get("GNNGraphHead_0") or params["InductiveNodeHead_0"]
+        _dense_list(out, "head.mlp.layers", head["MLP_0"])
     return to_torch(out)
 
 
@@ -289,7 +290,8 @@ def _encoder_state_dict(out: dict, fe: dict, fs) -> None:
     if "Dense_0" in fe:
         # an encoding's name alone: the raw features' projection
         _linear(out, "encoder.node_lin.proj", fe["Dense_0"])
-    for enc, names in (("node_lin", ("VOCNodeEncoder_0", "LinearNodeEncoder_0")),
+    for enc, names in (("node_lin", ("VOCNodeEncoder_0", "COCONodeEncoder_0",
+                                     "LinearNodeEncoder_0")),
                        ("edge_lin", ("LinearEdgeEncoder_0",))):
         for name in names:
             if name in fe:

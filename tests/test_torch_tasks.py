@@ -59,12 +59,15 @@ def test_binary_cross_entropy_matches_jax(size_average):
 
 
 def test_loss_refuses_unported():
+    """A loss the port does not have yet (``smoothl1``, ROADMAP Queue 1 item
+    17) raises; multilabel BCE is ported (``tests/test_torch_lrgb.py``
+    holds it against JAX)."""
     from graphgps_torch.train.loop import compute_loss
 
-    _, tcfg = small_cfgs("dataset.task_type", "classification_multilabel",
+    _, tcfg = small_cfgs("model.loss_fun", "smoothl1",
                          cfg_path=MOLHIV_CFG, small=MOLHIV_SMALL)
     t = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
         compute_loss(tcfg, t, torch.zeros(4, 1), torch.ones(4, dtype=torch.bool))
 
 
@@ -72,7 +75,8 @@ def test_loss_refuses_unported():
 def test_binary_metrics_match_jax(ties):
     """accuracy, accuracy-SBM, precision, recall, f1 and auc (rank
     statistic; average ranks on tied scores), equal to 1e-12; on logits and
-    on probabilities; one class absent gives auc 0."""
+    on probabilities; one class absent gives auc 0; the same scores as one
+    multilabel column give JAX's ap and auc, that auc the binary one."""
     from graphgps_tpu.metrics import compute_task_metrics as jm
     from graphgps_torch.metrics import auroc, compute_task_metrics
 
@@ -86,8 +90,14 @@ def test_binary_metrics_match_jax(ties):
             assert got[k] == pytest.approx(v, abs=1e-12), k
         assert 0.0 < got["auc"] < 1.0
     assert auroc(pred.ravel(), np.zeros(200)) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_task_metrics("classification_multilabel", pred, true)
+    want = jm("classification_multilabel", pred, true.astype(np.float32))
+    got = compute_task_metrics("classification_multilabel", pred,
+                               true.astype(np.float32))
+    assert list(got) == ["ap", "auc"]
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, abs=1e-12), k
+    assert got["auc"] == pytest.approx(auroc(pred.ravel(), true.ravel()),
+                                       abs=1e-12)
 
 
 def test_cosine_with_warmup_matches_jax():
@@ -228,12 +238,13 @@ def test_pcqm4m_gps_cli_cpu_trains_plain_tails(tmp_path):
 
 @pytest.mark.parametrize("key,val,what", [
     ("gt.dim_hidden", "32", "dim_hidden=32"),
-    ("dataset.task_type", "classification_multilabel", "task_type"),
+    ("dataset.task_type", "subtoken_prediction", "task_type"),
     ("optim.scheduler", "step", "scheduler"),
 ])
 def test_molhiv_unported_settings_raise(tmp_path, key, val, what):
     """What the recipe's neighbours still refuse, each naming its ROADMAP
-    item: a width below 64, multilabel targets, another schedule."""
+    item: a width below 64, subtoken targets (ogbg-code2's), another
+    schedule. (Multilabel targets train: ``tests/test_torch_lrgb.py``.)"""
     from graphgps_torch.driver import main
 
     extra = ["gnn.dim_inner", "32"] if key == "gt.dim_hidden" else []
